@@ -1,0 +1,57 @@
+"""The port's hybrid IVF-Flat filtered similarity search (RAM tier).
+
+  HybridSpec, make_hybrid, l2_normalize              — hybrid vector layout
+  FilterBuilder, FilterSpec, match_all, filter_mask  — DNF filters
+  build_from_assignments, index_from_arrays          — index construction
+  ClusterSummaries, build_summaries, can_match       — filter-aware pruning
+  search_reference, brute_force, recall_at_k         — reference paths
+  SearchEngine, search_fused_tiled                   — the fused tiled path
+"""
+
+from repro_torch.core.hybrid import (
+    ATTR_MAX,
+    ATTR_MIN,
+    HybridSpec,
+    l2_normalize,
+    make_hybrid,
+)
+from repro_torch.core.filters import (
+    FilterBuilder,
+    FilterSpec,
+    filter_mask,
+    from_builders,
+    match_all,
+)
+from repro_torch.core.ivf import (
+    BuildStats,
+    IVFFlatIndex,
+    build_from_assignments,
+    default_n_clusters,
+    index_from_arrays,
+    quantize_index,
+    validity_mask,
+)
+from repro_torch.core.summaries import (
+    ClusterSummaries,
+    build_summaries,
+    can_match,
+)
+from repro_torch.core.search import (
+    SearchResult,
+    brute_force,
+    centroid_scores,
+    recall_at_k,
+    search_centroids,
+    search_reference,
+)
+from repro_torch.core.engine import SearchEngine, search_fused_tiled
+
+__all__ = [
+    "ATTR_MAX", "ATTR_MIN", "BuildStats", "ClusterSummaries", "FilterBuilder",
+    "FilterSpec", "HybridSpec", "IVFFlatIndex", "SearchEngine", "SearchResult",
+    "brute_force", "build_from_assignments", "build_summaries", "can_match",
+    "centroid_scores", "default_n_clusters", "filter_mask", "from_builders",
+    "index_from_arrays", "l2_normalize", "make_hybrid", "match_all",
+    "quantize_index", "recall_at_k", "search_centroids", "search_fused_tiled",
+    "search_reference", "validity_mask",
+]

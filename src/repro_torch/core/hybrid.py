@@ -1,0 +1,77 @@
+"""Hybrid vectors (paper §3.5, §4.1): the port of ``repro.core.hybrid``.
+
+A hybrid vector ``h_i = [x_i || a_i]`` is a dense core embedding in
+``R^D`` plus a discrete attribute row in ``Z^M``.  The two halves keep their
+natural dtypes (core: bf16/f32, attributes: int16) and travel together
+through the index.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+
+ATTR_MIN = -32768
+ATTR_MAX = 32767
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridSpec:
+    """Logical layout of a hybrid vector.
+
+    Attributes:
+      dim: D, dimensionality of the dense core embedding.
+      n_attrs: M, number of discrete filter attributes.
+      core_dtype: storage dtype of the core half.
+      attr_dtype: storage dtype of the attribute half (int16 per the paper).
+      metric: "dot" (maximized inner product) or "l2" (Euclidean, scored
+        as ``-||q - v||²``).
+    """
+
+    dim: int
+    n_attrs: int
+    core_dtype: torch.dtype = torch.bfloat16
+    attr_dtype: torch.dtype = torch.int16
+    metric: str = "dot"
+
+    def __post_init__(self):
+        if self.dim <= 0:
+            raise ValueError(f"dim must be positive, got {self.dim}")
+        if self.n_attrs < 0:
+            raise ValueError(f"n_attrs must be >= 0, got {self.n_attrs}")
+        if self.metric not in ("dot", "l2"):
+            raise ValueError(f"metric must be 'dot' or 'l2', got {self.metric!r}")
+
+    @property
+    def hybrid_dim(self) -> int:
+        """D + M, the paper's hybrid dimensionality (778 in the case study)."""
+        return self.dim + self.n_attrs
+
+
+def make_hybrid(spec: HybridSpec, core, attrs, *, device="cuda"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Validates and casts a batch of (core, attrs) to the storage dtypes."""
+    dev = resolve_device(device)
+    core = torch.as_tensor(core, device=dev)
+    attrs = torch.as_tensor(attrs, device=dev)
+    if core.ndim != 2 or core.shape[-1] != spec.dim:
+        raise ValueError(f"core must be [N, {spec.dim}], got {tuple(core.shape)}")
+    if attrs.ndim != 2 or attrs.shape[-1] != spec.n_attrs:
+        raise ValueError(
+            f"attrs must be [N, {spec.n_attrs}], got {tuple(attrs.shape)}"
+        )
+    if core.shape[0] != attrs.shape[0]:
+        raise ValueError(
+            f"core and attrs disagree on N: {core.shape[0]} vs {attrs.shape[0]}"
+        )
+    return core.to(spec.core_dtype), attrs.to(spec.attr_dtype)
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Normalizes rows so dot == cosine."""
+    n = torch.sqrt(torch.sum(torch.square(x.float()), -1, keepdim=True))
+    return (x / torch.clamp(n, min=eps)).to(x.dtype)

@@ -1,0 +1,109 @@
+"""Probe planning: query tiling and per-batch probe deduplication — the
+port of ``repro.core.probes`` (the RAM tier's part).
+
+Queries are grouped into tiles of ``q_block`` rows; per tile, the Q·T probe
+ids are sorted and deduplicated into a table of ``u_cap`` unique-cluster
+slots (padded by repeating the last unique id); every (query, t) probe keeps
+a pointer into the table so its candidates can be gathered back after the
+scan.  All shapes are static (sort + cumsum + scatter).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+# int32 max: sorts after every real key, so invalid entries sink to the end.
+_SENTINEL = 2**31 - 1
+
+
+def dedup_rows(keys: torch.Tensor, valid: Optional[torch.Tensor], cap: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row-wise sorted dedup into a static-size unique table.
+
+    Args:
+      keys:  [R, L] int32 (each row deduped independently).
+      valid: [R, L] bool or None; invalid entries are excluded.
+      cap:   static table width.
+
+    Returns:
+      table   [R, cap] int32 — unique keys, ascending; tail slots repeat the
+              row's last unique key (0 for all-invalid rows).
+      slot_of [R, L] int32 — UNCAPPED unique index of each entry's key (junk,
+              but >= 0, where ``valid`` is False); values >= cap overflowed.
+      count   [R] int32 — number of unique valid keys per row.
+    """
+    r, l = keys.shape
+    dev = keys.device
+    k = keys.int() if valid is None else torch.where(valid, keys.int(), _SENTINEL)
+    order = torch.argsort(k, dim=1, stable=True)
+    ks = torch.gather(k, 1, order)  # [R, L] ascending
+    vs = ks != _SENTINEL
+    first = vs & torch.cat(
+        [torch.ones((r, 1), dtype=torch.bool, device=dev),
+         ks[:, 1:] != ks[:, :-1]], dim=1)
+    slot_sorted = torch.clamp(torch.cumsum(first.int(), dim=1) - 1, min=0)
+    count = first.sum(dim=1).int()
+
+    # the reference's mode="drop" scatter: destinations >= cap land in a
+    # spare column that is cut off
+    dest = torch.where(first & (slot_sorted < cap), slot_sorted, cap)
+    table = torch.zeros((r, cap + 1), dtype=torch.int32, device=dev)
+    table.scatter_(1, dest.long(), ks)
+    table = table[:, :cap]
+    capped = torch.clamp(count, max=cap)
+    last = torch.gather(table, 1, torch.clamp(capped - 1, min=0).long()[:, None])
+    table = torch.where(
+        torch.arange(cap, device=dev)[None, :] < torch.clamp(capped, min=1)[:, None],
+        table, last)
+
+    slot_of = torch.zeros((r, l), dtype=torch.int32, device=dev)
+    slot_of.scatter_(1, order, slot_sorted.int())
+    return table, slot_of, count
+
+
+def plan_probe_tiles(probe_ids: torch.Tensor, *, q_block: int, u_cap: int,
+                     probe_valid: Optional[torch.Tensor] = None):
+    """Builds the tiled kernel's slot tables for a single-host batch.
+
+    Args:
+      probe_ids: [Qpad, T] int32 cluster ids, Qpad a multiple of q_block.
+      q_block:   query-tile height QB.
+      u_cap:     unique-probe capacity per tile; probes beyond it are
+                 reported via ``probe_ok`` and their candidates dropped.
+      probe_valid: optional [Qpad, T] bool — probes the planner pruned never
+                 enter the slot tables and report ``probe_ok=False``.
+
+    Returns ``(slot_cluster [n_tiles·u_cap], slot_tile [n_tiles·u_cap],
+    slot_of_probe [Qpad, T], probe_ok [Qpad, T], n_unique [n_tiles])``.
+    """
+    qpad, t = probe_ids.shape
+    if qpad % q_block:
+        raise ValueError(f"Qpad={qpad} not a multiple of q_block={q_block}")
+    n_tiles = qpad // q_block
+    dev = probe_ids.device
+    flat = probe_ids.reshape(n_tiles, q_block * t).int()
+    valid = (None if probe_valid is None
+             else probe_valid.reshape(n_tiles, q_block * t))
+    table, slot_of, count = dedup_rows(flat, valid, u_cap)
+    slot_cluster = table.reshape(-1)
+    tiles = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    slot_tile = torch.repeat_interleave(tiles, u_cap)
+    probe_ok = (slot_of < u_cap).reshape(qpad, t)
+    if probe_valid is not None:
+        probe_ok = probe_ok & probe_valid
+    slot_of_probe = (
+        torch.clamp(slot_of, max=u_cap - 1) + tiles[:, None] * u_cap
+    ).reshape(qpad, t).int()
+    return slot_cluster, slot_tile, slot_of_probe, probe_ok, count
+
+
+def pad_to_tiles(x: torch.Tensor, q_block: int) -> torch.Tensor:
+    """Pads the leading (query) axis up to a q_block multiple with copies of
+    the last row, which dedupe into the real queries' probe slots."""
+    q = x.shape[0]
+    pad = (-q) % q_block
+    if pad == 0:
+        return x
+    return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))], dim=0)

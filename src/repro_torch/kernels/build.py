@@ -1,0 +1,99 @@
+"""Builds the port's CUDA kernels with ``nvcc`` and loads them with ctypes.
+
+Each ``kernels/<name>/csrc/<file>.cu`` has a plain C interface and is
+compiled on first use into ``build/kernels/<file>-<hash>.so`` at the root
+of the checkout (``.gitignore`` lists ``build/``); the hash covers the
+source and the flags, so an edited source is rebuilt.  Nothing is compiled
+when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[Path, ctypes.CDLL] = {}
+
+
+def sources() -> List[Path]:
+    """Every CUDA source of the port, sorted."""
+    return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
+
+
+def _start(src: Path):
+    """Starts nvcc on ``src`` unless its library exists; returns
+    ``(target, tmp, process)`` or ``(target, None, None)``."""
+    out = _target(src)
+    if out.exists():
+        return out, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def _finish(src: Path, out: Path, tmp, proc) -> str:
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(srcs: Iterable[Path] = ()) -> Dict[str, dict]:
+    """Compiles the given sources (default: all) with one nvcc each, all
+    started together.  Returns ``{stem: {"seconds", "log"}}``."""
+    srcs = list(srcs) or sources()
+    with _LOCK:
+        t0 = time.perf_counter()
+        started = [(src, *_start(src)) for src in srcs]
+        report = {}
+        for src, out, tmp, proc in started:
+            log = _finish(src, out, tmp, proc)
+            report[src.stem] = dict(seconds=time.perf_counter() - t0, log=log)
+    return report
+
+
+def load(src: Path) -> ctypes.CDLL:
+    """The loaded library of ``src``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(src)
+        if lib is None:
+            out, tmp, proc = _start(src)
+            _finish(src, out, tmp, proc)
+            lib = _LIBS[src] = ctypes.CDLL(str(out))
+    return lib
