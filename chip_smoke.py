@@ -7,7 +7,10 @@ Phases:
   1. environment and build: the card, the versions, one ``nvcc`` per CUDA
      source (all started together);
   2. every kernel against its plain PyTorch version on the card, at small
-     ragged shapes (dot bf16, dot f32, l2 f32, SQ8; F = 1 and 2 DNF terms);
+     ragged shapes: filtered_scan_tiled and the per-probe filtered_scan
+     over their dtype pairs and metrics (F = 1 and 2 DNF terms),
+     centroid_topk over dot/l2 x f32/bf16 and T = 1, 7, 32 with tied
+     centroids, and a case where every score is below 0;
   3. the main path at real size: a 10M x 768 bf16 index with 10 int16
      attributes built on the card from given assignments, served by
      ``SearchEngine(k=10, n_probes=7, q_block=64, prune="auto")`` in batches
@@ -15,8 +18,14 @@ Phases:
      to 0 just before and read just after; results are checked against the
      port's ``search_reference`` and scored for recall against an exact
      brute-force oracle;
+  3b. the one-shard sharded search (``make_sharded_search``, per-probe and
+     tiled backends) on the same batches, and ``search_fused`` on one batch
+     per mix, with the launch counts set to 0 just before and read just
+     after; each result is checked against ``search_reference`` and the
+     engine's;
   4. each kernel on one full-size batch: held against its plain version,
-     timed beside its bound.
+     timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
+     for centroid_topk).
 
 Prints the card's name and power limit, a JSON line describing every
 kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -71,29 +80,29 @@ def ms(fn, reps):
     return statistics.median(times)
 
 
-def check_scan(name, got, want):
-    """Kernel output against the plain version: npass exact, vals within
-    rtol 1e-5 + atol 1e-5·max|score|, ids exact where the score is apart
-    from its neighbours by more than that tolerance.  Returns max |err|."""
+def check_topk(name, gv, gi, wv, wi, w_next=None):
+    """Top-k lists against their plain version: vals within rtol 1e-5 +
+    atol 1e-5·max|val|, ids exact where the value is apart from its
+    neighbours by more than twice that atol, pads (NEG_INF) with id -1.
+    ``w_next`` is the plain version's next value past the list, if known:
+    the last entry is then a near-tie when it lies that close to it.
+    Returns max |err|."""
     import torch
 
-    gv, gi, gn = got
-    wv, wi, wn = want
-    if not torch.equal(gn, wn):
-        raise AssertionError(f"{name}: npass differs")
     live = wv > NEG_INF / 2
     if not torch.equal(gv > NEG_INF / 2, live):
-        raise AssertionError(f"{name}: a different set of rows passed")
+        raise AssertionError(f"{name}: a different set of entries passed")
     scale = float(wv[live].abs().max()) if bool(live.any()) else 1.0
     atol = 1e-5 * scale
     err = (gv - wv).abs()
     err = torch.where(live, err, 0.0)
-    max_err = float(err.max())
+    max_err = float(err.max()) if err.numel() else 0.0
     if bool((err > atol + 1e-5 * wv.abs()).any()):
         raise AssertionError(f"{name}: vals off by up to {max_err}")
     big = torch.full_like(wv[..., :1], float("inf"))
+    last = big if w_next is None else wv[..., -1:] - w_next[..., None]
     gap_prev = torch.cat([big, wv[..., :-1] - wv[..., 1:]], -1)
-    gap_next = torch.cat([wv[..., :-1] - wv[..., 1:], big], -1)
+    gap_next = torch.cat([wv[..., :-1] - wv[..., 1:], last], -1)
     clear = live & (torch.minimum(gap_prev, gap_next) > 2 * atol)
     if not torch.equal(torch.where(clear, gi, 0), torch.where(clear, wi, 0)):
         raise AssertionError(f"{name}: ids differ away from near-ties")
@@ -102,12 +111,58 @@ def check_scan(name, got, want):
     return max_err
 
 
+def check_scan(name, got, want):
+    """Tiled scan output against the plain version: npass exact, then
+    :func:`check_topk` on (vals, ids).  Returns max |err|."""
+    import torch
+
+    if not torch.equal(got[2], want[2]):
+        raise AssertionError(f"{name}: npass differs")
+    return check_topk(name, got[0], got[1], want[0], want[1])
+
+
+def check_scores(name, got, want):
+    """Masked [P, Vpad] scores against the plain version: the same rows
+    pass, values within rtol 1e-5 + atol 1e-5·max|score|.  Returns
+    max |err|."""
+    import torch
+
+    live = want > NEG_INF / 2
+    if not torch.equal(got > NEG_INF / 2, live):
+        raise AssertionError(f"{name}: a different set of rows passed")
+    scale = float(want[live].abs().max()) if bool(live.any()) else 1.0
+    err = torch.where(live, (got - want).abs(), 0.0)
+    max_err = float(err.max())
+    if bool((err > 1e-5 * scale + 1e-5 * want.abs()).any()):
+        raise AssertionError(f"{name}: scores off by up to {max_err}")
+    return max_err
+
+
+def check_centroids(name, queries, centroids, t, metric="dot"):
+    """centroid_topk against its plain version (run for T + 1, so a swap
+    at the list's end is judged against the next centroid).  Returns the
+    kernel's (vals, ids) and max |err|."""
+    from repro_torch.kernels.centroid_topk import centroid_topk as ct_mod
+    from repro_torch.kernels.centroid_topk.ref import centroid_topk_ref
+
+    got = ct_mod.centroid_topk(queries, centroids, t=t, metric=metric)
+    kn = min(t + 1, centroids.shape[0])
+    wv, wi = centroid_topk_ref(queries, centroids, t=kn, metric=metric)
+    w_next = wv[:, t] if kn > t else None
+    err = check_topk(name, got[0], got[1], wv[:, :t], wi[:, :t], w_next)
+    tie = got[0][:, 1:] == got[0][:, :-1]
+    if not bool((got[1][:, 1:][tie] > got[1][:, :-1][tie]).all()):
+        raise AssertionError(f"{name}: a tie did not go to the lower id")
+    return got, err
+
+
 def small_cases(dev, gen):
     """Phase 2 operands: (name, args, kwargs) at small ragged shapes."""
     import torch
 
     kc, vpad, d, m, qb, n_tiles, u_cap = 7, 328, 100, M_ATTRS, 72, 3, 6
-    for variant in ("dot-bf16", "dot-f32", "l2-f32", "sq8"):
+    for variant in ("dot-bf16", "dot-f32", "l2-f32", "sq8", "dot-f32q-bf16v",
+                    "l2-f32q-bf16v"):
         for f in (1, 2):
             def ri(lo, hi, shape, dtype):
                 return torch.randint(lo, hi, shape, generator=gen, device=dev,
@@ -122,8 +177,10 @@ def small_cases(dev, gen):
                                   -127, 127).to(torch.int8)
             elif variant == "dot-bf16":
                 vec, queries = vec.bfloat16(), queries.bfloat16()
-            if variant == "l2-f32":
-                norms = (vec ** 2).sum(-1)
+            elif variant.endswith("f32q-bf16v"):
+                vec = vec.bfloat16()
+            if variant.startswith("l2"):
+                norms = (vec.float() ** 2).sum(-1)
             args = (
                 ri(0, kc, (n_tiles * u_cap,), torch.int32),
                 torch.arange(n_tiles, device=dev, dtype=torch.int32
@@ -135,9 +192,69 @@ def small_cases(dev, gen):
                 vec.contiguous(), ri(0, 16, (kc, vpad, m), torch.int16),
                 ri(-1, 10**6, (kc, vpad), torch.int32), norms, scales,
             )
-            kw = dict(metric="l2" if variant == "l2-f32" else "dot",
+            kw = dict(metric="l2" if variant.startswith("l2") else "dot",
                       k=K_TOP, q_block=qb)
             yield f"{variant} F={f}", args, kw
+
+
+def centroid_cases(dev, gen):
+    """Phase 2 operands of centroid_topk: (name, queries, centroids, t,
+    metric); K = 333 fills no whole 128-centroid tile, duplicated centroids
+    tie exactly, and one case has every score below 0."""
+    import torch
+
+    kc, d, q = 333, 100, 37
+    cents = torch.randn((kc, d), generator=gen, device=dev)
+    cents[[40, 41, 300]] = cents[7].clone()
+    queries = torch.cat([cents[[7, 7]],
+                         torch.randn((q - 2, d), generator=gen, device=dev)])
+    for metric in ("dot", "l2"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for t in (1, 7, 32):
+                yield (f"{metric} {str(dtype)[6:]} T={t}", queries.to(dtype),
+                       cents.to(dtype), t, metric)
+    pos = torch.rand((4, 8), generator=gen, device=dev) + 0.1
+    neg = -(torch.rand((96, 8), generator=gen, device=dev) + 0.1)
+    yield "all scores negative", pos, neg, 4, "dot"
+
+
+def per_probe_cases(dev, gen):
+    """Phase 2 operands of the per-probe filtered_scan: (name, args,
+    kwargs) for its five variants, F = 1 and 2, D = 100 (scalar loads) and
+    96 (16-byte loads); a run of slots scans one cluster."""
+    import torch
+
+    kc, vpad, m, q, p = 7, 300, M_ATTRS, 9, 40
+    for variant in ("dot-bf16", "dot-f32", "dot-f32q-bf16v", "sq8", "l2-f32"):
+        for f in (1, 2):
+            for d in (100, 96):
+                def ri(lo, hi, shape, dtype):
+                    return torch.randint(lo, hi, shape, generator=gen,
+                                         device=dev, dtype=dtype)
+
+                vec = torch.randn((kc, vpad, d), generator=gen, device=dev)
+                queries = torch.randn((q, d), generator=gen, device=dev)
+                norms = scales = None
+                if variant == "sq8":
+                    scales = vec.abs().amax(-1) / 127.0
+                    vec = torch.clamp(torch.round(vec / scales[..., None]),
+                                      -127, 127).to(torch.int8)
+                elif variant == "dot-bf16":
+                    vec, queries = vec.bfloat16(), queries.bfloat16()
+                elif variant == "dot-f32q-bf16v":
+                    vec = vec.bfloat16()
+                else:
+                    norms = (vec ** 2).sum(-1) if variant == "l2-f32" else None
+                slot_cluster = torch.cat([
+                    torch.full((8,), 3, device=dev, dtype=torch.int32),
+                    ri(0, kc, (p - 8,), torch.int32)])
+                args = (slot_cluster, ri(0, q, (p,), torch.int32),
+                        queries.contiguous(), ri(-8, 3, (q, f, m), torch.int16),
+                        ri(3, 14, (q, f, m), torch.int16), vec.contiguous(),
+                        ri(0, 16, (kc, vpad, m), torch.int16),
+                        ri(-1, 10**6, (kc, vpad), torch.int32), norms, scales)
+                kw = dict(metric="l2" if variant == "l2-f32" else "dot")
+                yield f"{variant} F={f} D={d}", args, kw
 
 
 def make_index(n, dev, gen):
@@ -224,6 +341,64 @@ def check_against_reference(mix, index, queries, fspec, res):
         raise AssertionError(f"{mix}: n_pruned differs")
 
 
+def probe_agreement(index, queries):
+    """[Q] bool: the sharded search's probes (probe_centroids, the kernel)
+    are the same set as search_centroids' (torch.matmul).  Where they are
+    not, check_centroids must find only near-ties of the centroid scores."""
+    from repro_torch.core import search_centroids
+    from repro_torch.kernels.centroid_topk import probe_centroids
+
+    got = probe_centroids(queries, index.centroids, t=N_PROBES)[1]
+    want = search_centroids(index, queries, N_PROBES)[0]
+    agree = (got.sort(-1).values == want.sort(-1).values).all(-1)
+    if not bool(agree.all()):
+        check_centroids("probe sets", queries, index.centroids, N_PROBES)
+    return agree
+
+
+def check_sharded(name, index, queries, fspec, res, eng, agree):
+    """A sharded-search batch: no overflow, N_CHECK queries against
+    search_reference and the whole batch against the engine's result, on
+    the queries whose probe sets agree."""
+    from repro_torch.core import FilterSpec, search_reference
+
+    if res.scores.shape != (Q, K_TOP) or not bool(res.scores.isfinite().all()):
+        raise AssertionError(f"{name}: malformed scores")
+    if int(res.n_scanned.abs().max()) != 0 or int(res.n_passed.abs().max()):
+        raise AssertionError(f"{name}: overflow count or n_passed not 0")
+    sel = slice(0, N_CHECK)
+    ref = search_reference(index, queries[sel],
+                           FilterSpec(lo=fspec.lo[sel], hi=fspec.hi[sel]),
+                           k=K_TOP, n_probes=N_PROBES)
+    a = agree[sel]
+    check_topk(f"{name} vs search_reference", res.scores[sel][a],
+               res.ids[sel][a], ref.scores[a], ref.ids[a])
+    check_topk(f"{name} vs the engine", res.scores[agree], res.ids[agree],
+               eng.scores[agree], eng.ids[agree])
+
+
+def check_fused(name, index, queries, fspec, res, eng):
+    """A search_fused batch against search_reference (N_CHECK queries,
+    counters exact) and the engine (the whole batch, n_passed exact)."""
+    import torch
+
+    from repro_torch.core import FilterSpec, search_reference
+
+    sel = slice(0, N_CHECK)
+    ref = search_reference(index, queries[sel],
+                           FilterSpec(lo=fspec.lo[sel], hi=fspec.hi[sel]),
+                           k=K_TOP, n_probes=N_PROBES)
+    check_topk(f"{name} vs search_reference", res.scores[sel], res.ids[sel],
+               ref.scores, ref.ids)
+    for c in ("n_scanned", "n_passed"):
+        if not torch.equal(getattr(res, c)[sel], getattr(ref, c)):
+            raise AssertionError(f"{name}: {c} differs from search_reference")
+    check_topk(f"{name} vs the engine", res.scores, res.ids, eng.scores,
+               eng.ids)
+    if not torch.equal(res.n_passed, eng.n_passed):
+        raise AssertionError(f"{name}: n_passed differs from the engine")
+
+
 def exact_oracle(index, queries, fspec, chunk=256):
     """Exact filtered top-k over every live row, brute_force over chunks of
     clusters merged through the top-k monoid."""
@@ -261,11 +436,24 @@ def main(argv=None):
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.core import SearchEngine, recall_at_k
+    from repro_torch.core.distributed import (
+        BACKENDS, ShardedSearchConfig, make_sharded_search)
     from repro_torch.core.search import SearchResult
     from repro_torch.kernels import build
+    from repro_torch.kernels.centroid_topk import centroid_topk as ct_mod
+    from repro_torch.kernels.centroid_topk.ref import centroid_topk_ref
     from repro_torch.kernels.filtered_scan import filtered_scan as fs_mod
+    from repro_torch.kernels.filtered_scan import search_fused
     from repro_torch.kernels.filtered_scan.ref import (
-        filtered_scan_tiled_ref, live_slots)
+        filtered_scan_ref, filtered_scan_tiled_ref, live_slots)
+
+    def reset_launches():
+        ct_mod.LAUNCHES = fs_mod.LAUNCHES = fs_mod.PER_PROBE_LAUNCHES = 0
+
+    def launches():
+        return {"centroid_topk": ct_mod.LAUNCHES,
+                "filtered_scan_tiled": fs_mod.LAUNCHES,
+                "filtered_scan": fs_mod.PER_PROBE_LAUNCHES}
 
     t_all = time.perf_counter()
     # ---- phase 1: environment and build ----
@@ -294,6 +482,16 @@ def main(argv=None):
         torch.cuda.synchronize()
         err = check_scan(name, got, filtered_scan_tiled_ref(*a, **kw))
         log(f"filtered_scan_tiled {name}: ok, max |err| {err:.3e}")
+    for name, q_, c_, t, metric in centroid_cases(dev, gen):
+        got, err = check_centroids(name, q_, c_, t, metric)
+        if not bool((got[1] >= 0).all()):
+            raise AssertionError(f"centroid_topk {name}: -1 probes")
+        log(f"centroid_topk {name}: ok, max |err| {err:.3e}")
+    for name, a, kw in per_probe_cases(dev, gen):
+        got = fs_mod.filtered_scan(*a, **kw)
+        torch.cuda.synchronize()
+        err = check_scores(name, got, filtered_scan_ref(*a, **kw))
+        log(f"filtered_scan {name}: ok, max |err| {err:.3e}")
     log(f"phase 2 (kernel checks) {time.perf_counter() - t0:.2f} s")
 
     # ---- phase 3: the main path at real size ----
@@ -318,7 +516,7 @@ def main(argv=None):
     timings = {}
     results = {}
     t0 = time.perf_counter()
-    fs_mod.LAUNCHES = 0
+    reset_launches()
     for mix in mixes:
         rows = []
         for i, (queries, fspec) in enumerate(batches[mix]):
@@ -338,11 +536,12 @@ def main(argv=None):
                              ev[0].elapsed_time(ev[2])))
         results[mix] = (batches[mix][-1], res, plan)
         timings[mix] = rows
-    launches = fs_mod.LAUNCHES
+    engine_launches = launches()
     t_main = time.perf_counter() - t0
     serve_peak = torch.cuda.max_memory_allocated() / 2**30
-    if launches < len(mixes) * (WARMUP + BATCHES):
-        raise AssertionError(f"filtered_scan_tiled launched {launches} times")
+    n_tiled = engine_launches["filtered_scan_tiled"]
+    if n_tiled < len(mixes) * (WARMUP + BATCHES):
+        raise AssertionError(f"filtered_scan_tiled launched {n_tiled} times")
     for mix in mixes:
         plan_ms, scan_ms, whole = (statistics.median(c) for c in zip(*timings[mix]))
         (queries, fspec), res, plan = results[mix]
@@ -352,7 +551,7 @@ def main(argv=None):
             f"u_cap {plan.u_cap}, live slots {n_live}, pruned probes "
             f"{int(res.n_pruned.sum())}, mean passed rows "
             f"{float(res.n_passed.float().mean()):.1f}")
-    log(f"main path: {launches} launches of filtered_scan_tiled in "
+    log(f"main path: {n_tiled} launches of filtered_scan_tiled in "
         f"{len(mixes) * (WARMUP + BATCHES)} batches, {t_main:.2f} s; peak "
         f"memory while serving {serve_peak:.2f} GiB")
 
@@ -367,7 +566,81 @@ def main(argv=None):
             f"vs exact brute force over all {stats.n_vectors} rows: {rec:.4f}")
     log(f"phase 3 (main path) {time.perf_counter() - t_all:.2f} s since start")
 
-    # ---- phase 4: the kernel on one full-size batch ----
+    # ---- phase 3b: the one-shard sharded search and search_fused ----
+    t0 = time.perf_counter()
+    reset_launches()
+    sharded, sharded_times = {}, {}
+    for backend in BACKENDS:
+        fn, info = make_sharded_search(
+            "dot", q_total=Q, n_clusters=index.n_clusters,
+            cfg=ShardedSearchConfig(k=K_TOP, n_probes=N_PROBES,
+                                    scan_q_block=64, backend=backend,
+                                    prune="auto"))
+        scan = "filtered_scan_tiled" if backend == "pallas_tiled" else "filtered_scan"
+        for mix in mixes:
+            rows = []
+            for i, (queries, fspec) in enumerate(batches[mix]):
+                before = launches()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+                splan = fn.plan(index, queries, fspec)
+                ev[1].record()
+                res = fn.execute(index, splan)
+                ev[2].record()
+                ev[2].synchronize()
+                after = launches()
+                for kname in ("centroid_topk", scan):
+                    if after[kname] == before[kname]:
+                        raise AssertionError(f"sharded {backend} {mix} batch "
+                                             f"{i}: no {kname} launch")
+                if int(res.n_scanned.max()) != 0:
+                    raise AssertionError(f"sharded {backend} {mix}: overflow")
+                if i >= WARMUP:
+                    rows.append((ev[0].elapsed_time(ev[1]),
+                                 ev[1].elapsed_time(ev[2]),
+                                 ev[0].elapsed_time(ev[2])))
+            sharded[backend, mix] = (res, splan)
+            sharded_times[backend, mix] = rows
+    fused, fused_ms = {}, {}
+    for mix in mixes:
+        queries, fspec = batches[mix][-1]
+        before = launches()["filtered_scan"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fused[mix] = search_fused(index, queries, fspec, k=K_TOP,
+                                  n_probes=N_PROBES)
+        ev[1].record()
+        ev[1].synchronize()
+        fused_ms[mix] = ev[0].elapsed_time(ev[1])
+        if launches()["filtered_scan"] == before:
+            raise AssertionError(f"search_fused {mix}: no filtered_scan launch")
+    sharded_launches = launches()
+    log(f"sharded path: p_cap {info['p_cap']}, launches {sharded_launches} "
+        f"in {len(BACKENDS) * len(mixes) * (WARMUP + BATCHES)} sharded and "
+        f"{len(mixes)} search_fused batches, {time.perf_counter() - t0:.2f} s")
+    for backend in BACKENDS:
+        for mix in mixes:
+            plan_ms, scan_ms, whole = (statistics.median(c) for c in
+                                       zip(*sharded_times[backend, mix]))
+            log(f"sharded {backend} {mix}: probe+dispatch {plan_ms:.3f} ms, "
+                f"scan+merge {scan_ms:.3f} ms, batch {whole:.3f} ms (medians "
+                f"of {BATCHES}), QPS {Q / whole * 1e3:.1f}")
+    for mix in mixes:
+        (queries, fspec), eng, _ = results[mix]
+        agree = probe_agreement(index, queries)
+        for backend in BACKENDS:
+            check_sharded(f"sharded {backend} {mix}", index, queries, fspec,
+                          sharded[backend, mix][0], eng, agree)
+        check_fused(f"search_fused {mix}", index, queries, fspec, fused[mix],
+                    eng)
+        log(f"{mix}: the sharded search (both backends) and search_fused "
+            f"({fused_ms[mix]:.3f} ms, one batch) match search_reference and "
+            f"the engine; {int((~agree).sum())} queries left out for probe "
+            "sets that differ at a near-tie")
+    log(f"phase 3b (sharded path) {time.perf_counter() - t_all:.2f} s since "
+        "start")
+
+    # ---- phase 4: each kernel on one full-size batch ----
     t0 = time.perf_counter()
     _, _, plan = results["uniform"]
     a = (plan.slot_cluster, plan.slot_tile, plan.n_unique, plan.queries_pad,
@@ -398,18 +671,84 @@ def main(argv=None):
         f"{bound_ms:.3f} ms (bytes {byte_ms:.3f} ms, bf16 ops {op_ms:.3f} ms; "
         f"f32 FMA ops {ops / PEAK_OPS['f32'] * 1e3:.3f} ms); "
         f"{ops / kernel_ms / 1e9:.1f} TFLOP/s achieved; max |err| {max_err:.3e}")
-    log(f"phase 4 (kernel timing) {time.perf_counter() - t0:.2f} s; total "
-        f"{time.perf_counter() - t_all:.2f} s")
-
     kernels = [dict(
         name="filtered_scan_tiled", route="cuda",
         source="src/repro_torch/kernels/filtered_scan/csrc/filtered_scan_tiled.cu",
         replaces="src/repro/kernels/filtered_scan/filtered_scan.py:360",
-        launches=launches, max_abs_err=max_err, ms=kernel_ms,
-        plain_ms=plain_ms, bound_ms=bound_ms,
+        launches=(engine_launches["filtered_scan_tiled"]
+                  + sharded_launches["filtered_scan_tiled"]),
+        max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms,
         bound_by="bytes" if byte_ms >= op_ms else "operations",
         library_ms=None,
     )]
+
+    # centroid_topk: the uniform batch's queries against every centroid
+    queries = batches["uniform"][-1][0]
+    cents = index.centroids
+    kc = cents.shape[0]
+    _, ct_err = check_centroids("centroid_topk full size", queries, cents,
+                                N_PROBES)
+    ct_ms = ms(lambda: ct_mod.centroid_topk(queries, cents, t=N_PROBES), 20)
+    ct_plain = ms(lambda: centroid_topk_ref(queries, cents, t=N_PROBES), 5)
+    ct_lib = ms(lambda: torch.topk(torch.matmul(queries, cents.T), N_PROBES),
+                20)
+    ct_bytes = (Q * DIM + kc * DIM) * 4 + Q * N_PROBES * 8
+    ct_ops = 2 * Q * kc * DIM
+    ct_byte_ms = ct_bytes / HBM_BYTES_PER_S * 1e3
+    ct_op_ms = ct_ops / PEAK_OPS["f32"] * 1e3
+    log(f"centroid_topk full size: Q={Q} K={kc} D={DIM} f32 T={N_PROBES}; "
+        f"kernel {ct_ms:.3f} ms, plain {ct_plain:.3f} ms, torch.matmul + "
+        f"torch.topk {ct_lib:.3f} ms, bound {max(ct_byte_ms, ct_op_ms):.3f} ms "
+        f"(bytes {ct_byte_ms:.4f} ms, f32 FMA ops {ct_op_ms:.4f} ms); "
+        f"{ct_ops / ct_ms / 1e9:.2f} TFLOP/s achieved; max |err| {ct_err:.3e}")
+    kernels.append(dict(
+        name="centroid_topk", route="cuda",
+        source="src/repro_torch/kernels/centroid_topk/csrc/centroid_topk.cu",
+        replaces="src/repro/kernels/centroid_topk/centroid_topk.py:82",
+        launches=sharded_launches["centroid_topk"], max_abs_err=ct_err,
+        ms=ct_ms, plain_ms=ct_plain, bound_ms=max(ct_byte_ms, ct_op_ms),
+        bound_by="bytes" if ct_byte_ms >= ct_op_ms else "operations",
+        library_ms=ct_lib,
+    ))
+
+    # filtered_scan: the uniform batch's per-probe slot table, pads included
+    _, splan = sharded["pallas", "uniform"]
+    pa = (splan.slot_cluster, splan.slot_query, splan.queries_in, splan.lo_in,
+          splan.hi_in, index.vectors, index.attrs, index.ids, None, None)
+    fs_err = check_scores("filtered_scan full size", fs_mod.filtered_scan(*pa),
+                          filtered_scan_ref(*pa))
+    fs_ms = ms(lambda: fs_mod.filtered_scan(*pa), 10)
+    fs_plain = ms(lambda: filtered_scan_ref(*pa), 3)
+    p_slots = splan.slot_cluster.shape[0]
+    n_distinct = int(torch.unique(splan.slot_cluster).numel())
+    small = (splan.queries_in.numel() * 4 + 2 * splan.lo_in.numel() * 2
+             + 2 * p_slots * 4 + p_slots * index.vpad * 4)  # + the output
+    fs_bytes = n_distinct * index.vpad * row_bytes + small
+    fs_ops = 2 * p_slots * index.vpad * DIM
+    fs_byte_ms = fs_bytes / HBM_BYTES_PER_S * 1e3
+    fs_op_ms = fs_ops / PEAK_OPS["f32"] * 1e3
+    streamed_ms = ((p_slots * index.vpad * row_bytes + small)
+                   / HBM_BYTES_PER_S * 1e3)
+    log(f"filtered_scan full size: P={p_slots} slots "
+        f"({int(splan.slot_valid.sum())} live) over {n_distinct} clusters; "
+        f"kernel {fs_ms:.3f} ms, plain {fs_plain:.3f} ms, bound "
+        f"{max(fs_byte_ms, fs_op_ms):.3f} ms (bytes {fs_byte_ms:.3f} ms, f32 "
+        f"FMA ops {fs_op_ms:.3f} ms; {streamed_ms:.3f} ms if every slot "
+        f"streams its own cluster); {fs_bytes / fs_ms / 1e6:.1f} GB/s of "
+        f"distinct bytes; max |err| {fs_err:.3e}")
+    kernels.append(dict(
+        name="filtered_scan", route="cuda",
+        source="src/repro_torch/kernels/filtered_scan/csrc/filtered_scan.cu",
+        replaces="src/repro/kernels/filtered_scan/filtered_scan.py:160",
+        launches=sharded_launches["filtered_scan"], max_abs_err=fs_err,
+        ms=fs_ms, plain_ms=fs_plain, bound_ms=max(fs_byte_ms, fs_op_ms),
+        bound_by="bytes" if fs_byte_ms >= fs_op_ms else "operations",
+        library_ms=None,
+    ))
+    log(f"phase 4 (kernel timing) {time.perf_counter() - t0:.2f} s; total "
+        f"{time.perf_counter() - t_all:.2f} s")
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,9 @@
   ClusterSummaries, build_summaries, can_match       — filter-aware pruning
   search_reference, brute_force, recall_at_k         — reference paths
   SearchEngine, search_fused_tiled                   — the fused tiled path
+  make_sharded_search, ShardedSearchConfig           — the sharded search
+                                                       (one shard)
+  RangeOwnership                                     — cluster ownership map
 """
 
 from repro_torch.core.hybrid import (
@@ -45,13 +48,16 @@ from repro_torch.core.search import (
     search_reference,
 )
 from repro_torch.core.engine import SearchEngine, search_fused_tiled
+from repro_torch.core.blockstore import RangeOwnership
+from repro_torch.core.distributed import ShardedSearchConfig, make_sharded_search
 
 __all__ = [
     "ATTR_MAX", "ATTR_MIN", "BuildStats", "ClusterSummaries", "FilterBuilder",
-    "FilterSpec", "HybridSpec", "IVFFlatIndex", "SearchEngine", "SearchResult",
-    "brute_force", "build_from_assignments", "build_summaries", "can_match",
+    "FilterSpec", "HybridSpec", "IVFFlatIndex", "RangeOwnership",
+    "SearchEngine", "SearchResult", "ShardedSearchConfig", "brute_force",
+    "build_from_assignments", "build_summaries", "can_match",
     "centroid_scores", "default_n_clusters", "filter_mask", "from_builders",
-    "index_from_arrays", "l2_normalize", "make_hybrid", "match_all",
-    "quantize_index", "recall_at_k", "search_centroids", "search_fused_tiled",
-    "search_reference", "validity_mask",
+    "index_from_arrays", "l2_normalize", "make_hybrid", "make_sharded_search",
+    "match_all", "quantize_index", "recall_at_k", "search_centroids",
+    "search_fused_tiled", "search_reference", "validity_mask",
 ]

@@ -1,0 +1,375 @@
+"""Sharded filtered search: probe dispatch and each shard's scan + merge —
+the port of ``repro.core.distributed``, run on one shard.
+
+Sharding model (the reference's): the index's cluster axis is range-sharded
+over S shards, shard ``s`` owning clusters ``[s·K/S, (s+1)·K/S)``; queries,
+centroids and filters are replicated.  A probe (q, t) is owned by exactly
+one shard.  Dispatch sorts the probes by owner, ranks them within their
+owner and scatters them into a static ``[S, P_cap]`` slot table; probes
+past ``P_cap`` are counted, not silently lost (``SearchResult.n_scanned``
+carries the count).  Each shard scans its slots — per probe (``backend=
+"pallas"``), or deduplicated per (query tile, cluster) with a streaming
+top-k (``"pallas_tiled"``) — and folds them into a per-query top-k; the
+shards' answers are then merged.
+
+The dispatch functions are pure and take any ``n_shards``.
+:func:`make_sharded_search` builds the one-shard search: with S = 1 the
+merge over shards is one ``masked_topk`` over the shard's own k entries and
+needs no collective.  More shards need ``torch.distributed`` and are not
+ported yet (ROADMAP A.9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import probes as probes_lib
+from repro_torch.core import summaries as summaries_lib
+from repro_torch.core import topk as topk_lib
+from repro_torch.core.blockstore import RangeOwnership
+from repro_torch.core.engine import resolve_prune
+from repro_torch.core.filters import FilterSpec
+from repro_torch.core.ivf import IVFFlatIndex, round_up
+from repro_torch.core.search import SearchResult
+from repro_torch.device import resolve_device
+from repro_torch.kernels.centroid_topk.ops import probe_centroids
+from repro_torch.kernels.filtered_scan.filtered_scan import (
+    filtered_scan,
+    filtered_scan_tiled,
+)
+
+# The reference's names for the two scans; its interpret-mode and XLA
+# backends have no counterpart, since here the tensors' device picks the
+# route (CPU: plain PyTorch, CUDA: the kernels).
+BACKENDS = ("pallas", "pallas_tiled")
+NEG_INF = topk_lib.NEG_INF
+
+
+def probe_capacity(q: int, t: int, n_shards: int, slack: float = 2.0) -> int:
+    """Static P_cap: expected load × slack, multiple of 8, at least 8."""
+    expect = (q * t + n_shards - 1) // n_shards
+    cap = int(expect * slack) + 1
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def _scatter_drop(shape, rows, cols, values, fill=0):
+    """``full(shape, fill).at[rows, cols].set(values, mode="drop")``: rows
+    whose destination lies outside ``shape`` land in a spare row and
+    column that are cut off (no host sync, unlike boolean indexing)."""
+    r, c = shape[:2]
+    out = torch.full((r + 1, c + 1) + tuple(values.shape[1:]), fill,
+                     dtype=values.dtype, device=values.device)
+    keep = (rows >= 0) & (rows < r) & (cols >= 0) & (cols < c)
+    out[torch.where(keep, rows, r), torch.where(keep, cols, c)] = values
+    return out[:r, :c].contiguous()
+
+
+def dispatch_probes(probe_ids: torch.Tensor, *, n_shards: int, k_local: int,
+                    p_cap: int, probe_valid: Optional[torch.Tensor] = None,
+                    ownership=None):
+    """Builds the probe slot table (the same on every shard).
+
+    Args:
+      probe_ids: [Q, T] global cluster ids.
+      n_shards: S, shards holding the index.
+      k_local: clusters per shard (K/S, contiguous ranges).
+      p_cap: static per-shard slot capacity.
+      probe_valid: optional [Q, T] bool — probes the filter-aware planner
+        pruned go to a sentinel owner past every shard: they take no slot,
+        are never scanned and never count as overflow.
+      ownership: optional map with ``owner_of``/``local_of`` (default
+        :class:`RangeOwnership` ``(n_shards, k_local)``).
+
+    Returns:
+      slot_cluster [S, P_cap] int32 — local cluster id per slot (0 for pads),
+      slot_query   [S, P_cap] int32 — query row per slot (0 for pads),
+      slot_valid   [S, P_cap] bool,
+      n_overflowed scalar int32 — live probes dropped by capacity.
+    """
+    if ownership is None:
+        ownership = RangeOwnership(n_shards, k_local)
+    q, t = probe_ids.shape
+    dev = probe_ids.device
+    flat = probe_ids.reshape(-1).long()
+    owner = ownership.owner_of(flat)
+    local = ownership.local_of(flat)
+    query = torch.repeat_interleave(torch.arange(q, device=dev), t)
+    if probe_valid is not None:
+        # the sentinel owner sorts after every shard; its rows are dropped
+        owner = torch.where(probe_valid.reshape(-1), owner, n_shards)
+
+    order = torch.argsort(owner, stable=True)
+    owner_s = owner[order]
+    starts = torch.searchsorted(owner_s, torch.arange(n_shards + 1, device=dev))
+    rank = torch.arange(q * t, device=dev) - starts[owner_s.clamp(0, n_shards)]
+
+    shape = (n_shards, p_cap)
+    sc = _scatter_drop(shape, owner_s, rank, local[order].int())
+    sq = _scatter_drop(shape, owner_s, rank, query[order].int())
+    sv = _scatter_drop(shape, owner_s, rank,
+                       torch.ones_like(owner_s, dtype=torch.bool))
+    n_overflowed = ((rank >= p_cap) & (owner_s < n_shards)).sum().int()
+    return sc, sq, sv, n_overflowed
+
+
+def dispatch_probes_tiled(probe_ids: torch.Tensor, *, n_shards: int,
+                          k_local: int, p_cap: int, u_cap: int, q_block: int,
+                          probe_valid: Optional[torch.Tensor] = None,
+                          ownership=None):
+    """Probe dispatch plus per-shard (query tile, cluster) deduplication.
+
+    Per shard, the valid probes are deduplicated by ``(query_tile,
+    local_cluster)``, so a cluster probed by many queries of a tile is
+    scanned once.  Returns the four :func:`dispatch_probes` outputs plus:
+      u_cluster [S, u_cap] int32 — local cluster per unique slot (pads
+                repeat the last unique one),
+      u_tile    [S, u_cap] int32 — query tile per unique slot,
+      slot_of   [S, P_cap] int32 — unique-slot index of each probe,
+      u_count   [S] int32 — live unique slots per shard.
+    """
+    sc, sq, sv, n_overflowed = dispatch_probes(
+        probe_ids, n_shards=n_shards, k_local=k_local, p_cap=p_cap,
+        probe_valid=probe_valid, ownership=ownership)
+    tile = torch.div(sq, q_block, rounding_mode="floor")
+    key = tile * k_local + sc  # [S, P_cap]
+    table, slot_of, u_count = probes_lib.dedup_rows(key, sv, u_cap)
+    # u_cap = min(p_cap, k_local·n_tiles) can never overflow; clip anyway
+    slot_of = torch.clamp(slot_of, max=u_cap - 1)
+    u_cluster = table % k_local
+    u_tile = torch.div(table, k_local, rounding_mode="floor")
+    return sc, sq, sv, n_overflowed, u_cluster, u_tile, slot_of, u_count
+
+
+def _rank_within_query(slot_query: torch.Tensor, slot_valid: torch.Tensor,
+                       t: int) -> torch.Tensor:
+    """Rank of each slot among the valid slots serving the same query,
+    clipped to T - 1 (a query has exactly T probes)."""
+    p = slot_query.shape[0]
+    key = torch.where(slot_valid, slot_query.long(), 2**30)
+    order = torch.argsort(key, stable=True)
+    key_s = key[order]
+    first = torch.searchsorted(key_s, key_s, side="left")
+    rank = torch.zeros((p,), dtype=torch.int32, device=slot_query.device)
+    rank[order] = (torch.arange(p, device=key.device) - first).int()
+    return torch.clamp(rank, max=t - 1)
+
+
+def _local_shard_search(
+    vectors: torch.Tensor,  # [K_local, Vpad, D]
+    attrs: torch.Tensor,
+    ids: torch.Tensor,
+    norms: Optional[torch.Tensor],
+    scales: Optional[torch.Tensor],
+    queries: torch.Tensor,  # [Q, D] replicated (tiled: padded to tiles)
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    slot_cluster: torch.Tensor,  # [P_cap]
+    slot_query: torch.Tensor,  # [P_cap]
+    slot_valid: torch.Tensor,  # [P_cap] bool (already gated by shard_ok)
+    u_cluster: Optional[torch.Tensor] = None,  # [U] (tiled)
+    u_tile: Optional[torch.Tensor] = None,  # [U]
+    slot_of: Optional[torch.Tensor] = None,  # [P_cap] → index into U
+    u_count: Optional[torch.Tensor] = None,  # scalar: live slots of U (tiled)
+    *,
+    metric: str,
+    k: int,
+    t: int,
+    q_block: int,
+    backend: str,
+):
+    """One shard's contribution: its scan over its slots → per-query top-k.
+
+    Tiled: the four tiled operands are required.  The dedup pads of
+    ``u_cluster`` (slots from ``u_count`` on) repeat the last unique slot
+    and no probe reads them, so they are passed to the scan as cluster -1
+    and skipped.  Per probe: every slot is scanned, pads included, and
+    masked afterwards.
+    """
+    q = queries.shape[0]
+    if backend == "pallas_tiled":
+        live = torch.arange(u_cluster.shape[0], device=u_cluster.device)
+        scan_cluster = torch.where(live < u_count, u_cluster, -1)
+        uvals, uids, _ = filtered_scan_tiled(
+            scan_cluster, u_tile, None, queries, lo, hi, vectors, attrs, ids,
+            norms, scales, metric=metric, k=k, q_block=q_block)
+        sop = slot_of.long()
+        row = slot_query.long() % q_block
+        svals = torch.where(slot_valid[:, None], uvals[sop, row], NEG_INF)
+        sids = torch.where(slot_valid[:, None], uids[sop, row], -1)
+    elif backend == "pallas":
+        scores = filtered_scan(
+            slot_cluster, slot_query, queries, lo, hi, vectors, attrs, ids,
+            norms, scales, metric=metric)  # [P_cap, Vpad]
+        scores = torch.where(slot_valid[:, None], scores, NEG_INF)
+        slot_ids = ids[slot_cluster.long()]  # [P_cap, Vpad]
+        svals, sids = topk_lib.masked_topk(scores, None, k, ids=slot_ids)
+    else:
+        raise ValueError(backend)
+
+    rank = _rank_within_query(slot_query, slot_valid, t).long()
+    safe_q = torch.where(slot_valid, slot_query.long(), q)  # pads: out of range
+    qvals = _scatter_drop((q, t, k), safe_q, rank, svals, fill=NEG_INF)
+    qids = _scatter_drop((q, t, k), safe_q, rank, sids, fill=-1)
+    return topk_lib.masked_topk(qvals.reshape(q, t * k), None, k,
+                                ids=qids.reshape(q, t * k))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSearchConfig:
+    """The reference's config without its TPU tiling (``q_block``,
+    ``k_block``, ``v_block``), ``use_centroid_kernel`` (probe selection is
+    ``probe_centroids`` on every device) and ``quantized`` (the index's own
+    ``scales`` say whether it is SQ8)."""
+
+    k: int = 100
+    n_probes: int = 7  # paper's T
+    p_cap_slack: float = 2.0
+    scan_q_block: int = 64  # query-tile height QB of the tiled scan
+    backend: str = "pallas"  # "pallas" (per probe) | "pallas_tiled"
+    # filter-aware probe pruning from the index's cluster summaries:
+    # "auto" prunes iff the index has them, "on" requires them, "off" never
+    prune: str = "auto"
+
+
+@dataclasses.dataclass
+class ShardedPlan:
+    """What the scan + merge needs, from :meth:`ShardedSearch.plan`."""
+
+    q: int
+    queries: torch.Tensor  # [Q, D] as given (l2 constant)
+    queries_in: torch.Tensor  # scan queries (tiled: padded to whole tiles)
+    lo_in: torch.Tensor
+    hi_in: torch.Tensor
+    slot_cluster: torch.Tensor  # [P_cap] int32, this shard's row
+    slot_query: torch.Tensor  # [P_cap] int32
+    slot_valid: torch.Tensor  # [P_cap] bool, gated by shard_ok
+    n_overflowed: torch.Tensor  # scalar int32
+    u_cluster: Optional[torch.Tensor] = None  # [u_cap] (tiled)
+    u_tile: Optional[torch.Tensor] = None
+    slot_of: Optional[torch.Tensor] = None  # [P_cap]
+    u_count: Optional[torch.Tensor] = None  # scalar
+
+
+class ShardedSearch:
+    """The one-shard search: ``search(index, queries, fspec, shard_ok=None)
+    -> SearchResult``, or its two stages :meth:`plan` (probe centroids,
+    prune, dispatch) and :meth:`execute` (scan, merge).
+
+    Like the reference, ``n_scanned`` carries the dispatch's overflow count
+    for every query and ``n_passed`` is zeros.
+    """
+
+    def __init__(self, metric: str, cfg: ShardedSearchConfig, *, p_cap: int,
+                 k_local: int, scan_q_block: int, u_cap: int,
+                 device: torch.device):
+        self.metric = metric
+        self.cfg = cfg
+        self.p_cap = p_cap
+        self.k_local = k_local
+        self.scan_q_block = scan_q_block
+        self.u_cap = u_cap
+        self.device = device
+        self.n_shards = 1
+
+    def plan(self, index: IVFFlatIndex, queries: torch.Tensor,
+             fspec: FilterSpec, shard_ok: Optional[torch.Tensor] = None
+             ) -> ShardedPlan:
+        cfg = self.cfg
+        dev = index.vectors.device
+        if dev.type != self.device.type:
+            raise ValueError(f"index lives on {dev}, search built for "
+                             f"{self.device}")
+        if shard_ok is None:
+            shard_ok = torch.ones((self.n_shards,), dtype=torch.bool, device=dev)
+        # §4.4 step 2: probe centroids (replicated)
+        _, probe_ids = probe_centroids(queries, index.centroids,
+                                       t=cfg.n_probes, metric=self.metric)
+        # filter-aware prune mask (replicated, like the plan stage)
+        summ = resolve_prune(index, cfg.prune)
+        probe_valid = None
+        if summ is not None:
+            cm = summaries_lib.can_match(summ, fspec.lo, fspec.hi)  # [Q, K]
+            probe_valid = torch.gather(cm, 1, probe_ids.long())
+        qb = self.scan_q_block
+        kw = dict(n_shards=self.n_shards, k_local=self.k_local,
+                  p_cap=self.p_cap, probe_valid=probe_valid)
+        if cfg.backend == "pallas_tiled":
+            sc, sq, sv, n_drop, uc, ut, uslot, ucount = dispatch_probes_tiled(
+                probe_ids, u_cap=self.u_cap, q_block=qb, **kw)
+            tiled = dict(u_cluster=uc[0], u_tile=ut[0], slot_of=uslot[0],
+                         u_count=ucount[0])
+            queries_in = probes_lib.pad_to_tiles(queries, qb).contiguous()
+            lo_in = probes_lib.pad_to_tiles(fspec.lo, qb).contiguous()
+            hi_in = probes_lib.pad_to_tiles(fspec.hi, qb).contiguous()
+        else:
+            sc, sq, sv, n_drop = dispatch_probes(probe_ids, **kw)
+            tiled = {}
+            queries_in = queries.contiguous()
+            lo_in, hi_in = fspec.lo.contiguous(), fspec.hi.contiguous()
+        return ShardedPlan(
+            q=queries.shape[0], queries=queries, queries_in=queries_in,
+            lo_in=lo_in, hi_in=hi_in, slot_cluster=sc[0], slot_query=sq[0],
+            slot_valid=sv[0] & shard_ok[0], n_overflowed=n_drop, **tiled)
+
+    def execute(self, index: IVFFlatIndex, plan: ShardedPlan) -> SearchResult:
+        cfg = self.cfg
+        l2 = self.metric == "l2"
+        vals, out_ids = _local_shard_search(
+            index.vectors, index.attrs, index.ids,
+            index.norms if l2 else None,
+            index.scales,  # None unless SQ8
+            plan.queries_in, plan.lo_in, plan.hi_in, plan.slot_cluster,
+            plan.slot_query, plan.slot_valid, plan.u_cluster, plan.u_tile,
+            plan.slot_of, plan.u_count, metric=self.metric, k=cfg.k,
+            t=cfg.n_probes, q_block=self.scan_q_block, backend=cfg.backend)
+        # the tree merge over shards: one shard's k entries
+        vals, out_ids = topk_lib.masked_topk(vals, None, cfg.k, ids=out_ids)
+        q = plan.q
+        vals, out_ids = vals[:q], out_ids[:q]
+        if l2:
+            q2 = torch.sum(plan.queries.float() ** 2, -1, keepdim=True)
+            vals = torch.where(vals > NEG_INF / 2, vals - q2, vals)
+        zero = torch.zeros((q,), dtype=torch.int32, device=vals.device)
+        return SearchResult(vals, out_ids, zero + plan.n_overflowed, zero)
+
+    def __call__(self, index: IVFFlatIndex, queries: torch.Tensor,
+                 fspec: FilterSpec, shard_ok: Optional[torch.Tensor] = None
+                 ) -> SearchResult:
+        return self.execute(index, self.plan(index, queries, fspec, shard_ok))
+
+
+def make_sharded_search(metric: str, *, q_total: int, n_clusters: int,
+                        cfg: ShardedSearchConfig, n_shards: int = 1,
+                        device="cuda"):
+    """Builds the sharded search step for one shard.
+
+    Returns ``(search_fn, info)``: ``search_fn(index, queries, fspec,
+    shard_ok=None) -> SearchResult`` (a :class:`ShardedSearch`), and
+    ``info`` with ``p_cap``, ``k_local``, ``n_shards`` and the dispatch's
+    ``ownership`` map.  The reference's mesh and shardings have no
+    counterpart: ``n_shards > 1`` raises.  ``device`` defaults to CUDA and
+    raises when CUDA is absent and the CPU was not asked for.
+    """
+    dev = resolve_device(device)
+    if n_shards != 1:
+        raise NotImplementedError(
+            f"n_shards={n_shards}: the multi-shard search over "
+            "torch.distributed is not ported yet (ROADMAP A.9)")
+    if metric not in ("dot", "l2"):
+        raise ValueError(metric)
+    if cfg.backend not in BACKENDS:
+        raise ValueError(
+            f"backend must be one of {BACKENDS}, got {cfg.backend!r}: in the "
+            "port the tensors' device picks the route")
+    k_local = n_clusters // n_shards
+    p_cap = probe_capacity(q_total, cfg.n_probes, n_shards, cfg.p_cap_slack)
+    scan_qb = min(cfg.scan_q_block, round_up(q_total, 8))
+    n_tiles = round_up(q_total, scan_qb) // scan_qb
+    u_cap = max(1, min(p_cap, k_local * n_tiles))
+    search = ShardedSearch(metric, cfg, p_cap=p_cap, k_local=k_local,
+                           scan_q_block=scan_qb, u_cap=u_cap, device=dev)
+    return search, dict(p_cap=p_cap, k_local=k_local, n_shards=n_shards,
+                        ownership=RangeOwnership(n_shards, k_local))

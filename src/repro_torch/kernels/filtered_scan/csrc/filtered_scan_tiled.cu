@@ -9,8 +9,10 @@
 // failing the query's DNF filter (OR over F terms of AND over M int16
 // attributes, widened to int32) or dead (id < 0) to NEG_INF, and keep each
 // query row's top k (earliest row wins ties) and its pass count.  Slots at
-// position >= n_unique[tile] within their tile are dedup pads: they are
-// skipped and written as (NEG_INF, -1, 0).
+// position >= n_unique[tile] within their tile, or whose cluster lies
+// outside [0, K), are pads: they are skipped and written as (NEG_INF, -1, 0).
+// Queries are the vectors' dtype, or f32 against bf16 vectors (the sharded
+// search passes its f32 queries uncast, as the TPU kernel accepts).
 //
 // What bounds it on the H100: each live slot streams its cluster's
 // Vpad*D*bytes of vectors (4.9 MB at Vpad=3200, D=768, bf16) and spends
@@ -307,10 +309,14 @@ extern "C" int filtered_scan_tiled_launch(
     return launch<__nv_bfloat16, __nv_bfloat16, kDot>(FS_ARGS);
   if (mode == kDot && q_dtype == kF32 && v_dtype == kF32)
     return launch<float, float, kDot>(FS_ARGS);
+  if (mode == kDot && q_dtype == kF32 && v_dtype == kBF16)  // sharded search
+    return launch<float, __nv_bfloat16, kDot>(FS_ARGS);
   if (mode == kL2 && q_dtype == kBF16 && v_dtype == kBF16)
     return launch<__nv_bfloat16, __nv_bfloat16, kL2>(FS_ARGS);
   if (mode == kL2 && q_dtype == kF32 && v_dtype == kF32)
     return launch<float, float, kL2>(FS_ARGS);
+  if (mode == kL2 && q_dtype == kF32 && v_dtype == kBF16)
+    return launch<float, __nv_bfloat16, kL2>(FS_ARGS);
   if (mode == kSq8 && q_dtype == kF32 && v_dtype == kI8)
     return launch<float, int8_t, kSq8>(FS_ARGS);
 #undef FS_ARGS

@@ -1,10 +1,13 @@
-"""Fused tiled filtered IVF scan (paper §4.4 steps 3+4): the wrapper of the
-CUDA kernel ``csrc/filtered_scan_tiled.cu``.
+"""Fused filtered IVF scans (paper §4.4 steps 3+4): the wrappers of the
+CUDA kernels ``csrc/filtered_scan_tiled.cu`` and ``csrc/filtered_scan.cu``.
 
-The port of ``repro.kernels.filtered_scan.filtered_scan.filtered_scan_tiled``.
-The path is chosen by the tensors' device alone: CPU tensors take the plain
-PyTorch version (:func:`~repro_torch.kernels.filtered_scan.ref.
-filtered_scan_tiled_ref`), CUDA tensors launch the kernel or raise.
+The port of ``repro.kernels.filtered_scan.filtered_scan``'s two kernels:
+:func:`filtered_scan_tiled` (query tiles against deduplicated probe slots,
+with a streaming top-k) and :func:`filtered_scan` (one query against one
+cluster per slot, emitting the masked ``[P, Vpad]`` scores).  The path is
+chosen by the tensors' device alone: CPU tensors take the plain PyTorch
+versions in :mod:`~repro_torch.kernels.filtered_scan.ref`, CUDA tensors
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -15,27 +18,71 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.filtered_scan.ref import filtered_scan_tiled_ref
+from repro_torch.kernels.filtered_scan.ref import (
+    filtered_scan_ref,
+    filtered_scan_tiled_ref,
+)
 
 SOURCE = build.KERNELS_DIR / "filtered_scan" / "csrc" / "filtered_scan_tiled.cu"
+PER_PROBE_SOURCE = build.KERNELS_DIR / "filtered_scan" / "csrc" / "filtered_scan.cu"
 
-# Kernel launches in this process; the wrapper adds one per launch.
+# Kernel launches in this process; each wrapper adds one per launch of its
+# kernel: LAUNCHES for filtered_scan_tiled, PER_PROBE_LAUNCHES for
+# filtered_scan.
 LAUNCHES = 0
+PER_PROBE_LAUNCHES = 0
 
 MAX_K = 32
 _MODES = {"dot": 0, "l2": 1, "sq8": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _lib():
-    lib = build.load(SOURCE)
-    fn = lib.filtered_scan_tiled_launch
+def _bind(src, name, argtypes):
+    fn = getattr(build.load(src), name)
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp,
-                       vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
-        fn.restype = ci
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return fn
+
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    return _bind(SOURCE, "filtered_scan_tiled_launch",
+                 [_CI, _VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP,
+                  _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _CI,
+                  _CI, _VP])
+
+
+def _per_probe_lib():
+    return _bind(PER_PROBE_SOURCE, "filtered_scan_launch",
+                 [_CI, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                  _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP])
+
+
+def _check_metric(metric, norms, scales):
+    if metric not in ("dot", "l2"):
+        raise ValueError(metric)
+    if metric == "l2":
+        if norms is None:
+            raise ValueError("metric='l2' requires norms")
+        if scales is not None:
+            raise NotImplementedError("SQ8 + l2 not wired (norms suffice)")
+
+
+def _check_dtypes(queries, vectors, quantized):
+    """The (query, vector) dtype pairs the kernels take: equal f32 or bf16,
+    f32 queries against bf16 vectors, or f32 queries against SQ8 int8."""
+    if quantized:
+        ok = queries.dtype == torch.float32 and vectors.dtype == torch.int8
+    else:
+        ok = (vectors.dtype in (torch.float32, torch.bfloat16)
+              and queries.dtype in (vectors.dtype, torch.float32))
+    if not ok:
+        raise TypeError(f"queries {queries.dtype} against vectors "
+                        f"{vectors.dtype}{' (SQ8)' if quantized else ''} "
+                        "is not a pair the kernel takes")
 
 
 def _check(name, t, dtype, shape, device):
@@ -69,15 +116,17 @@ def filtered_scan_tiled(
     """Tiled fused scan with a streaming per-slot top-k.
 
     Operands:
-      slot_cluster [S] int32 — cluster each slot scans
+      slot_cluster [S] int32 — cluster each slot scans; a cluster outside
+                   ``[0, K)`` marks a pad slot, which is skipped
       slot_tile    [S] int32 — query tile each slot serves
       n_unique     [n_tiles] int32 — live slots per tile of a tile-major
                    table (``S = n_tiles·u_cap``); later slots of a tile are
                    dedup pads and are skipped.  None: every slot is live.
-      queries  [Qpad, D] — bf16/f32 (f32 under SQ8), Qpad a multiple of
-                           q_block; tile t is rows ``[t·QB, (t+1)·QB)``
+      queries  [Qpad, D] — the vectors' dtype or f32 (f32 under SQ8), Qpad
+                           a multiple of q_block; tile t is rows
+                           ``[t·QB, (t+1)·QB)``
       lo, hi   [Qpad, F, M] int16 — DNF interval bounds per query
-      vectors  [K, Vpad, D] (queries' dtype, or int8 with ``scales``),
+      vectors  [K, Vpad, D] f32/bf16, or int8 with ``scales``,
       attrs [K, Vpad, M] int16, ids [K, Vpad] int32
       norms / scales [K, Vpad] f32 — l2 / SQ8 row constants
 
@@ -85,13 +134,8 @@ def filtered_scan_tiled(
     pads), npass [S, QB] int32; pad slots hold (NEG_INF, -1, 0).
     """
     global LAUNCHES
-    if metric not in ("dot", "l2"):
-        raise ValueError(metric)
-    if metric == "l2":
-        if norms is None:
-            raise ValueError("metric='l2' requires norms")
-        if scales is not None:
-            raise NotImplementedError("SQ8 + l2 not wired (norms suffice)")
+    _check_metric(metric, norms, scales)
+    _check_dtypes(queries, vectors, scales is not None)
     qpad, d = queries.shape
     if qpad % q_block:
         raise ValueError(f"Qpad={qpad} not a multiple of q_block={q_block}")
@@ -117,14 +161,10 @@ def filtered_scan_tiled(
         if n_unique.shape[0] == 0 or s % n_unique.shape[0]:
             raise ValueError(f"S={s} is not n_tiles={n_unique.shape[0]} "
                              "whole tiles")
-    q_dtype = torch.float32 if quantized else vectors.dtype
-    _check("queries", queries, q_dtype, (qpad, d), dev)
+    _check("queries", queries, queries.dtype, (qpad, d), dev)
     _check("lo", lo, torch.int16, (qpad, f, m), dev)
     _check("hi", hi, torch.int16, (qpad, f, m), dev)
-    _check("vectors", vectors, torch.int8 if quantized else vectors.dtype,
-           (kc, vpad, d), dev)
-    if not quantized and vectors.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"vectors: bf16 or f32 expected, got {vectors.dtype}")
+    _check("vectors", vectors, vectors.dtype, (kc, vpad, d), dev)
     _check("attrs", attrs, torch.int16, (kc, vpad, m), dev)
     _check("ids", ids, i32, (kc, vpad), dev)
     aux = norms if metric == "l2" else scales
@@ -149,10 +189,91 @@ def filtered_scan_tiled(
             None if aux is None else aux.data_ptr(),
             vals.data_ptr(), out_ids.data_ptr(), npass.data_ptr(),
             q_block, d, vpad, m, f, k,
-            _MODES["sq8" if quantized else metric], _DTYPES[q_dtype],
+            _MODES["sq8" if quantized else metric], _DTYPES[queries.dtype],
             _DTYPES[vectors.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"filtered_scan_tiled launch failed: cudaError {err}")
     LAUNCHES += 1
     return vals, out_ids, npass
+
+
+def filtered_scan(
+    slot_cluster: torch.Tensor,
+    slot_query: torch.Tensor,
+    queries: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    vectors: torch.Tensor,
+    attrs: torch.Tensor,
+    ids: torch.Tensor,
+    norms: Optional[torch.Tensor] = None,
+    scales: Optional[torch.Tensor] = None,
+    *,
+    metric: str = "dot",
+) -> torch.Tensor:
+    """Per-(query, probe) fused scan.  Returns masked scores [P, Vpad] f32.
+
+    Operands:
+      slot_cluster [P] int32 — cluster each slot scans
+      slot_query   [P] int32 — query row each slot serves
+      queries  [Q, D] — the vectors' dtype or f32 (f32 under SQ8)
+      lo, hi   [Q, F, M] int16 — DNF interval bounds per query
+      vectors  [K, Vpad, D] f32/bf16, or int8 with ``scales``,
+      attrs [K, Vpad, M] int16, ids [K, Vpad] int32
+      norms / scales [K, Vpad] f32 — l2 / SQ8 row constants
+
+    Row v of slot p holds ``score(queries[slot_query[p]], vectors[
+    slot_cluster[p], v])`` (dot; SQ8 dot times the row scale; l2 as
+    ``2·dot − ‖v‖²``, the per-query ``−‖q‖²`` left to the caller), or
+    NEG_INF where the row fails the filter or is dead.  Every slot is
+    scanned, pads included.
+    """
+    global PER_PROBE_LAUNCHES
+    _check_metric(metric, norms, scales)
+    _check_dtypes(queries, vectors, scales is not None)
+    if vectors.device.type == "cpu":
+        return filtered_scan_ref(
+            slot_cluster, slot_query, queries, lo, hi, vectors, attrs, ids,
+            norms, scales, metric=metric)
+    if vectors.device.type != "cuda":
+        raise ValueError(f"unsupported device {vectors.device}")
+
+    dev = vectors.device
+    p = slot_cluster.shape[0]
+    kc, vpad, d = vectors.shape
+    nq = queries.shape[0]
+    f, m = lo.shape[1], lo.shape[2]
+    quantized = scales is not None
+    i32 = torch.int32
+    _check("slot_cluster", slot_cluster, i32, (p,), dev)
+    _check("slot_query", slot_query, i32, (p,), dev)
+    _check("queries", queries, queries.dtype, (nq, d), dev)
+    _check("lo", lo, torch.int16, (nq, f, m), dev)
+    _check("hi", hi, torch.int16, (nq, f, m), dev)
+    _check("vectors", vectors, vectors.dtype, (kc, vpad, d), dev)
+    _check("attrs", attrs, torch.int16, (kc, vpad, m), dev)
+    _check("ids", ids, i32, (kc, vpad), dev)
+    aux = norms if metric == "l2" else scales
+    if aux is not None:
+        _check("norms" if metric == "l2" else "scales", aux, torch.float32,
+               (kc, vpad), dev)
+
+    out = torch.empty((p, vpad), dtype=torch.float32, device=dev)
+    if p == 0:
+        return out
+    fn = _per_probe_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            p, slot_cluster.data_ptr(), slot_query.data_ptr(), kc, nq,
+            queries.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            vectors.data_ptr(), attrs.data_ptr(), ids.data_ptr(),
+            None if aux is None else aux.data_ptr(), out.data_ptr(),
+            d, vpad, m, f, _MODES["sq8" if quantized else metric],
+            _DTYPES[queries.dtype], _DTYPES[vectors.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"filtered_scan launch failed: cudaError {err}")
+    PER_PROBE_LAUNCHES += 1
+    return out

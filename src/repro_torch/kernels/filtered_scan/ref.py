@@ -1,7 +1,9 @@
-"""Plain PyTorch version of the tiled filtered scan (the kernel's contract).
+"""Plain PyTorch versions of the filtered scans (the kernels' contracts).
 
-The CPU path of :func:`repro_torch.kernels.filtered_scan.filtered_scan.
-filtered_scan_tiled`, and what the CUDA kernel is held against on the card.
+The CPU paths of :func:`repro_torch.kernels.filtered_scan.filtered_scan.
+filtered_scan_tiled` and :func:`~repro_torch.kernels.filtered_scan.
+filtered_scan.filtered_scan`, and what the CUDA kernels are held against on
+the card.
 """
 
 from __future__ import annotations
@@ -11,6 +13,61 @@ from typing import Optional
 import torch
 
 from repro_torch.core.topk import NEG_INF, top_k
+
+
+def _dnf_mask(attrs: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+              ) -> torch.Tensor:
+    """attrs [..., V, M] against bounds [..., F, M] (int32, broadcast over
+    the leading axes) → [..., V] bool: OR over F terms of AND over M."""
+    fmask = None
+    for f in range(lo.shape[-2]):
+        term = None
+        for m in range(lo.shape[-1]):
+            am = attrs[..., m]
+            inside = (am >= lo[..., f, m, None]) & (am <= hi[..., f, m, None])
+            term = inside if term is None else term & inside
+        fmask = term if fmask is None else fmask | term
+    return fmask
+
+
+def filtered_scan_ref(
+    slot_cluster: torch.Tensor,  # [P] int32
+    slot_query: torch.Tensor,  # [P] int32
+    queries: torch.Tensor,  # [Q, D]
+    lo: torch.Tensor,  # [Q, F, M] int16
+    hi: torch.Tensor,  # [Q, F, M] int16
+    vectors: torch.Tensor,  # [K, Vpad, D]
+    attrs: torch.Tensor,  # [K, Vpad, M] int16
+    ids: torch.Tensor,  # [K, Vpad] int32
+    norms: Optional[torch.Tensor] = None,  # [K, Vpad] f32
+    scales: Optional[torch.Tensor] = None,  # [K, Vpad] f32 (SQ8)
+    *,
+    metric: str = "dot",
+    chunk: int = 64,
+) -> torch.Tensor:
+    """Returns masked scores [P, Vpad] f32: slot p's query against every
+    row of its cluster (dot; SQ8 dot times the row scale; l2 as
+    ``2·dot − ‖v‖²``), NEG_INF where the filter or liveness fails.
+
+    Works ``chunk`` slots at a time, so it never holds more than one
+    chunk's ``[chunk, Vpad, D]`` f32 gather.
+    """
+    p = slot_cluster.shape[0]
+    vpad = vectors.shape[1]
+    out = torch.empty((p, vpad), dtype=torch.float32, device=vectors.device)
+    for c0 in range(0, p, chunk):
+        sc = slot_cluster[c0:c0 + chunk].long()
+        sq = slot_query[c0:c0 + chunk].long()
+        v = vectors[sc].float()  # [c, V, D]
+        q = queries[sq].float()  # [c, D]
+        dots = torch.bmm(v, q[:, :, None])[..., 0]  # [c, V]
+        if scales is not None:
+            dots = dots * scales[sc]
+        score = dots if metric == "dot" else 2.0 * dots - norms[sc]
+        mask = _dnf_mask(attrs[sc].int(), lo[sq].int(), hi[sq].int())
+        mask &= ids[sc] >= 0
+        out[c0:c0 + chunk] = torch.where(mask, score, NEG_INF)
+    return out
 
 
 def live_slots(slot_tile: torch.Tensor, n_unique: Optional[torch.Tensor]
@@ -50,7 +107,8 @@ def filtered_scan_tiled_ref(
     chunk: int = 16,
 ):
     """Returns (vals [S, QB, k] f32, ids [S, QB, k] int32, npass [S, QB]
-    int32); pad slots hold (NEG_INF, -1, 0).
+    int32); pad slots hold (NEG_INF, -1, 0).  A slot whose cluster lies
+    outside ``[0, K)`` is a pad too, as in the kernel.
 
     Works ``chunk`` live slots at a time, so it never holds more than one
     chunk's ``[chunk, Vpad, D]`` gather.
@@ -64,7 +122,9 @@ def filtered_scan_tiled_ref(
     out_v = torch.full((s, q_block, k), NEG_INF, dtype=torch.float32, device=dev)
     out_i = torch.full((s, q_block, k), -1, dtype=torch.int32, device=dev)
     out_n = torch.zeros((s, q_block), dtype=torch.int32, device=dev)
-    live = torch.nonzero(live_slots(slot_tile, n_unique)).reshape(-1)
+    live = (live_slots(slot_tile, n_unique) & (slot_cluster >= 0)
+            & (slot_cluster < vectors.shape[0]))
+    live = torch.nonzero(live).reshape(-1)
     for c0 in range(0, live.shape[0], chunk):
         sl = live[c0:c0 + chunk]
         sc = slot_cluster[sl].long()
@@ -76,16 +136,8 @@ def filtered_scan_tiled_ref(
             scores = scores * scales[sc][:, None, :]
         if metric == "l2":
             scores = 2.0 * scores - norms[sc][:, None, :]
-        a = attrs[sc].int()[:, None]  # [c, 1, V, M]
-        qlo = lot[st][:, :, None]  # [c, QB, 1, F, M]
-        qhi = hit[st][:, :, None]
-        fmask = None
-        for f in range(qlo.shape[-2]):
-            term = torch.ones(scores.shape, dtype=torch.bool, device=dev)
-            for m in range(qlo.shape[-1]):
-                am = a[..., m]
-                term &= (am >= qlo[..., f, m]) & (am <= qhi[..., f, m])
-            fmask = term if fmask is None else fmask | term
+        # attrs [c, 1, V, M] against each tile row's bounds [c, QB, F, M]
+        fmask = _dnf_mask(attrs[sc].int()[:, None], lot[st], hit[st])
         mask = fmask & (ids[sc] >= 0)[:, None, :]
         scores = torch.where(mask, scores, NEG_INF)
         vals, idx = top_k(scores, k)  # earliest row wins ties

@@ -169,7 +169,16 @@ def test_port_runs_without_jax_or_repro():
         import numpy as np
         import torch
         from repro_torch.core import (HybridSpec, SearchEngine,
-                                      build_from_assignments, match_all)
+                                      ShardedSearchConfig,
+                                      build_from_assignments, match_all,
+                                      make_sharded_search)
+        from repro_torch.core.distributed import dispatch_probes_tiled
+        from repro_torch.kernels.centroid_topk import probe_centroids
+        from repro_torch.kernels.centroid_topk.centroid_topk import (
+            centroid_topk)
+        from repro_torch.kernels.filtered_scan import search_fused
+        from repro_torch.kernels.filtered_scan.filtered_scan import (
+            filtered_scan)
         rng = np.random.default_rng(0)
         core = rng.standard_normal((500, 16)).astype(np.float32)
         assign = rng.integers(0, 4, 500)
@@ -181,6 +190,14 @@ def test_port_runs_without_jax_or_repro():
         res = SearchEngine(index, k=5, n_probes=4, device="cpu").search(
             torch.from_numpy(core[:10]), match_all(10, 2, device="cpu"))
         assert (res.ids[:, 0].numpy() == np.arange(10)).all()
+        q, fs = torch.from_numpy(core[:10]), match_all(10, 2, device="cpu")
+        res = search_fused(index, q, fs, k=5, n_probes=4, device="cpu")
+        assert (res.ids[:, 0].numpy() == np.arange(10)).all()
+        for backend in ("pallas", "pallas_tiled"):
+            fn, _ = make_sharded_search(
+                "l2", q_total=10, n_clusters=4, device="cpu",
+                cfg=ShardedSearchConfig(k=5, n_probes=4, backend=backend))
+            assert (fn(index, q, fs).ids[:, 0].numpy() == np.arange(10)).all()
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "repro"
                or m.startswith("repro.")]

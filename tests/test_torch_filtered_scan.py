@@ -24,6 +24,9 @@ VARIANTS = {  # name: (metric, vectors dtype, quantized)
     "l2-f32": ("l2", np.float32, False),
     "l2-bf16": ("l2", "bf16", False),
     "sq8": ("dot", np.int8, True),
+    # f32 queries against bf16 vectors, as the sharded tiled search passes
+    "dot-f32q-bf16v": ("dot", "f32q-bf16v", False),
+    "l2-f32q-bf16v": ("l2", "f32q-bf16v", False),
 }
 
 
@@ -54,16 +57,20 @@ def _case(variant, f, *, seed=0, n_tiles=2, q_block=8, kc=5, vpad=256,
     if metric == "l2":
         c["norms"] = (vec.astype(np.float32) ** 2).sum(-1)
     kw = dict(metric=metric, k=7, q_block=q_block)
-    return c, kw, vdt == "bf16"
+    return c, kw, vdt if isinstance(vdt, str) else None
 
 
 def _torch_args(c, bf16, device="cpu"):
+    """``bf16``: "bf16" casts queries and vectors, "f32q-bf16v" the vectors
+    only, None neither."""
     def t(x):
         return None if x is None else torch.from_numpy(x).to(device)
 
     q, v = t(c["queries"]), t(c["vectors"])
     if bf16:
-        q, v = q.to(torch.bfloat16), v.to(torch.bfloat16)
+        v = v.to(torch.bfloat16)
+    if bf16 == "bf16":
+        q = q.to(torch.bfloat16)
     return (t(c["slot_cluster"]), t(c["slot_tile"]), t(c["n_unique"]), q,
             t(c["lo"]), t(c["hi"]), v, t(c["attrs"]), t(c["ids"]),
             t(c["norms"]), t(c["scales"]))
@@ -75,7 +82,9 @@ def _jax_args(c, bf16):
 
     q, v = j(c["queries"]), j(c["vectors"])
     if bf16:
-        q, v = q.astype(jnp.bfloat16), v.astype(jnp.bfloat16)
+        v = v.astype(jnp.bfloat16)
+    if bf16 == "bf16":
+        q = q.astype(jnp.bfloat16)
     return (j(c["slot_cluster"]), j(c["slot_tile"]), q, j(c["lo"]),
             j(c["hi"]), v, j(c["attrs"]), j(c["ids"]), j(c["norms"]),
             j(c["scales"]))
@@ -131,3 +140,18 @@ def test_wrapper_rejects_other_devices_and_sq8_l2():
     args[9] = torch.ones(args[6].shape[:2])  # norms beside scales
     with pytest.raises(NotImplementedError):
         tfs.filtered_scan_tiled(*args, **dict(kw, metric="l2"))
+
+
+@pytest.mark.parametrize("pair", ["i8-without-scales", "bf16q-f32v"])
+def test_wrapper_refuses_on_the_cpu_the_pairs_the_kernel_refuses(pair):
+    """int8 rows without their scales would give unscaled scores on the
+    plain route: the CPU refuses what the card refuses."""
+    variant = "sq8" if pair == "i8-without-scales" else "dot-f32"
+    c, kw, bf16 = _case(variant, 1)
+    args = list(_torch_args(c, bf16))
+    if pair == "i8-without-scales":
+        args[10] = None
+    else:
+        args[3] = args[3].bfloat16()
+    with pytest.raises(TypeError, match="not a pair the kernel takes"):
+        tfs.filtered_scan_tiled(*args, **kw)

@@ -1,5 +1,6 @@
-"""CUDA-only tests of the port: the hand-written kernel against its plain
-version, and the engine on the card against the engine on the CPU.
+"""CUDA-only tests of the port: each hand-written kernel against its plain
+version, and the engine, the sharded search and ``search_fused`` on the
+card against the same entry points on the CPU.
 
 They need a card and skip without one; this file imports no JAX, so it
 also runs where only PyTorch is installed:
@@ -14,13 +15,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import distributed as tdist
 from repro_torch.core import engine as teng
 from repro_torch.core import filters as tf
 from repro_torch.core import hybrid as thy
 from repro_torch.core import ivf as tivf
 from repro_torch.core.topk import NEG_INF
+from repro_torch.kernels.centroid_topk import centroid_topk as tct
+from repro_torch.kernels.centroid_topk.ref import centroid_topk_ref
 from repro_torch.kernels.filtered_scan import filtered_scan as tfs
-from repro_torch.kernels.filtered_scan.ref import filtered_scan_tiled_ref
+from repro_torch.kernels.filtered_scan import search_fused
+from repro_torch.kernels.filtered_scan.ref import (
+    filtered_scan_ref,
+    filtered_scan_tiled_ref,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -30,6 +38,9 @@ VARIANTS = {  # name: (metric, vectors dtype, quantized)
     "l2-f32": ("l2", torch.float32, False),
     "l2-bf16": ("l2", torch.bfloat16, False),
     "sq8": ("dot", torch.int8, True),
+    # f32 queries against bf16 vectors, as the sharded search passes them
+    "dot-f32q-bf16v": ("dot", "f32q-bf16v", False),
+    "l2-f32q-bf16v": ("l2", "f32q-bf16v", False),
 }
 
 
@@ -58,7 +69,9 @@ def _case(variant, f, dev, *, seed=0, n_tiles=3, q_block=72, kc=6, vpad=200,
         vec = np.clip(np.round(vec / sc[..., None]), -127, 127).astype(np.int8)
         scales = t(sc)
     vectors = t(vec)
-    if not quantized:
+    if vdt == "f32q-bf16v":
+        vectors = vectors.to(torch.bfloat16)
+    elif not quantized:
         vectors = vectors.to(vdt)
         queries = queries.to(vdt)
     if metric == "l2":
@@ -151,4 +164,149 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, variant):
     np.testing.assert_allclose(cr.scores.numpy(), gr.scores.cpu().numpy(),
                                rtol=1e-5)
     for c in ("n_scanned", "n_passed", "n_pruned"):
+        assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
+
+
+def _assert_topk_close(got, want):
+    """Values within rtol 1e-5 / atol 1e-5·max|value|; ids exact where the
+    value stands apart from its neighbours by more than twice that atol
+    (f32 sums in another order may swap near-ties); equal values in
+    ascending id order (the lower id wins a tie)."""
+    gv, gi = (x.cpu().numpy() for x in got)
+    wv, wi = (x.cpu().numpy() for x in want)
+    atol = 1e-5 * max(np.abs(wv).max(initial=0), 1)
+    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=atol)
+    gap = np.abs(np.diff(wv, axis=-1))
+    big = np.full(wv.shape[:-1] + (1,), np.inf)
+    clear = np.minimum(np.concatenate([big, gap], -1),
+                       np.concatenate([gap, big], -1)) > 2 * atol
+    np.testing.assert_array_equal(np.where(clear, gi, 0), np.where(clear, wi, 0))
+    tie = gv[..., 1:] == gv[..., :-1]
+    assert (gi[..., 1:][tie] > gi[..., :-1][tie]).all()
+
+
+@pytest.mark.parametrize("t", [1, 7, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_centroid_topk_matches_plain_version(cuda, metric, dtype, t):
+    # ragged: Q not a multiple of the CTA's 16 queries, K of its 128-centroid
+    # tile, D of its depth step; duplicated centroids force exact ties
+    rng = np.random.default_rng(t)
+    cents = rng.standard_normal((333, 97)).astype(np.float32)
+    cents[[40, 41, 300]] = cents[7]
+    queries = np.concatenate([cents[[7, 7]], rng.standard_normal((35, 97))])
+    q = torch.from_numpy(queries.astype(np.float32)).to(cuda, dtype)
+    c = torch.from_numpy(cents).to(cuda, dtype)
+    before = tct.LAUNCHES
+    got = tct.centroid_topk(q, c, t=t, metric=metric)
+    torch.cuda.synchronize()
+    assert tct.LAUNCHES == before + 1
+    _assert_topk_close(got, centroid_topk_ref(q, c, t=t, metric=metric))
+    if t >= 4:  # the duplicated group, lowest id first
+        np.testing.assert_array_equal(got[1][:2, :4].cpu().numpy(),
+                                      [[7, 40, 41, 300]] * 2)
+
+
+def test_centroid_topk_keeps_real_probes_where_all_scores_are_negative(cuda):
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.uniform(0.1, 1, (4, 8)).astype(np.float32)).to(cuda)
+    c = -torch.from_numpy(rng.uniform(0.1, 1, (96, 8)).astype(np.float32)).to(cuda)
+    got = tct.centroid_topk(q, c, t=4)
+    _assert_topk_close(got, centroid_topk_ref(q, c, t=4))
+    assert (got[1] >= 0).all()
+
+
+def test_centroid_topk_rejects_large_t(cuda):
+    c = torch.randn((64, 8), device=cuda)
+    with pytest.raises(NotImplementedError):
+        tct.centroid_topk(c[:4], c, t=33)
+
+
+def _legacy_case(variant, f, dev, *, d=97, vpad=300, p=40, seed=0):
+    args, kw = _case(variant, f, dev, seed=seed, d=d, vpad=vpad, q_block=9,
+                     n_tiles=1)
+    rng = np.random.default_rng(seed)
+    kc = args[6].shape[0]
+    # repeated slots on one cluster, and pad-like slots (cluster 0, query 0)
+    sc = np.concatenate([np.full(8, 3), rng.integers(0, kc, p - 12),
+                         np.zeros(4)]).astype(np.int32)
+    sq = np.concatenate([rng.integers(0, 9, p - 4), np.zeros(4)]).astype(np.int32)
+    return ((torch.from_numpy(sc).to(dev), torch.from_numpy(sq).to(dev))
+            + args[3:], dict(metric=kw["metric"]))
+
+
+def _assert_scores_close(got, want):
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    live = w > NEG_INF / 2
+    np.testing.assert_array_equal(g > NEG_INF / 2, live)
+    scale = max(np.abs(w[live]).max(initial=0), 1)
+    np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("d", [97, 128])  # scalar loads, 16-byte loads
+@pytest.mark.parametrize("f", [1, 2])
+@pytest.mark.parametrize("variant", ["dot-bf16", "dot-f32", "dot-f32q-bf16v",
+                                     "sq8", "l2-f32", "l2-bf16"])
+def test_filtered_scan_matches_plain_version(cuda, variant, f, d):
+    args, kw = _legacy_case(variant, f, cuda, d=d)
+    before = tfs.PER_PROBE_LAUNCHES
+    got = tfs.filtered_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfs.PER_PROBE_LAUNCHES == before + 1
+    _assert_scores_close(got, filtered_scan_ref(*args, **kw))
+
+
+def test_filtered_scan_rejects_unsupported_dtype_pairs(cuda):
+    args, kw = _legacy_case("dot-f32", 1, cuda)
+    args = list(args)
+    args[2] = args[2].bfloat16()  # bf16 queries against f32 vectors
+    with pytest.raises(TypeError):
+        tfs.filtered_scan(*args, **kw)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_tiled"])
+@pytest.mark.parametrize("variant", ["dot-f32", "dot-bf16", "l2-f32", "sq8"])
+def test_sharded_search_on_card_matches_cpu(cuda, variant, backend):
+    rng = np.random.default_rng(2)
+    q = 37
+    qs = torch.from_numpy(rng.standard_normal((q, 32)).astype(np.float32))
+    lo = np.full((q, 1, 3), -32768, np.int16)
+    hi = np.full((q, 1, 3), 32767, np.int16)
+    start = rng.integers(0, 1500, q)
+    lo[:, 0, 0], hi[:, 0, 0] = start, start + 399
+    fspec = tf.FilterSpec(lo=torch.from_numpy(lo), hi=torch.from_numpy(hi))
+    metric = VARIANTS[variant][0]
+    cfg = tdist.ShardedSearchConfig(k=10, n_probes=4, scan_q_block=16,
+                                    backend=backend)
+    res = []
+    for dev, launches in ((torch.device("cpu"), 0), (cuda, 1)):
+        fn, _ = tdist.make_sharded_search(metric, q_total=q, n_clusters=16,
+                                          cfg=cfg, device=dev)
+        before = (tct.LAUNCHES, tfs.LAUNCHES + tfs.PER_PROBE_LAUNCHES)
+        res.append(fn(_index(variant, dev), qs.to(dev), fspec.to(dev)))
+        after = (tct.LAUNCHES, tfs.LAUNCHES + tfs.PER_PROBE_LAUNCHES)
+        # the card's path went through both kernels, the CPU's through none
+        assert after == (before[0] + launches, before[1] + launches)
+    cr, gr = res
+    np.testing.assert_array_equal(cr.ids.numpy(), gr.ids.cpu().numpy())
+    np.testing.assert_allclose(cr.scores.numpy(), gr.scores.cpu().numpy(),
+                               rtol=1e-5)
+    assert (gr.n_scanned == 0).all() and (gr.n_passed == 0).all()
+
+
+@pytest.mark.parametrize("variant", ["dot-f32", "dot-bf16", "l2-f32", "sq8"])
+def test_search_fused_on_card_matches_cpu(cuda, variant):
+    rng = np.random.default_rng(3)
+    qs = torch.from_numpy(rng.standard_normal((21, 32)).astype(np.float32))
+    fspec = tf.match_all(21, 3, device="cpu")
+    cr = search_fused(_index(variant, "cpu"), qs, fspec, k=10, n_probes=4,
+                      device="cpu")
+    before = tfs.PER_PROBE_LAUNCHES
+    gr = search_fused(_index(variant, cuda), qs.to(cuda), fspec.to(cuda),
+                      k=10, n_probes=4)
+    assert tfs.PER_PROBE_LAUNCHES == before + 1
+    np.testing.assert_array_equal(cr.ids.numpy(), gr.ids.cpu().numpy())
+    np.testing.assert_allclose(cr.scores.numpy(), gr.scores.cpu().numpy(),
+                               rtol=1e-5)
+    for c in ("n_scanned", "n_passed"):
         assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
