@@ -5,7 +5,8 @@
 
 Phases:
   1. environment and build: the card, the versions, one ``nvcc`` per CUDA
-     source (all started together);
+     source (all started together), and the count of tensor-core
+     instructions (HGMMA, HMMA) in each library's SASS;
   2. every kernel against its plain PyTorch version on the card, at small
      ragged shapes: filtered_scan_tiled and the per-probe filtered_scan
      over their dtype pairs and metrics (F = 1 and 2 DNF terms),
@@ -25,7 +26,9 @@ Phases:
      engine's;
   4. each kernel on one full-size batch: held against its plain version,
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
-     for centroid_topk).
+     for centroid_topk); filtered_scan_tiled on both of its full-size
+     operand sets: the engine's (bf16 queries) and the sharded tiled
+     backend's (f32 queries against the bf16 index).
 
 Prints the card's name and power limit, a JSON line describing every
 kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -37,6 +40,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,25 +63,41 @@ N_PROBES = 7
 HOT_TOPICS = 8
 WARMUP, BATCHES = 2, 5
 N_CHECK = 16  # queries per batch held against search_reference
+SPIN_CYCLES = 200_000_000  # ~0.1 s at ~2 GHz: longer than a timed run takes to issue
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def ms(fn, reps):
-    """Median device time of ``fn`` in ms over ``reps`` calls (CUDA events)."""
+def ms(fn, reps, queued=True):
+    """Median time of one call of ``fn`` in ms over ``reps`` calls, between
+    CUDA events.  ``queued``: the calls wait behind a spin of the card
+    (``torch.cuda._sleep``) while the host issues them all, so the time is
+    the card's alone (gaps between launches included) and not the host's
+    Python, checks and allocations; else each call is timed from an idle
+    card, the host's issue time included."""
     import torch
 
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
     times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES)
+        for i in range(reps):
+            ev[i].record()
+            fn()
+        ev[reps].record()
+        ev[reps].synchronize()
+        times = [ev[i].elapsed_time(ev[i + 1]) for i in range(reps)]
+    else:
+        for i in range(reps):
+            ev[0].record()
+            fn()
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
     return statistics.median(times)
 
 
@@ -111,14 +132,55 @@ def check_topk(name, gv, gi, wv, wi, w_next=None):
     return max_err
 
 
-def check_scan(name, got, want):
+def check_scan(name, got, want, want_next=None):
     """Tiled scan output against the plain version: npass exact, then
-    :func:`check_topk` on (vals, ids).  Returns max |err|."""
+    :func:`check_topk` on (vals, ids); ``want_next`` is the plain version
+    run for k + 1 (its last value is the next one past the list).  Returns
+    max |err|."""
     import torch
 
     if not torch.equal(got[2], want[2]):
         raise AssertionError(f"{name}: npass differs")
-    return check_topk(name, got[0], got[1], want[0], want[1])
+    w_next = None if want_next is None else want_next[0][..., -1]
+    return check_topk(name, got[0], got[1], want[0], want[1], w_next)
+
+
+def plain_scan(args, kw):
+    """filtered_scan_tiled's plain version, and its run for k + 1."""
+    from repro_torch.kernels.filtered_scan.ref import filtered_scan_tiled_ref
+
+    return (filtered_scan_tiled_ref(*args, **kw),
+            filtered_scan_tiled_ref(*args, **{**kw, "k": kw["k"] + 1}))
+
+
+def sass_counts(lib):
+    """Tensor-core instructions in a built library's SASS (cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
+
+
+def tiled_bound(slot_cluster, live, queries, lo, n_unique, qb, vpad):
+    """filtered_scan_tiled's least time on the card for these operands:
+    (bound_ms, byte_ms, op_ms, n_live, n_clusters).  Bytes: the distinct
+    clusters' rows (bf16 vectors, int16 attributes, int32 ids) read once,
+    the queries, bounds and slot tables, and the outputs; operations:
+    2·QB·Vpad·D per live slot at the bf16 tensor-core peak."""
+    import torch
+
+    n_live = int(live.sum())
+    n_clusters = int(torch.unique(slot_cluster[live]).numel())
+    s = slot_cluster.shape[0]
+    m = lo.shape[2]
+    row_bytes = DIM * 2 + m * 2 + 4
+    nbytes = (n_clusters * vpad * row_bytes
+              + queries.numel() * queries.element_size() + 2 * lo.numel() * 2
+              + 2 * s * 4 + (0 if n_unique is None else n_unique.numel() * 4)
+              + s * qb * (K_TOP * 8 + 4))
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 2 * qb * vpad * DIM * n_live / PEAK_OPS["bf16"] * 1e3
+    return max(byte_ms, op_ms), byte_ms, op_ms, n_live, n_clusters
 
 
 def check_scores(name, got, want):
@@ -470,7 +532,17 @@ def main(argv=None):
     for name, rep in build.build_all().items():
         ptxas = [ln.strip() for ln in rep["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
-        log(f"built {name} in {rep['seconds']:.2f} s; " + " | ".join(ptxas))
+        tc = sass_counts(rep["path"])
+        log(f"built {name} in {rep['seconds']:.2f} s; SASS tensor-core "
+            f"instructions {tc}; " + " | ".join(ptxas))
+        if name == "filtered_scan_tiled" and not tc["HGMMA"] + tc["HMMA"]:
+            raise AssertionError("filtered_scan_tiled has no tensor-core "
+                                 "instructions")
+    for qdt in (torch.bfloat16, torch.float32):  # the two full-size pairs
+        body = fs_mod.tiled_body(DIM, M_ATTRS, 1, "dot", qdt, torch.bfloat16)
+        if body != "tensor_cores":
+            raise AssertionError(f"filtered_scan_tiled {qdt} x bf16 at "
+                                 f"D={DIM} runs on the {body} body")
     log(f"phase 1 (build) {time.perf_counter() - t0:.2f} s")
 
     # ---- phase 2: kernels against their plain versions, small shapes ----
@@ -480,7 +552,7 @@ def main(argv=None):
     for name, a, kw in small_cases(dev, gen):
         got = fs_mod.filtered_scan_tiled(*a, **kw)
         torch.cuda.synchronize()
-        err = check_scan(name, got, filtered_scan_tiled_ref(*a, **kw))
+        err = check_scan(name, got, *plain_scan(a, kw))
         log(f"filtered_scan_tiled {name}: ok, max |err| {err:.3e}")
     for name, q_, c_, t, metric in centroid_cases(dev, gen):
         got, err = check_centroids(name, q_, c_, t, metric)
@@ -569,9 +641,9 @@ def main(argv=None):
     # ---- phase 3b: the one-shard sharded search and search_fused ----
     t0 = time.perf_counter()
     reset_launches()
-    sharded, sharded_times = {}, {}
+    sharded, sharded_times, searches = {}, {}, {}
     for backend in BACKENDS:
-        fn, info = make_sharded_search(
+        fn, info = searches[backend] = make_sharded_search(
             "dot", q_total=Q, n_clusters=index.n_clusters,
             cfg=ShardedSearchConfig(k=K_TOP, n_probes=N_PROBES,
                                     scan_q_block=64, backend=backend,
@@ -648,29 +720,22 @@ def main(argv=None):
          None, None)
     kw = dict(metric="dot", k=K_TOP, q_block=plan.q_block)
     got = fs_mod.filtered_scan_tiled(*a, **kw)
-    want = filtered_scan_tiled_ref(*a, **kw)
-    max_err = check_scan("full-size uniform batch", got, want)
+    max_err = check_scan("full-size uniform batch", got, *plain_scan(a, kw))
     kernel_ms = ms(lambda: fs_mod.filtered_scan_tiled(*a, **kw), 10)
     plain_ms = ms(lambda: filtered_scan_tiled_ref(*a, **kw), 3)
-    live = live_slots(plan.slot_tile, plan.n_unique)
-    n_live = int(live.sum())
-    n_clusters = int(torch.unique(plan.slot_cluster[live]).numel())
-    s, qb = plan.slot_cluster.shape[0], plan.q_block
-    f, m = plan.lo_pad.shape[1:]
-    row_bytes = DIM * 2 + m * 2 + 4  # vector, attributes, id
-    nbytes = (n_clusters * index.vpad * row_bytes
-              + plan.queries_pad.numel() * 2 + 2 * plan.lo_pad.numel() * 2
-              + 2 * s * 4 + plan.n_unique.numel() * 4  # inputs
-              + s * qb * (K_TOP * 8 + 4))  # outputs
-    ops = 2 * qb * index.vpad * DIM * n_live
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / PEAK_OPS["bf16"] * 1e3
-    bound_ms = max(byte_ms, op_ms)
-    log(f"filtered_scan_tiled full size: {n_live} live slots over {n_clusters} "
-        f"clusters; kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.3f} ms (bytes {byte_ms:.3f} ms, bf16 ops {op_ms:.3f} ms; "
-        f"f32 FMA ops {ops / PEAK_OPS['f32'] * 1e3:.3f} ms); "
-        f"{ops / kernel_ms / 1e9:.1f} TFLOP/s achieved; max |err| {max_err:.3e}")
+    bound_ms, byte_ms, op_ms, n_live, n_clusters = tiled_bound(
+        plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
+        plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
+        index.vpad)
+    ops = op_ms * PEAK_OPS["bf16"] / 1e3
+    log(f"filtered_scan_tiled full size, engine operands "
+        f"({plan.queries_pad.dtype} queries x bf16): {n_live} live slots "
+        f"over {n_clusters} clusters; kernel {kernel_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms (bytes {byte_ms:.3f} ms, "
+        f"bf16 ops {op_ms:.3f} ms; f32 FMA ops "
+        f"{ops / PEAK_OPS['f32'] * 1e3:.3f} ms); "
+        f"{ops / kernel_ms / 1e9:.1f} TFLOP/s achieved, kernel / bound "
+        f"{kernel_ms / bound_ms:.2f}; max |err| {max_err:.3e}")
     kernels = [dict(
         name="filtered_scan_tiled", route="cuda",
         source="src/repro_torch/kernels/filtered_scan/csrc/filtered_scan_tiled.cu",
@@ -683,6 +748,31 @@ def main(argv=None):
         library_ms=None,
     )]
 
+    # the sharded tiled backend's own operands: f32 queries against the
+    # bf16 index, dedup pads passed as cluster -1
+    tsearch, _ = searches["pallas_tiled"]
+    _, tplan = sharded["pallas_tiled", "uniform"]
+    u_live = (torch.arange(tplan.u_cluster.shape[0], device=dev)
+              < tplan.u_count)
+    ta = (torch.where(u_live, tplan.u_cluster, -1), tplan.u_tile, None,
+          tplan.queries_in, tplan.lo_in, tplan.hi_in, index.vectors,
+          index.attrs, index.ids, None, None)
+    tkw = dict(metric="dot", k=K_TOP, q_block=tsearch.scan_q_block)
+    t_err = check_scan("full-size uniform batch, sharded tiled operands",
+                       fs_mod.filtered_scan_tiled(*ta, **tkw),
+                       *plain_scan(ta, tkw))
+    t_ms = ms(lambda: fs_mod.filtered_scan_tiled(*ta, **tkw), 10)
+    t_plain = ms(lambda: filtered_scan_tiled_ref(*ta, **tkw), 3)
+    t_bound, t_byte, t_op, t_live, t_clusters = tiled_bound(
+        ta[0], u_live, tplan.queries_in, tplan.lo_in, None,
+        tsearch.scan_q_block, index.vpad)
+    log(f"filtered_scan_tiled full size, sharded tiled operands "
+        f"({tplan.queries_in.dtype} queries x bf16): {t_live} live of "
+        f"{ta[0].shape[0]} slots over {t_clusters} clusters; kernel "
+        f"{t_ms:.3f} ms, plain {t_plain:.3f} ms, bound {t_bound:.3f} ms "
+        f"(bytes {t_byte:.3f} ms, bf16 ops {t_op:.3f} ms), kernel / bound "
+        f"{t_ms / t_bound:.2f}; max |err| {t_err:.3e}")
+
     # centroid_topk: the uniform batch's queries against every centroid
     queries = batches["uniform"][-1][0]
     cents = index.centroids
@@ -693,6 +783,10 @@ def main(argv=None):
     ct_plain = ms(lambda: centroid_topk_ref(queries, cents, t=N_PROBES), 5)
     ct_lib = ms(lambda: torch.topk(torch.matmul(queries, cents.T), N_PROBES),
                 20)
+    ct_wall = ms(lambda: ct_mod.centroid_topk(queries, cents, t=N_PROBES), 20,
+                 queued=False)
+    lib_wall = ms(lambda: torch.topk(torch.matmul(queries, cents.T),
+                                     N_PROBES), 20, queued=False)
     ct_bytes = (Q * DIM + kc * DIM) * 4 + Q * N_PROBES * 8
     ct_ops = 2 * Q * kc * DIM
     ct_byte_ms = ct_bytes / HBM_BYTES_PER_S * 1e3
@@ -701,7 +795,9 @@ def main(argv=None):
         f"kernel {ct_ms:.3f} ms, plain {ct_plain:.3f} ms, torch.matmul + "
         f"torch.topk {ct_lib:.3f} ms, bound {max(ct_byte_ms, ct_op_ms):.3f} ms "
         f"(bytes {ct_byte_ms:.4f} ms, f32 FMA ops {ct_op_ms:.4f} ms); "
-        f"{ct_ops / ct_ms / 1e9:.2f} TFLOP/s achieved; max |err| {ct_err:.3e}")
+        f"{ct_ops / ct_ms / 1e9:.2f} TFLOP/s achieved; max |err| {ct_err:.3e}; "
+        f"from an idle card, host issue included: kernel {ct_wall:.3f} ms, "
+        f"torch.matmul + torch.topk {lib_wall:.3f} ms")
     kernels.append(dict(
         name="centroid_topk", route="cuda",
         source="src/repro_torch/kernels/centroid_topk/csrc/centroid_topk.cu",
@@ -722,6 +818,7 @@ def main(argv=None):
     fs_plain = ms(lambda: filtered_scan_ref(*pa), 3)
     p_slots = splan.slot_cluster.shape[0]
     n_distinct = int(torch.unique(splan.slot_cluster).numel())
+    row_bytes = DIM * 2 + M_ATTRS * 2 + 4  # vector, attributes, id
     small = (splan.queries_in.numel() * 4 + 2 * splan.lo_in.numel() * 2
              + 2 * p_slots * 4 + p_slots * index.vpad * 4)  # + the output
     fs_bytes = n_distinct * index.vpad * row_bytes + small

@@ -2,9 +2,10 @@
 
 Each ``kernels/<name>/csrc/<file>.cu`` has a plain C interface and is
 compiled on first use into ``build/kernels/<file>-<hash>.so`` at the root
-of the checkout (``.gitignore`` lists ``build/``); the hash covers the
-source and the flags, so an edited source is rebuilt.  Nothing is compiled
-when a module is imported.
+of the checkout (``.gitignore`` lists ``build/``); the hash covers every
+file of the source's ``csrc/`` directory (so an edited header rebuilds the
+sources beside it) and the flags.  Nothing is compiled when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -44,16 +45,21 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+def target(src: Path) -> Path:
+    """The library ``src`` builds into: named by a hash of the flags and of
+    every file under the source's directory, names included."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in src.parent.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(src.parent)).encode() + b"\0")
+        h.update(path.read_bytes())
+    h.update(src.name.encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def _start(src: Path):
     """Starts nvcc on ``src`` unless its library exists; returns
     ``(target, tmp, process)`` or ``(target, None, None)``."""
-    out = _target(src)
+    out = target(src)
     if out.exists():
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,7 +82,7 @@ def _finish(src: Path, out: Path, tmp, proc) -> str:
 
 def build_all(srcs: Iterable[Path] = ()) -> Dict[str, dict]:
     """Compiles the given sources (default: all) with one nvcc each, all
-    started together.  Returns ``{stem: {"seconds", "log"}}``."""
+    started together.  Returns ``{stem: {"seconds", "log", "path"}}``."""
     srcs = list(srcs) or sources()
     with _LOCK:
         t0 = time.perf_counter()
@@ -84,7 +90,8 @@ def build_all(srcs: Iterable[Path] = ()) -> Dict[str, dict]:
         report = {}
         for src, out, tmp, proc in started:
             log = _finish(src, out, tmp, proc)
-            report[src.stem] = dict(seconds=time.perf_counter() - t0, log=log)
+            report[src.stem] = dict(seconds=time.perf_counter() - t0, log=log,
+                                    path=out)
     return report
 
 

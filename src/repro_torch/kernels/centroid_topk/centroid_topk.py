@@ -30,12 +30,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _lib():
     lib = build.load(SOURCE)
-    fn = lib.centroid_topk_launch
+    fn, chunks = lib.centroid_topk_launch, lib.centroid_topk_chunks
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp, ci, ci, ci, vp]
+        fn.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         fn.restype = ci
-    return fn
+        chunks.argtypes = [ci]
+        chunks.restype = ci
+    return fn, chunks
 
 
 def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *, t: int,
@@ -76,11 +78,15 @@ def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *, t: int,
     ids = torch.empty((q, t), dtype=torch.int32, device=dev)
     if q == 0:
         return vals, ids
-    fn = _lib()
+    fn, chunks = _lib()
+    # each K chunk's top-T, merged by the kernel's second pass
+    part_vals = torch.empty((q, chunks(k), t), dtype=torch.float32, device=dev)
+    part_ids = torch.empty((q, chunks(k), t), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q, k, d, t, queries.data_ptr(), centroids.data_ptr(),
-                 vals.data_ptr(), ids.data_ptr(), _METRICS[metric],
+                 part_vals.data_ptr(), part_ids.data_ptr(), vals.data_ptr(),
+                 ids.data_ptr(), _METRICS[metric],
                  _DTYPES[queries.dtype], _DTYPES[centroids.dtype], stream)
     if err != 0:
         raise RuntimeError(f"centroid_topk launch failed: cudaError {err}")

@@ -55,6 +55,21 @@ def _lib():
                   _CI, _VP])
 
 
+def tiled_body(d: int, m: int, f: int, metric: str, q_dtype: torch.dtype,
+               v_dtype: torch.dtype) -> str:
+    """Which body of the CUDA ``filtered_scan_tiled`` serves these operands:
+    "tensor_cores" (bf16 vectors: mma.sync, f32 queries split into three
+    bf16 terms) or "fma" (f32 x f32, SQ8, and bf16 shapes whose resident
+    query tile does not fit in shared memory).  Builds the kernel."""
+    fn = _bind(SOURCE, "filtered_scan_tiled_body", [_CI] * 6)
+    mode = "sq8" if v_dtype == torch.int8 else metric
+    body = fn(d, m, f, _MODES[mode], _DTYPES[q_dtype], _DTYPES[v_dtype])
+    if body < 0:
+        raise TypeError(f"{q_dtype} x {v_dtype} ({mode}) is not a pair the "
+                        "kernel takes")
+    return "tensor_cores" if body else "fma"
+
+
 def _per_probe_lib():
     return _bind(PER_PROBE_SOURCE, "filtered_scan_launch",
                  [_CI, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP,

@@ -7,8 +7,12 @@ also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: scores rtol 1e-5, atol 1e-5·max|score| (f32 sums taken in
-another order); ids and pass counts exact (continuous random scores).
+Tolerances: scores rtol 1e-5, atol 1e-5·max|score|; ids exact except at
+near-ties (values closer than twice that atol to a neighbour), because the
+kernels take their sums in another order than the plain versions: the
+tiled scan on the tensor cores (bf16 products, f32 accumulators, f32
+queries as three bf16 terms), the others in another f32 FMA order.  Pass
+counts and the search counters are integers and stay exact.
 """
 
 import numpy as np
@@ -28,6 +32,7 @@ from repro_torch.kernels.filtered_scan import search_fused
 from repro_torch.kernels.filtered_scan.ref import (
     filtered_scan_ref,
     filtered_scan_tiled_ref,
+    live_slots,
 )
 
 pytestmark = pytest.mark.gpu
@@ -91,13 +96,45 @@ def _case(variant, f, dev, *, seed=0, n_tiles=3, q_block=72, kc=6, vpad=200,
     return args, dict(metric=metric, k=k, q_block=q_block)
 
 
-def _assert_close(got, want):
-    gv, gi, gn = (x.cpu().numpy() for x in got)
-    wv, wi, wn = (x.cpu().numpy() for x in want)
-    np.testing.assert_array_equal(gn, wn)
-    scale = max(np.abs(wv[wv > NEG_INF / 2]).max(initial=0), 1)
-    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-5 * scale)
-    np.testing.assert_array_equal(gi, wi)
+def _assert_topk_close(got, want, w_next=None, ties_by_id=True):
+    """Top-k lists against the plain version's: the same entries live
+    (above NEG_INF/2; pads carry id -1), values within rtol 1e-5 / atol
+    1e-5·max|value|, ids exact where the value stands apart from its
+    neighbours (and from ``w_next``, the plain version's next value past
+    the list, where given) by more than twice that atol: sums in another
+    order may swap near-ties.  ``ties_by_id``: equal values in ascending id
+    order (the lower id wins a tie; the scan's ties go by row instead)."""
+    gv, gi = (x.cpu().numpy() for x in got)
+    wv, wi = (x.cpu().numpy() for x in want)
+    live = wv > NEG_INF / 2
+    np.testing.assert_array_equal(gv > NEG_INF / 2, live)
+    atol = 1e-5 * max(np.abs(wv[live]).max(initial=0), 1)
+    np.testing.assert_allclose(np.where(live, gv, 0), np.where(live, wv, 0),
+                               rtol=1e-5, atol=atol)
+    gap = np.abs(np.diff(wv, axis=-1))
+    big = np.full(wv.shape[:-1] + (1,), np.inf)
+    last = big if w_next is None else np.abs(wv[..., -1:] - w_next[..., None])
+    clear = live & (np.minimum(np.concatenate([big, gap], -1),
+                               np.concatenate([gap, last], -1)) > 2 * atol)
+    np.testing.assert_array_equal(np.where(clear, gi, 0), np.where(clear, wi, 0))
+    assert (gi[~live] == -1).all()
+    if ties_by_id:
+        tie = (gv[..., 1:] == gv[..., :-1]) & live[..., 1:]
+        assert (gi[..., 1:][tie] > gi[..., :-1][tie]).all()
+
+
+def _assert_close(got, want, want_next=None):
+    """Tiled scan output: npass exact, then the top-k lists (ids by the
+    near-tie rule; ``want_next`` is the plain version run for k + 1)."""
+    np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].cpu().numpy())
+    w_next = None if want_next is None else want_next[0][..., -1].cpu().numpy()
+    _assert_topk_close(got[:2], want[:2], w_next, ties_by_id=False)
+
+
+def _plain_with_next(args, kw):
+    """The plain version's output, and its run for k + 1 (the next value)."""
+    return (filtered_scan_tiled_ref(*args, **kw),
+            filtered_scan_tiled_ref(*args, **{**kw, "k": kw["k"] + 1}))
 
 
 @pytest.mark.parametrize("f", [1, 2])
@@ -110,7 +147,7 @@ def test_kernel_matches_plain_version(cuda, variant, f):
     got = tfs.filtered_scan_tiled(*args, **kw)
     torch.cuda.synchronize()
     assert tfs.LAUNCHES == before + 1
-    _assert_close(got, filtered_scan_tiled_ref(*args, **kw))
+    _assert_close(got, *_plain_with_next(args, kw))
 
 
 @pytest.mark.parametrize("k,all_live", [(1, True), (32, False), (10, True)])
@@ -118,7 +155,69 @@ def test_kernel_edge_k_and_all_live(cuda, k, all_live):
     args, kw = _case("dot-bf16", 1, cuda, seed=k, q_block=16, vpad=128,
                      d=64, k=k, all_live=all_live)
     got = tfs.filtered_scan_tiled(*args, **kw)
-    _assert_close(got, filtered_scan_tiled_ref(*args, **kw))
+    _assert_close(got, *_plain_with_next(args, kw))
+
+
+# (qb, k, F): each k and each F meets a tile below, at and above 64 rows
+TILINGS = [(8, 32, 1), (32, 1, 2), (64, 32, 2), (128, 1, 1)]
+
+
+@pytest.mark.parametrize("qb,k,f", TILINGS)
+@pytest.mark.parametrize("d", [97, 100, 768])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_tiled_kernel_tilings(cuda, variant, d, qb, k, f):
+    # Vpad = 333: no whole 128-row chunk of the tensor-core body, nor of the
+    # FMA body's 64; D = 97 and 100 take the scalar staging loads, 768 the
+    # 16-byte copies (a ring of 12 depth tiles per chunk)
+    args, kw = _case(variant, f, cuda, seed=d + qb, n_tiles=2, q_block=qb,
+                     kc=5, vpad=333, d=d, u_cap=4, k=k)
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, *_plain_with_next(args, kw))
+
+
+def test_tiled_kernel_mostly_pads(cuda):
+    # 8 tiles of 40 slots with 1-2 live each, and live slots whose cluster is
+    # out of range: every pad is (NEG_INF, -1, 0)
+    args, kw = _case("dot-bf16", 2, cuda, seed=5, n_tiles=8, q_block=64,
+                     kc=6, vpad=256, d=768, u_cap=40, k=10)
+    args = list(args)
+    args[2] = torch.tensor([1, 2, 1, 1, 2, 1, 1, 2], dtype=torch.int32,
+                           device=cuda)
+    sc = args[0].clone()
+    sc[1::40] = -1
+    sc[2::80] = 6  # == K: out of range
+    args[0] = sc
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    want = _plain_with_next(args, kw)
+    _assert_close(got, *want)
+    pad = ~live_slots(args[1], args[2]) | (sc < 0) | (sc >= 6)
+    assert int(pad.sum()) > 300
+    assert (got[0][pad] == NEG_INF).all() and (got[1][pad] == -1).all()
+    assert (got[2][pad] == 0).all()
+
+
+@pytest.mark.parametrize("variant,d,m,f,body", [
+    ("dot-bf16", 768, 10, 2, "tensor_cores"),
+    ("l2-bf16", 97, 3, 1, "tensor_cores"),
+    ("dot-f32q-bf16v", 768, 10, 2, "tensor_cores"),
+    ("dot-f32", 768, 10, 2, "fma"),
+    ("sq8", 768, 10, 2, "fma"),
+    ("dot-bf16", 1100, 10, 2, "fma"),  # the resident query tile is too large
+    ("dot-bf16", 128, 17, 1, "fma"),   # more attributes than it stages
+])
+def test_tiled_kernel_body_choice(cuda, variant, d, m, f, body):
+    metric, vdt, quantized = VARIANTS[variant]
+    qdt = (torch.float32 if quantized or vdt in ("f32q-bf16v", torch.float32)
+           else vdt)
+    vdt = torch.bfloat16 if vdt == "f32q-bf16v" else vdt
+    assert tfs.tiled_body(d, m, f, metric, qdt, vdt) == body
+    args, kw = _case(variant, f, cuda, seed=d, n_tiles=1, q_block=64, kc=3,
+                     vpad=160, d=d, m=m, u_cap=3, k=10)
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, *_plain_with_next(args, kw))
 
 
 def test_kernel_rejects_large_k(cuda):
@@ -160,29 +259,10 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, variant):
     gr = teng.SearchEngine(_index(variant, cuda), **kw).search(
         qs.to(cuda), fspec.to(cuda))
     assert tfs.LAUNCHES == before + 1  # the card's path went through the kernel
-    np.testing.assert_array_equal(cr.ids.numpy(), gr.ids.cpu().numpy())
-    np.testing.assert_allclose(cr.scores.numpy(), gr.scores.cpu().numpy(),
-                               rtol=1e-5)
+    _assert_topk_close((gr.scores, gr.ids), (cr.scores, cr.ids),
+                       ties_by_id=False)
     for c in ("n_scanned", "n_passed", "n_pruned"):
         assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
-
-
-def _assert_topk_close(got, want):
-    """Values within rtol 1e-5 / atol 1e-5·max|value|; ids exact where the
-    value stands apart from its neighbours by more than twice that atol
-    (f32 sums in another order may swap near-ties); equal values in
-    ascending id order (the lower id wins a tie)."""
-    gv, gi = (x.cpu().numpy() for x in got)
-    wv, wi = (x.cpu().numpy() for x in want)
-    atol = 1e-5 * max(np.abs(wv).max(initial=0), 1)
-    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=atol)
-    gap = np.abs(np.diff(wv, axis=-1))
-    big = np.full(wv.shape[:-1] + (1,), np.inf)
-    clear = np.minimum(np.concatenate([big, gap], -1),
-                       np.concatenate([gap, big], -1)) > 2 * atol
-    np.testing.assert_array_equal(np.where(clear, gi, 0), np.where(clear, wi, 0))
-    tie = gv[..., 1:] == gv[..., :-1]
-    assert (gi[..., 1:][tie] > gi[..., :-1][tie]).all()
 
 
 @pytest.mark.parametrize("t", [1, 7, 32])
@@ -205,6 +285,27 @@ def test_centroid_topk_matches_plain_version(cuda, metric, dtype, t):
     if t >= 4:  # the duplicated group, lowest id first
         np.testing.assert_array_equal(got[1][:2, :4].cpu().numpy(),
                                       [[7, 40, 41, 300]] * 2)
+
+
+@pytest.mark.parametrize("q", [1, 37, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_centroid_topk_split_k_merge(cuda, metric, dtype, q):
+    # K = 1000: 8 chunks of 128 centroids, the last one partial; centroid 7
+    # repeated in chunks 1, 2 and 7, so the merge across chunks decides the
+    # ties (lower id first); T = 32; D = 768 takes the 16-byte copies in f32
+    rng = np.random.default_rng(q)
+    cents = rng.standard_normal((1000, 768)).astype(np.float32)
+    cents[[130, 300, 999]] = cents[7]
+    queries = rng.standard_normal((q, 768)).astype(np.float32)
+    queries[0] = cents[7]
+    qt = torch.from_numpy(queries).to(cuda, dtype)
+    ct = torch.from_numpy(cents).to(cuda, dtype)
+    got = tct.centroid_topk(qt, ct, t=32, metric=metric)
+    torch.cuda.synchronize()
+    wv, wi = centroid_topk_ref(qt, ct, t=33, metric=metric)
+    _assert_topk_close(got, (wv[:, :32], wi[:, :32]), wv[:, 32].cpu().numpy())
+    np.testing.assert_array_equal(got[1][0, :4].cpu().numpy(), [7, 130, 300, 999])
 
 
 def test_centroid_topk_keeps_real_probes_where_all_scores_are_negative(cuda):
