@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--n 10000000]
+    python3 chip_smoke.py [--seed 0] [--n 10000000] [--variants]
 
 Phases:
   1. environment and build: the card, the versions, one ``nvcc`` per CUDA
@@ -28,7 +28,9 @@ Phases:
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
      for centroid_topk); filtered_scan_tiled on both of its full-size
      operand sets: the engine's (bf16 queries) and the sharded tiled
-     backend's (f32 queries against the bf16 index).
+     backend's (f32 queries against the bf16 index); the per-probe
+     filtered_scan on the per-probe slot table of each mix, pads included
+     (with ``--variants``, also its compile-time variants, FS_VARIANT_DEFINES).
 
 Prints the card's name and power limit, a JSON line describing every
 kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -183,6 +185,36 @@ def tiled_bound(slot_cluster, live, queries, lo, n_unique, qb, vpad):
     return max(byte_ms, op_ms), byte_ms, op_ms, n_live, n_clusters
 
 
+def per_probe_bound(slot_cluster, slot_query, queries, lo, n_clusters, vpad):
+    """The per-probe filtered_scan's least time on the card for a slot
+    table, whatever implements it.  Bytes: the distinct in-range clusters'
+    rows (bf16 vectors, int16 attributes, int32 ids) read once, the
+    queries, bounds and slot tables, and the [P, Vpad] f32 output written
+    once.  Operations: 2·Vpad·D per distinct (cluster, query) pair (slots
+    of one pair have one output) at the f32 FMA peak."""
+    import torch
+
+    p = slot_cluster.shape[0]
+    nq = queries.shape[0]
+    ok = ((slot_cluster >= 0) & (slot_cluster < n_clusters) & (slot_query >= 0)
+          & (slot_query < nq))
+    sc, sq = slot_cluster[ok].long(), slot_query[ok].long()
+    n_clusters_read = int(torch.unique(sc).numel())
+    n_pairs = int(torch.unique(sc * nq + sq).numel())
+    row_bytes = DIM * 2 + M_ATTRS * 2 + 4  # vector, attributes, id
+    small = (queries.numel() * queries.element_size() + 2 * lo.numel() * 2
+             + 2 * p * 4 + p * vpad * 4)  # + the output
+    nbytes = n_clusters_read * vpad * row_bytes + small
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 2 * n_pairs * vpad * DIM / PEAK_OPS["f32"] * 1e3
+    return dict(slots=p, clusters=n_clusters_read, pairs=n_pairs,
+                bytes=nbytes, byte_ms=byte_ms, op_ms=op_ms,
+                bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                streamed_ms=(p * vpad * row_bytes + small)
+                / HBM_BYTES_PER_S * 1e3)
+
+
 def check_scores(name, got, want):
     """Masked [P, Vpad] scores against the plain version: the same rows
     pass, values within rtol 1e-5 + atol 1e-5·max|score|.  Returns
@@ -317,6 +349,41 @@ def per_probe_cases(dev, gen):
                         ri(-1, 10**6, (kc, vpad), torch.int32), norms, scales)
                 kw = dict(metric="l2" if variant == "l2-f32" else "dot")
                 yield f"{variant} F={f} D={d}", args, kw
+
+
+# The per-probe filtered_scan.cu's compile-time experiment switches, each
+# timed by --variants beside the shipped build: what each stage adds.
+FS_VARIANT_DEFINES = {
+    "the plan alone": ("-DFS_VARIANT=3",),
+    "plan + streaming the rows": ("-DFS_VARIANT=1",),
+    "+ sums and epilogue, each pair to one slot": ("-DFS_VARIANT=2",),
+    "one thread a row (FS_SPLIT=1)": ("-DFS_SPLIT=1",),
+}
+
+
+def time_variants(fs_mod, tables):
+    """Times the FS_VARIANT_DEFINES builds of the per-probe filtered_scan on
+    each mix's slot table (the shipped build's times are phase 4's).  The
+    variants are launched through the wrapper with their library put in
+    place of the shipped one, which is restored after."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    paths = build.build_variants(fs_mod.PER_PROBE_SOURCE, FS_VARIANT_DEFINES)
+    log(f"built {len(paths)} variants of filtered_scan in "
+        f"{time.perf_counter() - t0:.2f} s")
+    shipped = build.load(fs_mod.PER_PROBE_SOURCE)
+    try:
+        for name, path in paths.items():
+            build._LIBS[fs_mod.PER_PROBE_SOURCE] = ctypes.CDLL(str(path))
+            times = {mix: ms(lambda pa=pa: fs_mod.filtered_scan(*pa), 10)
+                     for mix, pa in tables.items()}
+            log(f"filtered_scan variant {name} {FS_VARIANT_DEFINES[name]}: "
+                + ", ".join(f"{mix} {t:.3f} ms" for mix, t in times.items()))
+    finally:
+        build._LIBS[fs_mod.PER_PROBE_SOURCE] = shipped
 
 
 def make_index(n, dev, gen):
@@ -484,6 +551,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n", type=int, default=10_000_000)
+    p.add_argument("--variants", action="store_true",
+                   help="also time the per-probe filtered_scan's compile-time "
+                   "variants (FS_VARIANT_DEFINES) on each mix's slot table")
     args = p.parse_args(argv)
 
     import torch
@@ -808,40 +878,46 @@ def main(argv=None):
         library_ms=ct_lib,
     ))
 
-    # filtered_scan: the uniform batch's per-probe slot table, pads included
-    _, splan = sharded["pallas", "uniform"]
-    pa = (splan.slot_cluster, splan.slot_query, splan.queries_in, splan.lo_in,
-          splan.hi_in, index.vectors, index.attrs, index.ids, None, None)
-    fs_err = check_scores("filtered_scan full size", fs_mod.filtered_scan(*pa),
-                          filtered_scan_ref(*pa))
-    fs_ms = ms(lambda: fs_mod.filtered_scan(*pa), 10)
-    fs_plain = ms(lambda: filtered_scan_ref(*pa), 3)
-    p_slots = splan.slot_cluster.shape[0]
-    n_distinct = int(torch.unique(splan.slot_cluster).numel())
-    row_bytes = DIM * 2 + M_ATTRS * 2 + 4  # vector, attributes, id
-    small = (splan.queries_in.numel() * 4 + 2 * splan.lo_in.numel() * 2
-             + 2 * p_slots * 4 + p_slots * index.vpad * 4)  # + the output
-    fs_bytes = n_distinct * index.vpad * row_bytes + small
-    fs_ops = 2 * p_slots * index.vpad * DIM
-    fs_byte_ms = fs_bytes / HBM_BYTES_PER_S * 1e3
-    fs_op_ms = fs_ops / PEAK_OPS["f32"] * 1e3
-    streamed_ms = ((p_slots * index.vpad * row_bytes + small)
-                   / HBM_BYTES_PER_S * 1e3)
-    log(f"filtered_scan full size: P={p_slots} slots "
-        f"({int(splan.slot_valid.sum())} live) over {n_distinct} clusters; "
-        f"kernel {fs_ms:.3f} ms, plain {fs_plain:.3f} ms, bound "
-        f"{max(fs_byte_ms, fs_op_ms):.3f} ms (bytes {fs_byte_ms:.3f} ms, f32 "
-        f"FMA ops {fs_op_ms:.3f} ms; {streamed_ms:.3f} ms if every slot "
-        f"streams its own cluster); {fs_bytes / fs_ms / 1e6:.1f} GB/s of "
-        f"distinct bytes; max |err| {fs_err:.3e}")
+    # filtered_scan: each mix's per-probe slot table, pads included, as the
+    # sharded search passes it
+    fs_mixes, fs_tables = {}, {}
+    for mix in mixes:
+        _, splan = sharded["pallas", mix]
+        pa = fs_tables[mix] = (
+            splan.slot_cluster, splan.slot_query, splan.queries_in,
+            splan.lo_in, splan.hi_in, index.vectors, index.attrs, index.ids,
+            None, None)
+        err = check_scores(f"filtered_scan full size {mix}",
+                           fs_mod.filtered_scan(*pa), filtered_scan_ref(*pa))
+        k_ms = ms(lambda: fs_mod.filtered_scan(*pa), 10)
+        p_ms = ms(lambda: filtered_scan_ref(*pa), 3)
+        b = per_probe_bound(splan.slot_cluster, splan.slot_query,
+                            splan.queries_in, splan.lo_in, index.n_clusters,
+                            index.vpad)
+        fs_mixes[mix] = dict(
+            slots=b["slots"], live_slots=int(splan.slot_valid.sum()),
+            clusters=b["clusters"], pairs=b["pairs"], ms=k_ms, plain_ms=p_ms,
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"], max_abs_err=err)
+        log(f"filtered_scan full size {mix}: P={b['slots']} slots "
+            f"({fs_mixes[mix]['live_slots']} live) over {b['clusters']} "
+            f"clusters, {b['pairs']} distinct (cluster, query) pairs; kernel "
+            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+            f"(bytes {b['byte_ms']:.3f} ms, f32 FMA ops {b['op_ms']:.3f} ms; "
+            f"{b['streamed_ms']:.3f} ms if every slot streams its own "
+            f"cluster), kernel / bound {k_ms / b['bound_ms']:.2f}; "
+            f"{b['bytes'] / k_ms / 1e6:.1f} GB/s of distinct bytes; max |err| "
+            f"{err:.3e}")
+    if args.variants:
+        time_variants(fs_mod, fs_tables)
+    uni = fs_mixes["uniform"]
     kernels.append(dict(
         name="filtered_scan", route="cuda",
         source="src/repro_torch/kernels/filtered_scan/csrc/filtered_scan.cu",
         replaces="src/repro/kernels/filtered_scan/filtered_scan.py:160",
-        launches=sharded_launches["filtered_scan"], max_abs_err=fs_err,
-        ms=fs_ms, plain_ms=fs_plain, bound_ms=max(fs_byte_ms, fs_op_ms),
-        bound_by="bytes" if fs_byte_ms >= fs_op_ms else "operations",
-        library_ms=None,
+        launches=sharded_launches["filtered_scan"],
+        max_abs_err=uni["max_abs_err"], ms=uni["ms"], plain_ms=uni["plain_ms"],
+        bound_ms=uni["bound_ms"], bound_by=uni["bound_by"], library_ms=None,
+        mixes=fs_mixes,
     ))
     log(f"phase 4 (kernel timing) {time.perf_counter() - t0:.2f} s; total "
         f"{time.perf_counter() - t_all:.2f} s")

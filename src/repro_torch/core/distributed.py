@@ -185,8 +185,10 @@ def _local_shard_search(
     Tiled: the four tiled operands are required.  The dedup pads of
     ``u_cluster`` (slots from ``u_count`` on) repeat the last unique slot
     and no probe reads them, so they are passed to the scan as cluster -1
-    and skipped.  Per probe: every slot is scanned, pads included, and
-    masked afterwards.
+    and skipped.  Per probe: every slot's row of scores is written, pads
+    included, and masked afterwards; the kernel computes each distinct
+    (cluster, query) pair once, so the pads (all cluster 0, query 0) cost
+    one pair and their rows are copies of its scores.
     """
     q = queries.shape[0]
     if backend == "pallas_tiled":

@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
@@ -45,10 +45,11 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def target(src: Path) -> Path:
-    """The library ``src`` builds into: named by a hash of the flags and of
-    every file under the source's directory, names included."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def target(src: Path, defines: Sequence[str] = ()) -> Path:
+    """The library ``src`` builds into: named by a hash of the flags (with
+    any extra ``-D`` defines) and of every file under the source's
+    directory, names included."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for path in sorted(p for p in src.parent.rglob("*") if p.is_file()):
         h.update(str(path.relative_to(src.parent)).encode() + b"\0")
         h.update(path.read_bytes())
@@ -56,16 +57,16 @@ def target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
-def _start(src: Path):
+def _start(src: Path, defines: Sequence[str] = ()):
     """Starts nvcc on ``src`` unless its library exists; returns
     ``(target, tmp, process)`` or ``(target, None, None)``."""
-    out = target(src)
+    out = target(src, defines)
     if out.exists():
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc
 
@@ -93,6 +94,19 @@ def build_all(srcs: Iterable[Path] = ()) -> Dict[str, dict]:
             report[src.stem] = dict(seconds=time.perf_counter() - t0, log=log,
                                     path=out)
     return report
+
+
+def build_variants(src: Path, variants: Dict[str, Sequence[str]]
+                   ) -> Dict[str, Path]:
+    """Compiles ``src`` once for each set of extra defines (a kernel's
+    compile-time experiment switches), all nvcc processes started together.
+    Returns ``{name: library path}``."""
+    with _LOCK:
+        started = {name: _start(src, tuple(defs))
+                   for name, defs in variants.items()}
+        for out, tmp, proc in started.values():
+            _finish(src, out, tmp, proc)
+    return {name: out for name, (out, _, _) in started.items()}
 
 
 def load(src: Path) -> ctypes.CDLL:

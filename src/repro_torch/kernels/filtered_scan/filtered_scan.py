@@ -33,6 +33,7 @@ LAUNCHES = 0
 PER_PROBE_LAUNCHES = 0
 
 MAX_K = 32
+MAX_PER_PROBE_QUERIES = 1 << 20  # the per-probe plan packs a query in 20 bits
 _MODES = {"dot": 0, "l2": 1, "sq8": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -71,9 +72,14 @@ def tiled_body(d: int, m: int, f: int, metric: str, q_dtype: torch.dtype,
 
 
 def _per_probe_lib():
+    """(launch, scratch bytes) of the per-probe kernel."""
+    scratch = build.load(PER_PROBE_SOURCE).filtered_scan_scratch_bytes
+    if scratch.argtypes is None:
+        scratch.argtypes = [_CI]
+        scratch.restype = ctypes.c_longlong
     return _bind(PER_PROBE_SOURCE, "filtered_scan_launch",
                  [_CI, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                  _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP])
+                  _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP]), scratch
 
 
 def _check_metric(metric, norms, scales):
@@ -241,8 +247,11 @@ def filtered_scan(
     Row v of slot p holds ``score(queries[slot_query[p]], vectors[
     slot_cluster[p], v])`` (dot; SQ8 dot times the row scale; l2 as
     ``2·dot − ‖v‖²``, the per-query ``−‖q‖²`` left to the caller), or
-    NEG_INF where the row fails the filter or is dead.  Every slot is
-    scanned, pads included.
+    NEG_INF where the row fails the filter or is dead; a slot whose cluster
+    or query is out of range gets a row of NEG_INF.  Every slot's row is
+    written, pads included, and each distinct (cluster, query) pair is
+    computed once: the CUDA kernel plans on the card which slots share a
+    pair and reads each distinct cluster's rows once.
     """
     global PER_PROBE_LAUNCHES
     _check_metric(metric, norms, scales)
@@ -274,10 +283,15 @@ def filtered_scan(
         _check("norms" if metric == "l2" else "scales", aux, torch.float32,
                (kc, vpad), dev)
 
+    if nq >= MAX_PER_PROBE_QUERIES:
+        raise NotImplementedError(
+            f"the CUDA kernel's plan keeps Q < {MAX_PER_PROBE_QUERIES}, got {nq}")
     out = torch.empty((p, vpad), dtype=torch.float32, device=dev)
     if p == 0:
         return out
-    fn = _per_probe_lib()
+    fn, scratch_bytes = _per_probe_lib()
+    # the kernel's schedule: slots grouped by cluster, pairs, chunks
+    scratch = torch.empty((scratch_bytes(p) // 4,), dtype=i32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -286,7 +300,8 @@ def filtered_scan(
             vectors.data_ptr(), attrs.data_ptr(), ids.data_ptr(),
             None if aux is None else aux.data_ptr(), out.data_ptr(),
             d, vpad, m, f, _MODES["sq8" if quantized else metric],
-            _DTYPES[queries.dtype], _DTYPES[vectors.dtype], stream,
+            _DTYPES[queries.dtype], _DTYPES[vectors.dtype],
+            scratch.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"filtered_scan launch failed: cudaError {err}")

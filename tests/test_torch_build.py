@@ -47,6 +47,18 @@ def test_flags_change_the_target(csrc, monkeypatch):
     assert build.target(src) != before
 
 
+def test_defines_change_the_target(csrc):
+    """A kernel's compile-time variants (build_variants) get libraries of
+    their own, apart from the shipped build and from each other."""
+    src = csrc / "scan.cu"
+    plain = build.target(src)
+    one = build.target(src, ("-DFS_VARIANT=1",))
+    two = build.target(src, ("-DFS_VARIANT=2",))
+    assert len({plain, one, two}) == 3
+    assert build.target(src, ()) == plain
+    assert one == build.target(src, ["-DFS_VARIANT=1"])
+
+
 def test_two_sources_of_one_directory_get_their_own_targets(csrc):
     (csrc / "other.cu").write_text("int g() { return 1; }\n")
     a, b = build.target(csrc / "scan.cu"), build.target(csrc / "other.cu")

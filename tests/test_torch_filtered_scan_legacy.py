@@ -108,6 +108,40 @@ def test_plain_version_matches_pallas_kernel(variant, f):
     _assert_scores(got, want)
 
 
+SCHEDULES = {  # name: (slot_cluster, slot_query) for P = 70, Q = 9, K = 5
+    # 6 distinct (cluster, query) pairs repeated, the repeats apart
+    "heavy-duplication": (np.tile([1, 4, 1, 0, 4, 2], 12)[:70],
+                          np.tile([3, 3, 5, 0, 3, 8], 12)[:70]),
+    # every slot a dispatch pad (cluster 0, query 0)
+    "all-pads": (np.zeros(70), np.zeros(70)),
+    # one cluster probed by all 9 queries, and pads after the live slots
+    "one-cluster-many-queries": (np.concatenate([np.full(54, 2), np.zeros(16)]),
+                                 np.concatenate([np.arange(54) % 9,
+                                                 np.zeros(16)])),
+}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_plain_version_matches_pallas_kernel_on_schedules(schedule, variant):
+    """Slot tables whose slots share (cluster, query) pairs, as the
+    sharded search's dispatch pads do: every slot's row is the pair's
+    scores, whichever slot carries it."""
+    c, metric = _case(variant, 2, seed=3)
+    sc, sq = SCHEDULES[schedule]
+    c["slot_cluster"], c["slot_query"] = sc.astype(np.int32), sq.astype(np.int32)
+    want = jax_filtered_scan(*_jax_args(c, variant), metric=metric,
+                             v_block=128, interpret=True)
+    got = tfs.filtered_scan(*_torch_args(c, variant), metric=metric)
+    assert got.shape == (70, 256) and got.dtype == torch.float32
+    _assert_scores(got, want)
+    # slots of one pair hold one row
+    for p in range(1, 70):
+        same = np.flatnonzero((sc[:p] == sc[p]) & (sq[:p] == sq[p]))
+        if same.size:
+            assert torch.equal(got[p], got[same[0]])
+
+
 def test_wrapper_takes_plain_path_for_cpu_tensors_and_checks_arguments():
     c, metric = _case("l2-f32", 2, seed=1)
     args = _torch_args(c, "l2-f32")

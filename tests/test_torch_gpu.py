@@ -357,6 +357,72 @@ def test_filtered_scan_matches_plain_version(cuda, variant, f, d):
     _assert_scores_close(got, filtered_scan_ref(*args, **kw))
 
 
+def _schedule_case(schedule, variant, dev, d):
+    """Slot tables that stress the kernel's cluster-major schedule (pairs
+    collapsed, chunks of at most 8 queries, work items of 128 rows):
+    returns (args, kwargs, bad) with bad [P] bool the slots out of range."""
+    rng = np.random.default_rng(7)
+    vpad, q, p = {"one-cluster-many-queries": (300, 20, 60),
+                  "all-pads": (129, 9, 40),
+                  "pads-fan-out": (256, 9, 2000),
+                  "scattered-duplicates": (200, 9, 64),
+                  "out-of-range": (300, 9, 30),
+                  "single-slot": (131, 9, 1),
+                  "more-slots-than-one-plan": (40, 9, 9000)}[schedule]
+    args, kw = _case(variant, 2, dev, seed=7, d=d, vpad=vpad, q_block=q,
+                     n_tiles=1)
+    kc = args[6].shape[0]
+    if schedule == "one-cluster-many-queries":  # 20 queries: three chunks
+        sc, sq = np.full(p, 2), np.arange(p) % q
+    elif schedule in ("all-pads", "pads-fan-out"):
+        sc, sq = np.zeros(p), np.zeros(p)
+    elif schedule == "scattered-duplicates":  # 8 pairs, repeats apart
+        sc = np.tile(np.array([1, 4, 1, 0, 5, 4, 2, 3]), p // 8)
+        sq = np.tile(np.array([3, 3, 5, 0, 8, 3, 1, 1]), p // 8)
+    elif schedule == "out-of-range":
+        sc, sq = rng.integers(0, kc, p), rng.integers(0, q, p)
+        sc[[0, 5, 6]] = [-1, kc, -7]
+        sq[[1, 6, 9]] = [-1, q, q + 4]
+    elif schedule == "single-slot":
+        sc, sq = np.array([kc - 1]), np.array([q - 1])
+    else:  # 9000 slots: two plans of at most 8192
+        sc, sq = rng.integers(0, kc, p), rng.integers(0, q, p)
+        sc[::3] = 0
+        sq[::3] = 0
+    bad = (sc < 0) | (sc >= kc) | (sq < 0) | (sq >= q)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+    return (t(sc), t(sq)) + args[3:], dict(metric=kw["metric"]), bad
+
+
+SCHEDULES = ["one-cluster-many-queries", "all-pads", "pads-fan-out",
+             "scattered-duplicates", "out-of-range", "single-slot",
+             "more-slots-than-one-plan"]
+
+
+@pytest.mark.parametrize("d", [97, 128])
+@pytest.mark.parametrize("variant", ["dot-bf16", "dot-f32", "dot-f32q-bf16v",
+                                     "sq8", "l2-f32", "l2-bf16"])
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_filtered_scan_schedules(cuda, schedule, variant, d):
+    """The kernel against the plain version on slot tables that collapse
+    into few pairs, fan one pair out to many slots, span several chunks of
+    one cluster or several plans, or hold slots out of range (rows of
+    NEG_INF; the plain version is run on the slots in range)."""
+    args, kw, bad = _schedule_case(schedule, variant, cuda, d)
+    before = tfs.PER_PROBE_LAUNCHES
+    got = tfs.filtered_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfs.PER_PROBE_LAUNCHES == before + 1
+    assert got.shape == (args[0].shape[0], args[5].shape[1])
+    ok = torch.from_numpy(~bad).to(cuda)
+    want = filtered_scan_ref(args[0][ok], args[1][ok], *args[2:], **kw)
+    _assert_scores_close(got[ok], want)
+    assert bool((got[~ok] == NEG_INF).all())
+
+
 def test_filtered_scan_rejects_unsupported_dtype_pairs(cuda):
     args, kw = _legacy_case("dot-f32", 1, cuda)
     args = list(args)
