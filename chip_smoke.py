@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--n 10000000] [--variants]
+    python3 chip_smoke.py [--seed 0] [--n 10000000] [--disk-n N] [--variants]
 
 Phases:
   1. environment and build: the card, the versions, one ``nvcc`` per CUDA
@@ -24,6 +24,17 @@ Phases:
      per mix, with the launch counts set to 0 just before and read just
      after; each result is checked against ``search_reference`` and the
      engine's;
+  3c. the disk tier: the phase-3 index written with the port's
+     ``save_index`` (layout 3, 2 shards) under ``build/``, opened as a
+     ``DiskIVFIndex`` whose cache holds half the records, and served through
+     ``SearchEngine`` with ``pipeline="off"`` and ``"on"`` on 1 warm-up and
+     3 timed batches of each mix; every batch is held against the RAM
+     engine's result, and each (executor, mix) prints its batch time split
+     into plan, fetch wait and scan+merge, the bytes fetched and moved to
+     the card, the H2D bound of its distinct bytes (the card's pinned copy
+     rate, measured once), the overlap ratio and the cache's hit rate.  The
+     checkpoint is deleted at the end.  ``--disk-n`` serves a separate,
+     smaller index in this phase only;
   4. each kernel on one full-size batch: held against its plain version,
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
      for centroid_topk); filtered_scan_tiled on both of its full-size
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import shutil
 import statistics
@@ -49,6 +61,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -64,6 +78,7 @@ K_TOP = 10
 N_PROBES = 7
 HOT_TOPICS = 8
 WARMUP, BATCHES = 2, 5
+DISK_WARMUP, DISK_BATCHES = 1, 3  # per (executor, mix) in phase 3c
 N_CHECK = 16  # queries per batch held against search_reference
 SPIN_CYCLES = 200_000_000  # ~0.1 s at ~2 GHz: longer than a timed run takes to issue
 
@@ -547,10 +562,277 @@ def exact_oracle(index, queries, fspec, chunk=256):
     return best
 
 
+def meminfo():
+    """Page cache and dirty pages of the host, GiB (/proc/meminfo)."""
+    vals = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, rest = line.split(":", 1)
+            if key in ("MemAvailable", "Cached", "Dirty"):
+                vals[key] = int(rest.split()[0]) / 2**20
+    return ", ".join(f"{k} {v:.2f} GiB" for k, v in vals.items())
+
+
+def page_cache_share(paths):
+    """Share of the files' pages resident in the OS page cache (mincore
+    over a private read mapping of each file)."""
+    import ctypes
+    import mmap
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+    page = mmap.PAGESIZE
+    resident = total = 0
+    for path in paths:
+        with open(path, "rb") as f:
+            size = os.fstat(f.fileno()).st_size
+            mm = mmap.mmap(f.fileno(), size, access=mmap.ACCESS_COPY)
+            try:
+                buf = (ctypes.c_char * size).from_buffer(mm)
+                vec = (ctypes.c_ubyte * ((size + page - 1) // page))()
+                if libc.mincore(ctypes.addressof(buf), size, vec) != 0:
+                    raise OSError(ctypes.get_errno(), "mincore failed")
+                resident += int((np.frombuffer(vec, np.uint8) & 1).sum())
+                total += len(vec)
+                del buf
+            finally:
+                mm.close()
+    return resident / max(total, 1)
+
+
+def h2d_rate(dev):
+    """The card's pinned host-to-device copy rate, bytes/s: one 1 GiB
+    pinned tensor, the median of 5 copies between CUDA events."""
+    import torch
+
+    src = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    t = ms(lambda: dst.copy_(src, non_blocking=True), 5)
+    del src, dst
+    return (1 << 30) / (t / 1e3)
+
+
+def block_bytes(man):
+    """Bytes of one cluster's block on the card: every record field but
+    its generation stamp."""
+    from repro_torch.core import storage
+
+    return sum(int(np.prod(f["shape"])) * storage.np_dtype(f["dtype"]).itemsize
+               for f in man["fields"] if f["name"] != "gen")
+
+
+def same_result(name, got, want):
+    """A disk-tier batch against the RAM engine's: ids identical, the
+    counters exact, scores within rtol 1e-5."""
+    import torch
+
+    if not torch.equal(got.ids, want.ids):
+        raise AssertionError(f"{name}: ids differ from the RAM engine")
+    for c in ("n_scanned", "n_passed", "n_pruned"):
+        if not torch.equal(getattr(got, c), getattr(want, c)):
+            raise AssertionError(f"{name}: {c} differs from the RAM engine")
+    live = want.scores > NEG_INF / 2
+    err = (got.scores - want.scores).abs()
+    if bool((err > 1e-5 * want.scores.abs())[live].any()):
+        raise AssertionError(f"{name}: scores differ beyond rtol 1e-5")
+    return float(err[live].max()) if bool(live.any()) else 0.0
+
+
+def disk_phase(index, batches, ram_results, dev, *, reset_launches,
+               launches, rate):
+    """Phase 3c: ``index`` written with the port's save_index, opened as a
+    DiskIVFIndex under a budget of half its records, and served through
+    SearchEngine with both executors on each mix's first DISK_WARMUP +
+    DISK_BATCHES batches; every batch held against the RAM engine's
+    result.  Returns the launch counts of the disk runs."""
+    import torch
+
+    from repro_torch.core import DiskIVFIndex, SearchEngine
+    from repro_torch.core import storage
+
+    ckpt = ROOT / "build" / "disk_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    kc = index.n_clusters
+    n_shards = 2 if kc % 2 == 0 else 1
+    try:
+        free = shutil.disk_usage(ckpt.parent).free
+        log(f"disk tier: {free / 2**30:.2f} GiB free under {ckpt.parent} "
+            f"before the write; host memory: {meminfo()}")
+        t0 = time.perf_counter()
+        storage.save_index(index, str(ckpt), n_shards=n_shards, layout=3)
+        t_write = time.perf_counter() - t0
+        man = storage.load_manifest(str(ckpt))
+        paths = storage.shard_paths(str(ckpt), man)
+        size = sum(p.stat().st_size for p in ckpt.iterdir())
+        log(f"save_index (layout 3, {n_shards} shards): {size / 2**30:.3f} GiB "
+            f"({kc} records of {man['record_stride'] / 1e6:.3f} MB) in "
+            f"{t_write:.2f} s, {size / t_write / 1e9:.2f} GB/s; host memory "
+            f"after: {meminfo()}; shard pages in the page cache "
+            f"{page_cache_share(paths):.4f}")
+
+        with DiskIVFIndex.open(str(ckpt)) as probe:
+            overhead = probe.resident_bytes()  # empty cache: resident set
+        budget = overhead + (kc // 2) * man["record_stride"]
+        disk = DiskIVFIndex.open(str(ckpt), resident_budget_bytes=budget)
+        bb = block_bytes(man)
+        rows = {}
+        try:
+            log(f"DiskIVFIndex.open: budget {budget / 2**30:.3f} GiB = "
+                f"resident set {overhead / 2**20:.2f} MiB + "
+                f"{disk.cache.capacity_records} of {kc} records; a block on "
+                f"the card {bb / 1e6:.3f} MB; pinned H2D "
+                f"{rate / 1e9:.2f} GB/s")
+            reset_launches()
+            for pipeline in ("off", "on"):
+                eng = SearchEngine(disk, k=K_TOP, n_probes=N_PROBES,
+                                   q_block=64, prune="auto", pipeline=pipeline,
+                                   pipeline_depth=2, operand_cache="auto")
+                try:
+                    for mix in batches:
+                        rows[pipeline, mix] = serve_disk(
+                            eng, disk, mix, batches[mix], ram_results[mix],
+                            bb, rate)
+                finally:
+                    eng.close()
+            disk_launches = launches()
+            fetch_breakdown(disk, rows["off", "uniform"].pop("plan_obj"), bb,
+                            rate, dev)
+            log(f"disk tier: launches {disk_launches} in "
+                f"{2 * len(batches) * (DISK_WARMUP + DISK_BATCHES)} batches; "
+                f"host memory: {meminfo()}; shard pages in the page cache "
+                f"{page_cache_share(paths):.4f}")
+        finally:
+            disk.close()
+        if disk_launches["filtered_scan_tiled"] < 2 * len(batches) * (
+                DISK_WARMUP + DISK_BATCHES):
+            raise AssertionError("the disk tier did not launch "
+                                 "filtered_scan_tiled on every batch")
+        for (pipeline, mix), r in rows.items():
+            log(f"disk tier pipeline={pipeline} {mix}: batch {r['batch']:.3f} "
+                f"ms = plan {r['plan']:.3f} + fetch wait {r['fetch']:.3f} + "
+                f"scan+merge {r['scan']:.3f} (medians of {DISK_BATCHES}); "
+                f"{r['gb_store']:.3f} GB through the store, {r['gb_card']:.3f} "
+                f"GB to the card ({r['gb_distinct']:.3f} GB distinct), "
+                f"{r['gbps']:.2f} GB/s to the card over the "
+                f"{'fetch stage' if pipeline == 'off' else 'execute stage'}; "
+                f"H2D bound of the distinct bytes {r['bound']:.3f} ms; "
+                f"overlap_ratio {r['overlap']:.4f}; blocks_fetched "
+                f"{r['fetched']:.1f} / blocks_reused {r['reused']:.1f} a "
+                f"batch; cache hit "
+                f"rate {r['hit_rate']:.4f}; max |err| vs RAM {r['err']:.3e}")
+        return disk_launches, rows
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def fetch_breakdown(disk, plan, bb, rate, dev):
+    """The sync fetch of one planned batch split into its host steps, run
+    twice (the second is printed): every distinct record read from the
+    shard files past the cache (``ShardReader.read``), the blocks assembled
+    in pinned memory with their copies enqueued on a side stream
+    (``assemble_blocks``), and the wait for those copies."""
+    import torch
+
+    from repro_torch.core import blockstore
+
+    flat = np.asarray(plan.slot_cluster).reshape(-1)
+    uniq, local = blockstore.first_need_unique(flat)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = {int(c): disk.reader.read(c) for c in uniq}
+        t1 = time.perf_counter()
+        blocks = blockstore.assemble_blocks(flat, uniq, local, recs,
+                                            disk.blockstore.spec,
+                                            as_device=True, device=dev)
+        t2 = time.perf_counter()
+        blockstore.wait_blocks(blocks)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del blocks, recs
+    rec_gb = len(uniq) * disk.reader.stride / 1e9
+    blk_gb = len(uniq) * bb / 1e9
+    log(f"disk tier fetch steps, sync uniform batch ({len(uniq)} distinct "
+        f"clusters): read {rec_gb:.3f} GB of records {(t1 - t0) * 1e3:.3f} ms "
+        f"({rec_gb / (t1 - t0):.2f} GB/s); assemble {blk_gb:.3f} GB in pinned "
+        f"memory and enqueue the copies {(t2 - t1) * 1e3:.3f} ms "
+        f"({blk_gb / (t2 - t1):.2f} GB/s); copies still running after that "
+        f"{(t3 - t2) * 1e3:.3f} ms (alone at the measured H2D rate "
+        f"{blk_gb * 1e9 / rate * 1e3:.3f} ms)")
+
+
+def serve_disk(eng, disk, mix, batch_list, ram_list, bb, rate):
+    """One mix through the disk tier: DISK_WARMUP + DISK_BATCHES batches,
+    each held against the RAM engine's; returns the timed batches' medians
+    and sums per batch."""
+    import torch
+
+    st, cs = eng.stats, disk.cache.stats
+    rows, err = [], 0.0
+    for i, ((queries, fspec), want) in enumerate(zip(batch_list, ram_list)):
+        before = (st.blocks_fetched, st.blocks_reused, st.io_wait_s,
+                  st.io_total_s, cs.hits, cs.misses)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        plan = eng.plan(queries, fspec)
+        ev[1].record()
+        if eng.pipeline == "off":
+            operands = eng.fetch(plan)
+            ev[2].record()
+            res = eng.scan_merge(plan, operands)
+            eng.stats.batches += 1
+        else:
+            res = eng.execute(plan)
+            ev[2].record()
+        ev[3].record()
+        ev[3].synchronize()
+        name = f"disk tier pipeline={eng.pipeline} {mix} batch {i}"
+        if res.scores.shape != (Q, K_TOP) or not bool(res.scores.isfinite().all()):
+            raise AssertionError(f"{name}: malformed scores")
+        err = max(err, same_result(name, res, want))
+        if i < DISK_WARMUP:
+            continue
+        d = [a - b for a, b in zip(
+            (st.blocks_fetched, st.blocks_reused, st.io_wait_s, st.io_total_s,
+             cs.hits, cs.misses), before)]
+        sc = np.asarray(plan.slot_cluster).reshape(plan.n_tiles, plan.u_cap)
+        distinct = len(np.unique(sc))
+        to_card = (distinct if eng.pipeline == "off"
+                   else sum(len(np.unique(t)) for t in sc))
+        plan_ms = ev[0].elapsed_time(ev[1])
+        if eng.pipeline == "off":
+            fetch_ms = ev[1].elapsed_time(ev[2])
+            scan_ms = ev[2].elapsed_time(ev[3])
+            stage_ms = fetch_ms
+        else:
+            stage_ms = ev[1].elapsed_time(ev[3])
+            fetch_ms = d[2] * 1e3
+            scan_ms = stage_ms - fetch_ms
+        rows.append(dict(
+            batch=ev[0].elapsed_time(ev[3]), plan=plan_ms, fetch=fetch_ms,
+            scan=scan_ms, gb_store=d[0] * disk.reader.stride / 1e9,
+            gb_card=to_card * bb / 1e9, gb_distinct=distinct * bb / 1e9,
+            gbps=to_card * bb / (stage_ms / 1e3) / 1e9,
+            bound=distinct * bb / rate * 1e3,
+            overlap=(max(0.0, 1 - d[2] / d[3]) if d[3] > 0 else 0.0),
+            fetched=d[0], reused=d[1], hits=d[4], misses=d[5]))
+    out = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    for k in ("fetched", "reused", "hits", "misses"):
+        out[k] = sum(r[k] for r in rows) / len(rows)
+    out["hit_rate"] = out["hits"] / max(out["hits"] + out["misses"], 1)
+    out["err"] = err
+    out["plan_obj"] = plan  # the last batch's plan, for fetch_breakdown
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n", type=int, default=10_000_000)
+    p.add_argument("--disk-n", type=int, default=None,
+                   help="serve a separate index of this many vectors in "
+                   "phase 3c (default: the phase-3 index)")
     p.add_argument("--variants", action="store_true",
                    help="also time the per-probe filtered_scan's compile-time "
                    "variants (FS_VARIANT_DEFINES) on each mix's slot table")
@@ -782,6 +1064,32 @@ def main(argv=None):
     log(f"phase 3b (sharded path) {time.perf_counter() - t_all:.2f} s since "
         "start")
 
+    # ---- phase 3c: the disk tier ----
+    t0 = time.perf_counter()
+    rate = h2d_rate(dev)
+    n_disk = DISK_WARMUP + DISK_BATCHES
+    d_index, d_engine = index, engine
+    d_batches = {mix: batches[mix][:n_disk] for mix in mixes}
+    if args.disk_n not in (None, args.n):
+        log(f"phase 3c cut: a separate index of N={args.disk_n} vectors "
+            f"(--disk-n) in place of N={args.n}")
+        d_index, d_stats, d_centers = make_index(args.disk_n, dev, gen)
+        if d_stats.n_dropped:
+            raise AssertionError("the phase-3c build dropped rows")
+        d_engine = SearchEngine(d_index, k=K_TOP, n_probes=N_PROBES,
+                                q_block=64, prune="auto")
+        d_batches = {mix: [mix_batch(mix, d_centers, dev, gen)
+                           for _ in range(n_disk)] for mix in mixes}
+    ram_results = {mix: [d_engine.search(q, f) for q, f in d_batches[mix]]
+                   for mix in mixes}
+    disk_launches, _ = disk_phase(
+        d_index, d_batches, ram_results, dev, reset_launches=reset_launches,
+        launches=launches, rate=rate)
+    del d_index, d_engine, ram_results
+    torch.cuda.empty_cache()
+    log(f"phase 3c (disk tier) {time.perf_counter() - t0:.2f} s; "
+        f"{time.perf_counter() - t_all:.2f} s since start")
+
     # ---- phase 4: each kernel on one full-size batch ----
     t0 = time.perf_counter()
     _, _, plan = results["uniform"]
@@ -811,7 +1119,8 @@ def main(argv=None):
         source="src/repro_torch/kernels/filtered_scan/csrc/filtered_scan_tiled.cu",
         replaces="src/repro/kernels/filtered_scan/filtered_scan.py:360",
         launches=(engine_launches["filtered_scan_tiled"]
-                  + sharded_launches["filtered_scan_tiled"]),
+                  + sharded_launches["filtered_scan_tiled"]
+                  + disk_launches["filtered_scan_tiled"]),
         max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by="bytes" if byte_ms >= op_ms else "operations",

@@ -1,4 +1,5 @@
-"""The port's hybrid IVF-Flat filtered similarity search (RAM tier).
+"""The port's hybrid IVF-Flat filtered similarity search (RAM and disk
+tiers).
 
   HybridSpec, make_hybrid, l2_normalize              — hybrid vector layout
   FilterBuilder, FilterSpec, match_all, filter_mask  — DNF filters
@@ -9,6 +10,9 @@
   make_sharded_search, ShardedSearchConfig           — the sharded search
                                                        (one shard)
   RangeOwnership                                     — cluster ownership map
+  BlockSpec, LocalBlockStore, ResidentBlockStore     — cluster block stores
+  ClusterCache, DiskIVFIndex                         — the disk tier
+  GenerationMismatchError                            — checkpoint skew
 """
 
 from repro_torch.core.hybrid import (
@@ -48,12 +52,21 @@ from repro_torch.core.search import (
     search_reference,
 )
 from repro_torch.core.engine import SearchEngine, search_fused_tiled
-from repro_torch.core.blockstore import RangeOwnership
+from repro_torch.core.blockstore import (
+    BlockSpec,
+    LocalBlockStore,
+    RangeOwnership,
+    ResidentBlockStore,
+)
 from repro_torch.core.distributed import ShardedSearchConfig, make_sharded_search
+from repro_torch.core.disk import ClusterCache, DiskIVFIndex
+from repro_torch.core.storage import GenerationMismatchError
 
 __all__ = [
-    "ATTR_MAX", "ATTR_MIN", "BuildStats", "ClusterSummaries", "FilterBuilder",
-    "FilterSpec", "HybridSpec", "IVFFlatIndex", "RangeOwnership",
+    "ATTR_MAX", "ATTR_MIN", "BlockSpec", "BuildStats", "ClusterCache",
+    "ClusterSummaries", "DiskIVFIndex", "FilterBuilder", "FilterSpec",
+    "GenerationMismatchError", "HybridSpec", "IVFFlatIndex",
+    "LocalBlockStore", "RangeOwnership", "ResidentBlockStore",
     "SearchEngine", "SearchResult", "ShardedSearchConfig", "brute_force",
     "build_from_assignments", "build_summaries", "can_match",
     "centroid_scores", "default_n_clusters", "filter_mask", "from_builders",

@@ -1,34 +1,52 @@
-"""Search execution engine, sync RAM tier: plan → fetch → scan → merge.
+"""Search execution engine: plan → fetch → scan → merge, both tiers.
 
-The port of ``repro.core.engine`` for ``SearchEngine(pipeline="off")``
-over a RAM-resident index:
+The port of ``repro.core.engine``:
 
     plan   — :func:`plan_fused_tiled` over resident state: centroid top-T,
              filter-aware probe pruning (exact mode), per-tile probe dedup;
              with ``adaptive_u_cap`` the slot tables are then cut to the
              smallest bucket covering the observed unique counts.
-    fetch  — the resident ``[K, Vpad, ...]`` arrays (a no-op).
+    fetch  — RAM tier: the resident ``[K, Vpad, ...]`` arrays (a no-op).
+             Disk tier: the plan's fetch list pages through a
+             :mod:`~repro_torch.core.blockstore` store into batch-local
+             blocks with slot-local cluster ids, assembled in pinned host
+             memory and copied to the card on a side stream; a per-batch
+             *operand cache* pulls each cluster through the store once per
+             batch, however many tiles probe it.
     scan   — the tiled filtered scan kernel over the slot tables.
     merge  — monoid top-k across each query's probes, the l2 constant
              fix-up and the scan accounting (:func:`_scan_merge_tiled`).
 
-Every other engine knob of the reference (disk tier, pipelining, delta
-tier, caches, partitions, termination, widening) is not ported yet and
-raises ``NotImplementedError`` when set.
+Two executors share those stages and return the same results:
+
+  * **sync** (``pipeline="off"``) — one fetch for the whole batch, one scan
+    over all ``n_tiles · u_cap`` slots.
+  * **pipelined** (``pipeline="on"``) — while tile *i* scans on the card, a
+    worker fetches and assembles tile *i+1*'s clusters and copies them on a
+    side stream (``pipeline_depth`` tiles in flight).  ``submit`` /
+    ``result`` extend the overlap across batches.
+
+The remaining knobs of the reference (delta tier, device cache,
+partitions, termination, widening) are not ported yet and raise
+``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import blockstore as blockstore_lib
 from repro_torch.core import probes as probes_lib
 from repro_torch.core import summaries as summaries_lib
 from repro_torch.core import topk as topk_lib
 from repro_torch.core.filters import FilterSpec
-from repro_torch.core.ivf import IVFFlatIndex, round_up
+from repro_torch.core.ivf import round_up
 from repro_torch.core.search import SearchResult, centroid_scores
 from repro_torch.device import resolve_device
 from repro_torch.kernels.filtered_scan.filtered_scan import filtered_scan_tiled
@@ -153,24 +171,84 @@ def resolve_prune(index, prune: str):
 
 
 @dataclasses.dataclass
+class TileWork:
+    """One query tile's slice of a :class:`SearchPlan` (host-side).
+
+    ``fetch`` is the tile's *novel* cluster list (ids no earlier tile
+    needed, in first-need order); ``release`` lists the clusters no *later*
+    tile needs, which the per-batch operand cache frees after this tile.
+    """
+
+    tile: int
+    slot_cluster: np.ndarray  # [u_cap] int32 — global cluster per slot
+    n_unique: int             # live slots (the rest are pads)
+    fetch: np.ndarray         # novel clusters, first-need order
+    release: np.ndarray       # clusters whose last need is this tile
+
+
+@dataclasses.dataclass
 class SearchPlan:
     """Everything the fetch/scan/merge stages need, produced by plan().
-    Slot tables stay on the index's device."""
+
+    Slot tables stay on the index's device on the sync RAM path, and come
+    to the host as numpy when the executor needs them per tile (pipelined
+    mode, disk fetch lists); the scan stage takes either.
+    """
 
     q: int
     q_block: int
     n_tiles: int
     u_cap: int               # provisioned table width (post-bucketing)
-    slot_cluster: torch.Tensor   # [n_tiles·u_cap] int32
-    slot_tile: torch.Tensor      # [n_tiles·u_cap] int32
-    slot_of_probe: torch.Tensor  # [Qpad, T] int32
-    probe_ok: torch.Tensor       # [Qpad, T] bool
-    n_unique: torch.Tensor       # [n_tiles] int32
-    queries: torch.Tensor        # [Q, D] original (l2 constant)
-    queries_pad: torch.Tensor    # [Qpad, D] cast to the scan dtype
+    width: int               # probe table width (n_probes)
+    slot_cluster: Any        # [n_tiles·u_cap] int32
+    slot_tile: Any           # [n_tiles·u_cap] int32
+    slot_of_probe: Any       # [Qpad, T] int32
+    probe_ok: Any            # [Qpad, T] bool
+    n_unique: Any            # [n_tiles] int32
+    queries: torch.Tensor    # [Q, D] original (l2 constant)
+    # [Qpad, D] original dtype, tile-padded: read by the per-tile executor
+    # only, so built lazily (None on sync plans)
+    queries_orig_pad: Optional[torch.Tensor]
+    queries_pad: torch.Tensor  # [Qpad, D] cast to the scan dtype
     lo_pad: torch.Tensor
     hi_pad: torch.Tensor
-    n_pruned: torch.Tensor       # [Q] int32
+    n_pruned: torch.Tensor   # [Q] int32
+    # expected per-cluster generation vector at plan time (layout-3 disk
+    # tier): every fetch of the batch carries it
+    gens: Optional[np.ndarray] = None
+    # per-tile work items, built lazily by tile_work()
+    tiles: Optional[List[TileWork]] = None
+    # per-batch operand cache: (cluster, gen) -> host record, filled as
+    # tiles' fetches land, freed after each record's last tile
+    operands: Optional[Dict[Tuple[int, int], dict]] = None
+    # (cluster, gen) keys counted in blocks_fetched for this batch
+    fetched_keys: Optional[set] = None
+
+    def tile_work(self) -> List[TileWork]:
+        """Materializes (and caches) the per-tile work items with their
+        novel-cluster fetch lists.  Requires host tables."""
+        if self.tiles is None:
+            sc = np.asarray(self.slot_cluster).reshape(self.n_tiles,
+                                                       self.u_cap)
+            nu = np.asarray(self.n_unique)
+            fetches = probes_lib.tile_fetch_lists(sc, nu, self.u_cap)
+            releases = probes_lib.tile_release_lists(sc, nu, self.u_cap)
+            self.tiles = [
+                TileWork(tile=i, slot_cluster=sc[i], n_unique=int(nu[i]),
+                         fetch=fetches[i], release=releases[i])
+                for i in range(self.n_tiles)
+            ]
+        return self.tiles
+
+
+@dataclasses.dataclass
+class PendingSearch:
+    """A batch started by :meth:`SearchEngine.submit`: its plan plus any
+    tile fetches already in flight.  Finish with
+    :meth:`SearchEngine.result`."""
+
+    plan: SearchPlan
+    inflight: Optional[Dict] = None
 
 
 @dataclasses.dataclass
@@ -178,17 +256,150 @@ class EngineStats:
     """Per-engine execution counters."""
 
     batches: int = 0
+    pipelined_batches: int = 0
+    tiles_scanned: int = 0
+    # distinct scan-stage signatures this engine was first to dispatch in
+    # the process (the reference's jit-compile count, same keys)
+    scan_compilations: int = 0
+    # fetch-stage overlap accounting (pipelined disk tier)
+    io_wait_s: float = 0.0    # time execute() blocked on a tile's fetch
+    io_total_s: float = 0.0   # submit→completion span of every fetch
     last_u_cap: int = 0
     u_cap_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
+    # BlockStore fetch path accounting
+    blocks_fetched: int = 0   # per-cluster blocks pulled through the store
+    blocks_reused: int = 0    # slots served from the per-batch operand cache
+
+    @property
+    def overlap_ratio(self) -> float:
+        """Fraction of fetch time hidden behind compute (1 = fully
+        overlapped, 0 = fully serial)."""
+        if self.io_total_s <= 0:
+            return 0.0
+        return max(0.0, 1.0 - self.io_wait_s / self.io_total_s)
+
+
+def _flatten_metrics(out: Dict[str, Any], prefix: str, obj: Any) -> None:
+    """Recursively flattens nested stats into ``prefix.key`` scalar entries
+    (dicts recurse; numbers, bools, strings and None pass through; anything
+    else is stringified)."""
+    if isinstance(obj, dict):
+        for key, val in obj.items():
+            _flatten_metrics(out, f"{prefix}.{key}", val)
+    elif isinstance(obj, (bool, int, float, str)) or obj is None:
+        out[prefix] = obj
+    elif isinstance(obj, (np.integer, np.floating)):
+        out[prefix] = obj.item()
+    else:
+        out[prefix] = str(obj)
+
+
+# Metric leaf names that are monotonically increasing counts, rendered as
+# Prometheus counters; every other numeric metric is a gauge.
+_PROM_COUNTERS = frozenset((
+    "batches", "pipelined_batches", "tiles_scanned", "scan_compilations",
+    "blocks_fetched", "blocks_reused", "hits", "misses", "evictions",
+    "invalidations", "prefetched", "errors", "stalled_waits", "gets",
+    "blocks", "scan_compile_count",
+))
+
+
+def _prom_name(key: str) -> str:
+    out = "".join(c if c.isalnum() or c == "_" else "_" for c in key)
+    return out if not out[:1].isdigit() else f"_{out}"
+
+
+def render_prometheus(metrics: Dict[str, Any], prefix: str = "repro") -> str:
+    """Flat dotted-key metrics → Prometheus text exposition format.
+
+    Dots become underscores (``engine.blocks_fetched`` →
+    ``repro_engine_blocks_fetched``); booleans render as 0/1 gauges;
+    strings as an info-style labeled sample (``repro_engine_backend{value=
+    "cuda"} 1``); None is skipped.
+    """
+    lines: List[str] = []
+    for key in sorted(metrics):
+        val = metrics[key]
+        if val is None:
+            continue
+        name = _prom_name(f"{prefix}.{key}")
+        leaf = key.rsplit(".", 1)[-1]
+        kind = "counter" if leaf in _PROM_COUNTERS else "gauge"
+        if isinstance(val, bool):
+            lines.append(f"# TYPE {name} gauge")
+            lines.append(f"{name} {int(val)}")
+        elif isinstance(val, (int, float)):
+            lines.append(f"# TYPE {name} {kind}")
+            lines.append(f"{name} {val}")
+        else:
+            label = str(val).replace("\\", "\\\\").replace('"', '\\"')
+            lines.append(f"# TYPE {name} gauge")
+            lines.append(f'{name}{{value="{label}"}} 1')
+    return "\n".join(lines) + "\n"
+
+
+# Fixed latency bucket upper bounds (seconds) for the per-stage histograms,
+# fixed so scrapes from different processes aggregate.
+_LAT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                0.25, 0.5, 1.0, 2.5)
+
+
+class StageHistogram:
+    """Fixed-bucket latency histogram, Prometheus-renderable (cumulative
+    ``le`` buckets at render time, ``+Inf`` equal to the count)."""
+
+    __slots__ = ("counts", "total", "sum")
+
+    def __init__(self):
+        self.counts = [0] * len(_LAT_BUCKETS)
+        self.total = 0
+        self.sum = 0.0
+
+    def observe(self, seconds: float):
+        self.total += 1
+        self.sum += seconds
+        for i, edge in enumerate(_LAT_BUCKETS):
+            if seconds <= edge:
+                self.counts[i] += 1
+                break
+
+    def render(self, name: str, labels: str) -> List[str]:
+        lines = []
+        cum = 0
+        for edge, n in zip(_LAT_BUCKETS, self.counts):
+            cum += n
+            lines.append(f'{name}_bucket{{{labels},le="{edge}"}} {cum}')
+        lines.append(f'{name}_bucket{{{labels},le="+Inf"}} {self.total}')
+        lines.append(f"{name}_sum{{{labels}}} {self.sum}")
+        lines.append(f"{name}_count{{{labels}}} {self.total}")
+        return lines
+
+
+def render_stage_histograms(hists: Dict[str, StageHistogram],
+                            prefix: str = "repro") -> str:
+    """``{stage: histogram}`` → Prometheus exposition text (one metric
+    family, a ``stage`` label per pipeline stage)."""
+    if not hists:
+        return ""
+    name = f"{prefix}_stage_latency_seconds"
+    lines = [f"# TYPE {name} histogram"]
+    for stage in sorted(hists):
+        lines.extend(hists[stage].render(name, f'stage="{stage}"'))
+    return "\n".join(lines) + "\n"
+
+
+# Process-wide registry of the scan-stage signatures dispatched so far
+# (the reference's jit cache is process-wide too).
+_SCAN_KEYS: set = set()
+
+
+def scan_compile_count() -> int:
+    """Number of distinct scan-stage signatures this process has run."""
+    return len(_SCAN_KEYS)
 
 
 # Reference knobs the port does not have yet: name → (default, ROADMAP item).
 _UNPORTED = {
-    "pipeline": ("off", "A.4 pipelined executor"),
-    "pipeline_depth": (2, "A.4 pipelined executor"),
-    "blockstore": (None, "A.4 disk tier and block stores"),
-    "gather_fn": (None, "A.4 disk tier and block stores"),
-    "operand_cache": ("auto", "A.4 disk tier and block stores"),
     "delta": (None, "A.5 live updates"),
     "device_cache": (None, "A.6 device cache"),
     "partitions": ("auto", "A.6 sub-partition routing"),
@@ -204,40 +415,72 @@ def _reject_unported(index, knobs: dict):
         if name not in _UNPORTED:
             raise TypeError(f"SearchEngine got an unexpected keyword {name!r}")
         default, item = _UNPORTED[name]
-        ok = value == default or (name == "pipeline" and value == "auto")
-        if not ok:
+        if value != default:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (ROADMAP {item})")
     if getattr(index, "partitions", None) is not None:
         raise NotImplementedError(
             "an index with a partition catalog is not ported yet "
             "(ROADMAP A.6 sub-partition routing)")
+    for attr, item in (("delta", "A.5 live updates"),
+                       ("device_cache", "A.6 device cache")):
+        if getattr(index, attr, None) is not None:
+            raise NotImplementedError(
+                f"an index with a {attr} attached is not ported yet "
+                f"(ROADMAP {item})")
 
 
 class SearchEngine:
-    """The tiled fused search over a RAM-resident index (sync executor).
+    """The tiled fused search, both tiers, both executors.
 
     Knobs: ``k``, ``n_probes``, ``q_block`` (query-tile height), ``v_block``
     (accepted for parity with the reference; the CUDA kernel picks its own
     row chunk), ``u_cap`` (pinned slot-table width) or ``adaptive_u_cap``
     (bucketed from the observed unique counts, the default when ``u_cap``
-    is None) with ``u_cap_ladder``/``u_cap_bucket_set``, and ``prune``.
+    is None) with ``u_cap_ladder``/``u_cap_bucket_set``, ``prune``, and:
+
+      * ``pipeline`` — ``"off"``: one whole-batch fetch and scan;
+        ``"on"``: per-tile fetch/scan overlap (same results); ``"auto"``:
+        on iff the engine fetches through a store or a gather function.
+      * ``pipeline_depth`` — tile fetches kept in flight ahead of the scan.
+      * ``operand_cache`` — per-batch reuse of fetched cluster records
+        (store path only; ``"auto"``/``"on"``/``"off"``):
+        ``blocks_reused`` counts slots served from it.
+
+    ``index`` needs the resident surface (``spec / centroids / counts /
+    n_clusters / store_dtype / quantized / summaries``) plus one fetch
+    source: resident ``vectors/attrs/ids/norms/scales`` (RAM tier), a
+    ``blockstore`` (the index's own, or passed explicitly), a
+    ``gather_fn``, or the index's ``gather`` method (with
+    ``gather_submit``/``gather_wait`` for the async fetch).
 
     ``device`` must be the index's device; it defaults to CUDA and raises
     when CUDA is absent and the CPU was not asked for.
     """
 
-    def __init__(self, index: IVFFlatIndex, *, k: int, n_probes: int,
+    def __init__(self, index, *, k: int, n_probes: int,
                  q_block: int = 64, v_block: int = 256,
-                 u_cap: Optional[int] = None, prune: str = "auto",
+                 u_cap: Optional[int] = None,
+                 gather_fn: Optional[Callable] = None, blockstore=None,
+                 prune: str = "auto", pipeline: str = "auto",
+                 pipeline_depth: int = 2,
                  adaptive_u_cap: Optional[bool] = None,
                  u_cap_bucket_set: Optional[Tuple[int, ...]] = None,
-                 u_cap_ladder: str = "pow2", device="cuda", **unported):
+                 u_cap_ladder: str = "pow2", operand_cache: str = "auto",
+                 device="cuda", **unported):
         _reject_unported(index, unported)
         self.device = resolve_device(device)
-        if index.vectors.device.type != self.device.type:
-            raise ValueError(f"index lives on {index.vectors.device}, engine "
-                             f"asked for {self.device}")
+        if index.centroids.device.type != self.device.type:
+            raise ValueError(f"index lives on {index.centroids.device}, "
+                             f"engine asked for {self.device}")
+        if pipeline not in ("auto", "on", "off"):
+            raise ValueError(f"pipeline must be 'auto'|'on'|'off', got "
+                             f"{pipeline!r}")
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        if operand_cache not in ("auto", "on", "off"):
+            raise ValueError(f"operand_cache must be 'auto'|'on'|'off', got "
+                             f"{operand_cache!r}")
         if u_cap_ladder not in ("pow2", "fine"):
             raise ValueError(f"u_cap_ladder must be 'pow2'|'fine', got "
                              f"{u_cap_ladder!r}")
@@ -249,21 +492,63 @@ class SearchEngine:
         self.v_block = v_block
         self.u_cap = u_cap
         self.prune = prune
+        self.pipeline_depth = pipeline_depth
         self.u_cap_bucket_set = u_cap_bucket_set
         self.u_cap_ladder = u_cap_ladder
+        self.operand_cache = operand_cache
+        self.backend = self.device.type
+        # fetch source: an explicit gather_fn wins; otherwise an explicit or
+        # index-provided store; otherwise the index's own gather; otherwise
+        # the resident arrays (RAM tier)
+        self._store = None
+        if gather_fn is not None:
+            self._gather_fn = gather_fn
+        else:
+            self._store = (blockstore if blockstore is not None
+                           else getattr(index, "blockstore", None))
+            self._gather_fn = (self._store_gather if self._store is not None
+                               else getattr(index, "gather", None))
+        self._bspec = (blockstore_lib.BlockSpec.from_index(index)
+                       if self._store is not None else None)
+        if operand_cache == "on" and self._store is None:
+            raise ValueError("operand_cache='on' needs a BlockStore fetch "
+                             "path (disk tier or explicit blockstore=)")
+        # async pair available iff the source IS the index's own gather
+        self._async_src = (
+            index if (self._store is None and self._gather_fn is not None
+                      and getattr(index, "gather_submit", None) is not None
+                      and self._gather_fn == index.gather)
+            else None)
+        self.pipeline = (pipeline if pipeline != "auto"
+                         else ("on" if self._gather_fn is not None else "off"))
         self.adaptive_u_cap = (
-            (u_cap is None) if adaptive_u_cap is None else adaptive_u_cap
-        )
+            (u_cap is None) if adaptive_u_cap is None else adaptive_u_cap)
         if self.adaptive_u_cap and u_cap is not None:
             raise ValueError("u_cap and adaptive_u_cap are exclusive")
+        self._pool: Optional[ThreadPoolExecutor] = None
+        # per-stage fixed-bucket latency histograms, appended to
+        # metrics_text()
+        self._stage_hist: Dict[str, StageHistogram] = {}
         self.stats = EngineStats()
+
+    def _observe_stage(self, stage: str, seconds: float):
+        hist = self._stage_hist.get(stage)
+        if hist is None:
+            hist = self._stage_hist[stage] = StageHistogram()
+        hist.observe(seconds)
+
+    def _dev(self, x):
+        """A table or operand on the engine's device (None passes)."""
+        return None if x is None else torch.as_tensor(x, device=self.device)
 
     # ---- plan ----
     def plan(self, queries, fspec: FilterSpec) -> SearchPlan:
         """Plans at the sound worst-case table width; with
-        ``adaptive_u_cap`` the tables are then cut to a bucket."""
+        ``adaptive_u_cap`` the tables are then cut to a bucket.  The tables
+        come to the host when the executor needs them per tile."""
+        t0 = time.perf_counter()
         index = self.index
-        dev = index.vectors.device
+        dev = index.centroids.device
         queries = torch.as_tensor(queries, device=dev)
         lo = torch.as_tensor(fspec.lo, device=dev)
         hi = torch.as_tensor(fspec.hi, device=dev)
@@ -280,17 +565,37 @@ class SearchEngine:
             u_cap=cap, cast_dtype=cast_dtype, summaries=summ)
         plan = SearchPlan(
             q=q, q_block=qb, n_tiles=queries_pad.shape[0] // qb, u_cap=cap,
-            slot_cluster=slot_cluster, slot_tile=slot_tile,
-            slot_of_probe=slot_of_probe, probe_ok=probe_ok, n_unique=n_unique,
-            queries=queries, queries_pad=queries_pad, lo_pad=lo_pad,
-            hi_pad=hi_pad, n_pruned=n_pruned,
+            width=self.n_probes, slot_cluster=slot_cluster,
+            slot_tile=slot_tile, slot_of_probe=slot_of_probe,
+            probe_ok=probe_ok, n_unique=n_unique, queries=queries,
+            queries_orig_pad=(probes_lib.pad_to_tiles(queries, qb)
+                              if self.pipeline == "on" else None),
+            queries_pad=queries_pad, lo_pad=lo_pad, hi_pad=hi_pad,
+            n_pruned=n_pruned, gens=self._plan_gens(),
         )
         if self.adaptive_u_cap:
             self._provision(plan)
+        if self.pipeline == "on" or self._gather_fn is not None:
+            self._host_tables(plan)
         self.stats.last_u_cap = plan.u_cap
         self.stats.u_cap_hist[plan.u_cap] = (
             self.stats.u_cap_hist.get(plan.u_cap, 0) + 1)
+        self._observe_stage("plan", time.perf_counter() - t0)
         return plan
+
+    def _plan_gens(self) -> Optional[np.ndarray]:
+        """Per-cluster expected generations for this batch's fetches (None
+        on a RAM index: every gen is implicitly 0)."""
+        g = getattr(self.index, "gens", None)
+        return None if g is None else np.asarray(g)
+
+    @staticmethod
+    def _host_tables(plan: SearchPlan):
+        for name in ("slot_cluster", "slot_tile", "slot_of_probe",
+                     "probe_ok", "n_unique"):
+            t = getattr(plan, name)
+            if isinstance(t, torch.Tensor):
+                setattr(plan, name, t.cpu().numpy())
 
     def _provision(self, plan: SearchPlan):
         """Adaptive u_cap: cut the slot tables to the smallest bucket
@@ -317,42 +622,399 @@ class SearchEngine:
                               + torch.clamp(s, max=bucket - 1)).int()
         plan.u_cap = bucket
 
-    # ---- fetch / scan + merge ----
+    # ---- fetch ----
+    @property
+    def blockstore(self):
+        """The store the fetch stage routes through (None when the engine
+        reads resident arrays or a gather function)."""
+        return self._store
+
+    @property
+    def _use_operand_cache(self) -> bool:
+        return self._store is not None and self.operand_cache != "off"
+
+    def _count_fetched(self, plan: Optional[SearchPlan], cids):
+        """``blocks_fetched`` on the operand-cache path: each distinct
+        ``(cluster, gen)`` block counts once per batch, even when a gap
+        fallback re-pulls a block an earlier tile fetched."""
+        if plan is None:
+            self.stats.blocks_fetched += len(cids)
+            return
+        if plan.fetched_keys is None:
+            plan.fetched_keys = set()
+        gens = plan.gens
+        for c in cids:
+            cid = int(c)
+            key = (cid, int(gens[cid]) if gens is not None else 0)
+            if key not in plan.fetched_keys:
+                plan.fetched_keys.add(key)
+                self.stats.blocks_fetched += 1
+
+    def _store_gather(self, slot_cluster, gens: Optional[np.ndarray] = None,
+                      plan: Optional[SearchPlan] = None):
+        """Whole-list gather through the store (the sync executor's fetch
+        stage); each fetched cluster carries its expected generation."""
+        flat = np.asarray(slot_cluster).reshape(-1)
+        uniq, local = blockstore_lib.first_need_unique(flat)
+        recs = self._store.get(uniq, gens=None if gens is None else gens[uniq])
+        self.stats.blocks_fetched += len(recs)
+        return blockstore_lib.assemble_blocks(
+            flat, uniq, local, recs, self._bspec, as_device=True,
+            device=self.device)
+
+    def _expected_gens(self, plan: SearchPlan, cids) -> Optional[np.ndarray]:
+        """Expected generations for a fetch list, from the plan's vector."""
+        if plan.gens is None:
+            return None
+        return plan.gens[np.asarray(cids, np.int64)]
+
     def fetch(self, plan: SearchPlan):
-        """RAM tier: the resident arrays, indexed by the plan's slots."""
+        """Whole-batch fetch stage (sync executor): the resident arrays on
+        the RAM tier, one gather over the plan's slot list otherwise."""
         index = self.index
-        return (plan.slot_cluster, index.vectors, index.attrs, index.ids,
-                index.norms, index.scales)
+        if self._gather_fn is None:
+            return (self._dev(plan.slot_cluster), index.vectors, index.attrs,
+                    index.ids, index.norms, index.scales)
+        t0 = time.perf_counter()
+        if self._store is not None and self._gather_fn == self._store_gather:
+            out = self._store_gather(plan.slot_cluster, gens=plan.gens,
+                                     plan=plan)
+        else:
+            out = self._gather_fn(plan.slot_cluster)
+        out = tuple(self._dev(a) for a in blockstore_lib.wait_blocks(out))
+        self._observe_stage("fetch", time.perf_counter() - t0)
+        return out
+
+    # ---- scan + merge ----
+    def _count_scan(self, key: Tuple):
+        if key not in _SCAN_KEYS:
+            _SCAN_KEYS.add(key)
+            self.stats.scan_compilations += 1
+
+    def _scan_key(self, plan: SearchPlan, *, q: int, qpad: int, s: int,
+                  q_block: int, vectors, norms, scales) -> Tuple:
+        """The reference's scan signature: statics and operand shapes.
+        Gathered operands count as the reference's ``[S, Vpad, D]`` blocks
+        (the port allocates one row per distinct cluster instead)."""
+        rows = s if self._gather_fn is not None else vectors.shape[0]
+        return (
+            self.backend, self.index.spec.metric, self.k, q, q_block,
+            self.v_block, s, qpad, plan.width,
+            (rows,) + tuple(vectors.shape[1:]), str(vectors.dtype),
+            str(plan.queries_pad.dtype), tuple(plan.lo_pad.shape[1:]),
+            norms is None, scales is None,
+        )
 
     def scan_merge(self, plan: SearchPlan, operands) -> SearchResult:
-        """Whole-batch scan/merge over fetched operands."""
+        """Whole-batch scan/merge over fetched operands (sync executor)."""
+        t0 = time.perf_counter()
         slot_cluster, vectors, attrs, ids, norms, scales = operands
+        self._count_scan(self._scan_key(
+            plan, q=plan.q, qpad=plan.n_tiles * plan.q_block,
+            s=plan.n_tiles * plan.u_cap, q_block=plan.q_block,
+            vectors=vectors, norms=norms, scales=scales))
         res = _scan_merge_tiled(
-            slot_cluster, plan.slot_tile, plan.slot_of_probe, plan.probe_ok,
-            plan.n_unique, plan.queries, plan.queries_pad, plan.lo_pad,
-            plan.hi_pad, vectors, attrs, ids, norms, scales,
+            slot_cluster, self._dev(plan.slot_tile),
+            self._dev(plan.slot_of_probe), self._dev(plan.probe_ok),
+            self._dev(plan.n_unique), plan.queries, plan.queries_pad,
+            plan.lo_pad, plan.hi_pad, vectors, attrs, ids, norms, scales,
             metric=self.index.spec.metric, k=self.k, q=plan.q,
             q_block=plan.q_block)
+        self._observe_stage("scan", time.perf_counter() - t0)
         return dataclasses.replace(res, n_pruned=plan.n_pruned)
 
+    def _scan_tile(self, plan: SearchPlan, i: int, operands) -> SearchResult:
+        """Scan/merge one query tile (pipelined executor): the whole-batch
+        stage on one tile, with the tile's own unique count and a zero
+        ``slot_tile``; per-slot arithmetic is the same, so tile results
+        concatenate to the sync result."""
+        t0 = time.perf_counter()
+        slot_cluster, vectors, attrs, ids, norms, scales = operands
+        qb, cap = plan.q_block, plan.u_cap
+        if plan.queries_orig_pad is None:  # plan was built for a sync run
+            plan.queries_orig_pad = probes_lib.pad_to_tiles(plan.queries, qb)
+        rows = slice(i * qb, (i + 1) * qb)
+        sop = np.asarray(plan.slot_of_probe[rows]) - i * cap  # tile-local
+        self._count_scan(self._scan_key(
+            plan, q=qb, qpad=qb, s=cap, q_block=qb,
+            vectors=vectors, norms=norms, scales=scales))
+        res = _scan_merge_tiled(
+            slot_cluster,
+            torch.zeros((cap,), dtype=torch.int32, device=self.device),
+            self._dev(sop), self._dev(plan.probe_ok[rows]),
+            self._dev(plan.n_unique[i:i + 1]),
+            plan.queries_orig_pad[rows], plan.queries_pad[rows],
+            plan.lo_pad[rows], plan.hi_pad[rows],
+            vectors, attrs, ids, norms, scales,
+            metric=self.index.spec.metric, k=self.k, q=qb, q_block=qb)
+        self._observe_stage("scan", time.perf_counter() - t0)
+        return res
+
+    # ---- executors ----
     def execute(self, plan: SearchPlan) -> SearchResult:
         self.stats.batches += 1
+        if self.pipeline == "on":
+            return self._execute_pipelined(plan)
         return self.scan_merge(plan, self.fetch(plan))
+
+    def submit(self, queries, fspec: FilterSpec) -> PendingSearch:
+        """Starts a batch: plans it and (pipelined, with a fetch source)
+        launches its first ``pipeline_depth`` tile fetches at once, so that
+        batch *i+1*'s clusters page in behind batch *i*'s scan.  Finish
+        with :meth:`result`."""
+        plan = self.plan(queries, fspec)
+        self.stats.batches += 1
+        if self.pipeline != "on" or self._gather_fn is None:
+            return PendingSearch(plan=plan, inflight=None)
+        depth = min(self.pipeline_depth, plan.n_tiles)
+        return PendingSearch(plan=plan,
+                             inflight=self._start_inflight(plan, depth))
+
+    def result(self, pending: PendingSearch) -> SearchResult:
+        """Finishes a :meth:`submit`-started batch (scan + merge)."""
+        plan = pending.plan
+        if pending.inflight is not None:
+            return self._run_tiles(plan, pending.inflight)
+        if self.pipeline == "on":
+            return self._execute_pipelined(plan)
+        return self.scan_merge(plan, self.fetch(plan))
+
+    def _tile_operands(self, plan: SearchPlan, i: int):
+        """RAM-tier per-tile operands: the resident arrays and the tile's
+        global slot ids."""
+        index = self.index
+        sc = plan.slot_cluster.reshape(plan.n_tiles, plan.u_cap)[i]
+        return (self._dev(sc), index.vectors, index.attrs, index.ids,
+                index.norms, index.scales)
+
+    def _ensure_pool(self) -> ThreadPoolExecutor:
+        """The engine's single fetch/assembly worker: tasks run strictly in
+        submission order, keeping per-tile waits aligned with submits."""
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=1,
+                                            thread_name_prefix="engine-fetch")
+        return self._pool
+
+    def _start_inflight(self, plan: SearchPlan, depth: int) -> Dict:
+        """Prepares a pipelined batch (operand cache and per-tile novel
+        fetch lists on the store path) and launches the first ``depth``
+        tile fetches."""
+        if self._use_operand_cache:
+            plan.operands = {}
+            plan.tile_work()
+        return {i: self._submit(plan, i) for i in range(depth)}
+
+    def _assemble_tile(self, plan: SearchPlan, i: int, h_store):
+        """Engine-worker half of the store fetch: wait for the store's
+        records, merge them into the batch operand cache (when on), assemble
+        tile *i*'s blocks and copy them to the card on a side stream, all
+        off the scan thread.  With the operand cache, a cluster several
+        tiles share crosses the store once per batch (``blocks_reused``)."""
+        recs = self._store.wait(h_store)
+        if plan.operands is not None:
+            self._count_fetched(plan, recs)
+        else:
+            self.stats.blocks_fetched += len(recs)
+        sc = plan.slot_cluster.reshape(plan.n_tiles, plan.u_cap)[i]
+        uniq, local = blockstore_lib.first_need_unique(sc)
+        if plan.operands is None:
+            return blockstore_lib.assemble_blocks(
+                sc, uniq, local, recs, self._bspec, as_device=True,
+                device=self.device)
+        gens = plan.gens
+
+        def gkey(c):
+            cid = int(c)
+            return (cid, int(gens[cid]) if gens is not None else 0)
+
+        ops = plan.operands
+        for c, r in recs.items():
+            ops[gkey(c)] = r
+        # fetch lists and slot tables always agree; a gap is fetched inline
+        # rather than scanned stale
+        missing = [int(c) for c in uniq if gkey(c) not in ops]
+        if missing:
+            more = self._store.get(np.asarray(missing, np.int64),
+                                   gens=self._expected_gens(plan, missing))
+            self._count_fetched(plan, more)
+            for c, r in more.items():
+                ops[gkey(c)] = r
+        self.stats.blocks_reused += max(len(uniq) - len(recs) - len(missing),
+                                        0)
+        view = {int(c): ops[gkey(c)] for c in uniq}
+        out = blockstore_lib.assemble_blocks(
+            sc, uniq, local, view, self._bspec, as_device=True,
+            device=self.device)
+        # free records whose last consuming tile is this one
+        if plan.tiles is not None:
+            for c in plan.tiles[i].release:
+                ops.pop(gkey(c), None)
+        return out
+
+    def _submit(self, plan: SearchPlan, i: int):
+        """Starts tile *i*'s fetch; returns (handle, t_submit, done_box).
+        The handle yields tile *i*'s blocks for :func:`wait_blocks`."""
+        t0 = time.monotonic()
+        done = [None]  # completion timestamp, set by the done-callback
+        sc = plan.slot_cluster.reshape(plan.n_tiles, plan.u_cap)[i]
+        if self._store is not None:
+            if self._use_operand_cache:
+                # only clusters no earlier tile of this batch needed
+                fetch_ids = plan.tile_work()[i].fetch
+            else:
+                fetch_ids, _ = blockstore_lib.first_need_unique(sc)
+            h_store = self._store.submit(
+                fetch_ids, gens=self._expected_gens(plan, fetch_ids))
+            h = self._ensure_pool().submit(self._assemble_tile, plan, i,
+                                           h_store)
+        elif self._async_src is not None:
+            h = self._async_src.gather_submit(sc)
+        else:
+            # a plain gather_fn runs on the engine's worker, so its IO
+            # still overlaps the scan
+            h = self._ensure_pool().submit(self._gather_fn, sc)
+        h.add_done_callback(lambda _: done.__setitem__(0, time.monotonic()))
+        return h, t0, done
+
+    def _wait(self, handle_rec):
+        handle, t_submit, done = handle_rec
+        t0 = time.monotonic()
+        if self._async_src is not None:
+            out = self._async_src.gather_wait(handle)
+        else:
+            out = handle.result()
+        t1 = time.monotonic()
+        self.stats.io_wait_s += t1 - t0
+        self._observe_stage("fetch", t1 - t0)
+        # submit→completion span: a fetch that finished long before this
+        # wait counts its own duration (the callback may lag result() by a
+        # beat; then t1 stands in)
+        t_done = done[0] if done[0] is not None else t1
+        self.stats.io_total_s += max(t_done - t_submit, 0.0)
+        return tuple(self._dev(a) for a in blockstore_lib.wait_blocks(out))
+
+    def _execute_pipelined(self, plan: SearchPlan) -> SearchResult:
+        """Double-buffered executor: scan tile *i* while tiles
+        *i+1 … i+depth* are fetched.  The RAM tier runs per-tile scans over
+        the resident arrays.  A single-tile batch with a fetch source has
+        nothing to overlap with and takes the sync path (cross-batch
+        overlap comes from :meth:`submit`/:meth:`result`)."""
+        if plan.n_tiles < 2 and self._gather_fn is not None:
+            return self.scan_merge(plan, self.fetch(plan))
+        if self._gather_fn is None:
+            self.stats.pipelined_batches += 1
+            parts = []
+            for i in range(plan.n_tiles):
+                parts.append(self._scan_tile(plan, i,
+                                             self._tile_operands(plan, i)))
+                self.stats.tiles_scanned += 1
+            return self._merge_parts(plan, parts)
+        depth = min(self.pipeline_depth, plan.n_tiles)
+        return self._run_tiles(plan, self._start_inflight(plan, depth))
+
+    def _run_tiles(self, plan: SearchPlan, inflight: Dict) -> SearchResult:
+        """Drains a pipelined batch: wait for tile i's fetch, keep
+        ``depth`` fetches in flight, scan, concatenate.  On a failure the
+        remaining handles are still waited (their errors dropped), so the
+        cache ends consistent, then the first error propagates."""
+        self.stats.pipelined_batches += 1
+        n = plan.n_tiles
+        depth = max(len(inflight), 1)
+        parts: List[SearchResult] = []
+        try:
+            for i in range(n):
+                operands = self._wait(inflight.pop(i))
+                if i + depth < n:
+                    inflight[i + depth] = self._submit(plan, i + depth)
+                parts.append(self._scan_tile(plan, i, operands))
+                self.stats.tiles_scanned += 1
+        except BaseException:
+            for handle_rec in inflight.values():
+                try:
+                    handle_rec[0].result()
+                except BaseException:
+                    pass
+            raise
+        return self._merge_parts(plan, parts)
+
+    def _merge_parts(self, plan: SearchPlan,
+                     parts: List[SearchResult]) -> SearchResult:
+        t0 = time.perf_counter()
+        res = SearchResult(
+            *(torch.cat([getattr(p, f) for p in parts])[: plan.q]
+              for f in ("scores", "ids", "n_scanned", "n_passed")))
+        self._observe_stage("merge", time.perf_counter() - t0)
+        return dataclasses.replace(res, n_pruned=plan.n_pruned)
 
     def search(self, queries, fspec: FilterSpec) -> SearchResult:
         return self.execute(self.plan(queries, fspec))
 
+    def refresh(self) -> bool:
+        """Flips the engine to the latest published generation, strictly
+        between batches: reopens the store's reader and reloads the index's
+        resident state.  Gen-keyed caches need no flush.  Returns True when
+        a new generation was picked up."""
+        if self._store is not None:
+            store_refresh = getattr(self._store, "refresh", None)
+            if store_refresh is not None:
+                store_refresh()
+        idx_refresh = getattr(self.index, "refresh", None)
+        return bool(idx_refresh()) if idx_refresh is not None else False
 
-def search_fused_tiled(index: IVFFlatIndex, queries, fspec: FilterSpec, *,
-                       k: int, n_probes: int, q_block: int = 64,
-                       v_block: int = 256, u_cap: Optional[int] = None,
-                       prune: str = "auto", adaptive_u_cap: bool = False,
-                       u_cap_ladder: str = "pow2", device="cuda",
+    # ---- observability ----
+    def metrics(self) -> Dict[str, Any]:
+        """One flat dict of engine, store and cache counters under stable
+        dotted keys (``engine.batches``, ``store.hits``,
+        ``cache.invalidations``, ...), scalar values only."""
+        out: Dict[str, Any] = {}
+        eng = dataclasses.asdict(self.stats)
+        eng["overlap_ratio"] = self.stats.overlap_ratio
+        eng["pipeline"] = self.pipeline
+        eng["backend"] = self.backend
+        eng["scan_compile_count"] = scan_compile_count()
+        _flatten_metrics(out, "engine", eng)
+        if self._store is not None:
+            store_stats = getattr(self._store, "stats", None)
+            if callable(store_stats):
+                _flatten_metrics(out, "store", store_stats())
+        cache = getattr(self.index, "cache", None)
+        cstats = getattr(cache, "stats", None) if cache is not None else None
+        if cstats is not None:
+            c = dataclasses.asdict(cstats)
+            c["hit_rate"] = cache.hit_rate
+            _flatten_metrics(out, "cache", c)
+        return out
+
+    def metrics_text(self) -> str:
+        """:meth:`metrics` in Prometheus text exposition format, plus the
+        per-stage latency histograms."""
+        return (render_prometheus(self.metrics())
+                + render_stage_histograms(self._stage_hist))
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+
+def search_fused_tiled(index, queries, fspec: FilterSpec, *, k: int,
+                       n_probes: int, q_block: int = 64, v_block: int = 256,
+                       u_cap: Optional[int] = None, gather_fn=None,
+                       blockstore=None, prune: str = "auto",
+                       pipeline: str = "off", pipeline_depth: int = 2,
+                       adaptive_u_cap: bool = False,
+                       u_cap_ladder: str = "pow2",
+                       operand_cache: str = "auto", device="cuda",
                        **unported) -> SearchResult:
     """Query-tiled, probe-deduplicated fused search: a one-batch
     :class:`SearchEngine` (same contract as ``search_reference``)."""
     eng = SearchEngine(
         index, k=k, n_probes=n_probes, q_block=q_block, v_block=v_block,
-        u_cap=u_cap, prune=prune, adaptive_u_cap=adaptive_u_cap,
-        u_cap_ladder=u_cap_ladder, device=device, **unported)
-    return eng.search(queries, fspec)
+        u_cap=u_cap, gather_fn=gather_fn, blockstore=blockstore, prune=prune,
+        pipeline=pipeline, pipeline_depth=pipeline_depth,
+        adaptive_u_cap=adaptive_u_cap, u_cap_ladder=u_cap_ladder,
+        operand_cache=operand_cache, device=device, **unported)
+    try:
+        return eng.search(queries, fspec)
+    finally:
+        eng.close()

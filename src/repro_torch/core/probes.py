@@ -1,5 +1,7 @@
 """Probe planning: query tiling and per-batch probe deduplication — the
-port of ``repro.core.probes`` (the RAM tier's part).
+port of ``repro.core.probes`` (the RAM tier's part, and the disk tier's
+host-side fetch lists: :func:`fetch_order`, :func:`tile_fetch_lists`,
+:func:`tile_release_lists`).
 
 Queries are grouped into tiles of ``q_block`` rows; per tile, the Q·T probe
 ids are sorted and deduplicated into a table of ``u_cap`` unique-cluster
@@ -10,8 +12,9 @@ scan.  All shapes are static (sort + cumsum + scatter).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 # int32 max: sorts after every real key, so invalid entries sink to the end.
@@ -107,3 +110,75 @@ def pad_to_tiles(x: torch.Tensor, q_block: int) -> torch.Tensor:
     if pad == 0:
         return x
     return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))], dim=0)
+
+
+def _host(x) -> np.ndarray:
+    """A slot table as a host numpy array (tensors on any device)."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def fetch_order(slot_cluster, n_unique, u_cap: int) -> np.ndarray:
+    """The disk tier's cache fetch list from a probe plan (host-side).
+
+    Flattens the per-tile unique-probe tables into one duplicate-free list
+    of cluster ids in *first-need order*: tile 0's unique clusters first,
+    then tile 1's novel ones, and so on.
+
+    Args:
+      slot_cluster: [n_tiles·u_cap] int32 (``plan_probe_tiles`` output).
+      n_unique:     [n_tiles] int32 live-slot counts (pads excluded).
+      u_cap:        per-tile slot capacity.
+
+    Returns a 1-D int64 numpy array of distinct cluster ids.
+    """
+    sc = _host(slot_cluster).reshape(-1, u_cap).astype(np.int64)
+    nu = _host(n_unique)
+    live = np.arange(u_cap)[None, :] < nu[:, None]  # [n_tiles, u_cap]
+    flat = sc[live]  # row-major: tile 0's slots first, then tile 1's, ...
+    uniq, first = np.unique(flat, return_index=True)
+    return uniq[np.argsort(first, kind="stable")]
+
+
+def _live_flat(slot_cluster, n_unique, u_cap: int):
+    """Flattens live slots row-major (tile 0 first) with their tile ids."""
+    sc = _host(slot_cluster).reshape(-1, u_cap).astype(np.int64)
+    nu = _host(n_unique)
+    n_tiles = sc.shape[0]
+    live = np.arange(u_cap)[None, :] < nu[:, None]  # [n_tiles, u_cap]
+    tile_of = np.broadcast_to(np.arange(n_tiles)[:, None], sc.shape)
+    return n_tiles, sc[live], tile_of[live]
+
+
+def tile_fetch_lists(slot_cluster, n_unique, u_cap: int) -> List[np.ndarray]:
+    """Per-tile *novel*-cluster fetch lists (host-side).
+
+    Tile i's list holds the clusters it needs that no earlier tile already
+    fetched, in slot order; concatenating every tile's list reproduces
+    :func:`fetch_order`.  Returns one 1-D int64 numpy array per tile.
+    """
+    n_tiles, flat, flat_tile = _live_flat(slot_cluster, n_unique, u_cap)
+    uniq, first = np.unique(flat, return_index=True)
+    order = np.argsort(first, kind="stable")  # first-need (slot) order
+    uniq = uniq[order]
+    first_tile = flat_tile[first][order]
+    return [uniq[first_tile == t] for t in range(n_tiles)]
+
+
+def tile_release_lists(slot_cluster, n_unique, u_cap: int
+                       ) -> List[np.ndarray]:
+    """Per-tile *last-need* cluster lists (host-side).
+
+    Tile i's list holds the clusters no tile after i needs, in slot order:
+    the per-batch operand cache frees each record right after its last
+    consuming tile.  The lists partition the batch's unique clusters.
+    """
+    n_tiles, flat, flat_tile = _live_flat(slot_cluster, n_unique, u_cap)
+    rev = flat[::-1]
+    uniq, first_rev = np.unique(rev, return_index=True)
+    last = flat.shape[0] - 1 - first_rev  # last occurrence in need order
+    order = np.argsort(last, kind="stable")
+    uniq = uniq[order]
+    last_tile = flat_tile[last][order]
+    return [uniq[last_tile == t] for t in range(n_tiles)]

@@ -1,5 +1,6 @@
-"""Per-cluster attribute summaries: the port of ``repro.core.summaries``
-(the part the probe plan needs).
+"""Per-cluster attribute summaries and score bounds: the port of
+``repro.core.summaries`` (the parts the probe plan and the checkpoint
+writer need).
 
   * ``amin/amax [K, M] int16`` — closed per-cluster intervals over every
     live row; a DNF term disjoint from them in ANY attribute matches nothing.
@@ -9,6 +10,10 @@
 
 Both tests may only fail to prune, never prune a cluster that holds a
 passing row, so a pruned plan returns the same ids as an unpruned one.
+
+:class:`ClusterBounds` holds the per-cluster geometric statistics
+(``radius``, ``slack``) that ``storage.save_index`` writes beside the
+summaries.
 """
 
 from __future__ import annotations
@@ -157,3 +162,85 @@ def can_match(summaries: ClusterSummaries, lo: torch.Tensor,
     nonzero = (hi_mass - lo_mass) > 0
     per_term = torch.all(overlap & nonzero, dim=-1)  # [Q, F, K]
     return torch.any(per_term, dim=1)  # [Q, K]
+
+
+def pad_clusters(summaries: ClusterSummaries, k_new: int) -> ClusterSummaries:
+    """Pads the cluster axis with void (never-matching) summary rows."""
+    k, m = summaries.amin.shape
+    if k_new < k:
+        raise ValueError(f"cannot shrink K: {k} -> {k_new}")
+    if k_new == k:
+        return summaries
+    dk = k_new - k
+    dev = summaries.amin.device
+    return dataclasses.replace(
+        summaries,
+        amin=torch.cat([summaries.amin, torch.full(
+            (dk, m), ATTR_MAX, dtype=torch.int16, device=dev)]),
+        amax=torch.cat([summaries.amax, torch.full(
+            (dk, m), ATTR_MIN, dtype=torch.int16, device=dev)]),
+        hist=torch.cat([summaries.hist, torch.zeros(
+            (dk, m, summaries.n_bins), dtype=torch.int32, device=dev)]),
+    )
+
+
+@dataclasses.dataclass
+class ClusterBounds:
+    """Resident per-cluster geometric statistics for per-probe score bounds.
+
+    ``radius[c]`` is the max distance from cluster ``c``'s centroid to any
+    live stored row (SQ8 rows measured dequantized); ``slack[c]`` is the max
+    of ``‖x̂‖² − norms_row`` over live rows (l2; 0 for dot).  An empty
+    cluster carries ``radius == slack == 0``.
+    """
+
+    radius: torch.Tensor  # [K] f32
+    slack: torch.Tensor   # [K] f32
+
+    @property
+    def n_clusters(self) -> int:
+        return self.radius.shape[0]
+
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in (self.radius, self.slack))
+
+
+# Clusters per step of the bounds build: the f32 cast and the difference
+# are [chunk, Vpad, D] temporaries, not [K, Vpad, D] ones.
+_BOUNDS_CHUNK = 64
+
+
+def build_bounds(centroids: torch.Tensor, vectors: torch.Tensor,
+                 ids: torch.Tensor, norms: Optional[torch.Tensor] = None,
+                 scales: Optional[torch.Tensor] = None) -> ClusterBounds:
+    """Builds the per-cluster score-bound statistics from the flat lists,
+    ``_BOUNDS_CHUNK`` clusters at a time (the per-cluster maxima do not
+    depend on the chunking).
+
+    Args mirror the index's resident arrays: ``vectors [K, Vpad, D]`` (store
+    dtype; int8 codes with ``scales`` under SQ8), ``ids [K, Vpad]`` (rows
+    with ``ids < 0`` excluded), ``norms [K, Vpad]`` for l2.
+    """
+    k = vectors.shape[0]
+    dev = vectors.device
+    radius = torch.empty((k,), dtype=torch.float32, device=dev)
+    slack = torch.zeros((k,), dtype=torch.float32, device=dev)
+    cents = centroids.float()
+    for c0 in range(0, k, _BOUNDS_CHUNK):
+        sl = slice(c0, c0 + _BOUNDS_CHUNK)
+        x32 = vectors[sl].float()
+        if scales is not None:
+            x32 = x32 * scales[sl].float()[..., None]
+        live = ids[sl] >= 0
+        diff = x32 - cents[sl][:, None, :]
+        d2 = (diff * diff).sum(-1)  # [c, Vpad]
+        del diff
+        # d2 >= 0: masking dead rows to 0 keeps the max sound and gives an
+        # empty cluster radius 0
+        radius[sl] = torch.sqrt(torch.where(live, d2, 0.0).amax(1))
+        if norms is not None:
+            s = (x32 * x32).sum(-1) - norms[sl].float()
+            s = torch.where(live, s, float("-inf")).amax(1)
+            slack[sl] = torch.where(live.any(1), s, 0.0)
+    return ClusterBounds(radius=radius, slack=slack)

@@ -198,9 +198,30 @@ def test_port_runs_without_jax_or_repro():
                 "l2", q_total=10, n_clusters=4, device="cpu",
                 cfg=ShardedSearchConfig(k=5, n_probes=4, backend=backend))
             assert (fn(index, q, fs).ids[:, 0].numpy() == np.arange(10)).all()
+        # the disk tier on bf16 vectors: save, open, search both executors
+        import tempfile
+        from repro_torch.core import DiskIVFIndex
+        from repro_torch.core.storage import load_index, save_index
+        spec = HybridSpec(dim=16, n_attrs=2, core_dtype=torch.bfloat16,
+                          metric="l2")
+        index, _ = build_from_assignments(
+            spec, core[:4], core, rng.integers(0, 9, (500, 2)), assign,
+            device="cpu")
+        qb = torch.from_numpy(core[:10]).bfloat16().float()
+        with tempfile.TemporaryDirectory() as d:
+            save_index(index, d, n_shards=2)
+            assert torch.equal(load_index(d, device="cpu").vectors.view(
+                torch.int16), index.vectors.view(torch.int16))
+            with DiskIVFIndex.open(d, device="cpu") as disk:
+                for pipeline in ("off", "on"):
+                    res = disk.search(qb, match_all(10, 2, device="cpu"),
+                                      k=5, n_probes=4, q_block=8,
+                                      pipeline=pipeline)
+                    assert (res.ids[:, 0].numpy() == np.arange(10)).all()
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "repro"
-               or m.startswith("repro.")]
+               or m.startswith("repro.") or m == "ml_dtypes"
+               or m.startswith("ml_dtypes.")]
         assert not bad, bad
         print("OK")
     """)
@@ -212,7 +233,7 @@ def test_port_runs_without_jax_or_repro():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("pipeline", "on"), ("blockstore", object()), ("gather_fn", print),
+    ("epsilon", 0.1), ("t_max", "auto"), ("device_cache", object()),
     ("delta", object()), ("device_cache", 64), ("termination", "exact"),
     ("t_max", 8), ("partitions", "on"), ("backend", "xla"),
 ])
@@ -224,6 +245,22 @@ def test_engine_raises_on_unported_knob(knob, value):
                       partitions="auto")  # the defaults are accepted
     with pytest.raises(TypeError):
         teng.SearchEngine(ti, k=5, n_probes=2, device="cpu", no_such_knob=1)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(pipeline="on", pipeline_depth=3), dict(pipeline="auto"),
+    dict(operand_cache="off"), dict(gather_fn=print),
+])
+def test_engine_takes_the_ported_fetch_knobs(knobs):
+    """The fetch-stage knobs the disk tier brought are accepted; "auto"
+    pipelines only when there is something to fetch."""
+    _, ti, _, _ = _indexes("dot-f32")
+    eng = teng.SearchEngine(ti, k=5, n_probes=2, device="cpu", **knobs)
+    want = knobs.get("pipeline", "on" if "gather_fn" in knobs else "off")
+    assert eng.pipeline == ("off" if want == "auto" else want)
+    with pytest.raises(ValueError, match="operand_cache"):
+        teng.SearchEngine(ti, k=5, n_probes=2, device="cpu",
+                          operand_cache="on")  # no store to cache from
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -1,6 +1,6 @@
 """CUDA-only tests of the port: each hand-written kernel against its plain
-version, and the engine, the sharded search and ``search_fused`` on the
-card against the same entry points on the CPU.
+version, and the engine, the sharded search, ``search_fused`` and the disk
+tier on the card against the same entry points on the CPU.
 
 They need a card and skip without one; this file imports no JAX, so it
 also runs where only PyTorch is installed:
@@ -19,8 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import blockstore as tbs
+from repro_torch.core import disk as tdisk
 from repro_torch.core import distributed as tdist
 from repro_torch.core import engine as teng
+from repro_torch.core import storage as tstorage
 from repro_torch.core import filters as tf
 from repro_torch.core import hybrid as thy
 from repro_torch.core import ivf as tivf
@@ -477,3 +480,116 @@ def test_search_fused_on_card_matches_cpu(cuda, variant):
                                rtol=1e-5)
     for c in ("n_scanned", "n_passed"):
         assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
+
+
+def _window_batch(q, seed, width=400):
+    rng = np.random.default_rng(seed)
+    qs = torch.from_numpy(rng.standard_normal((q, 32)).astype(np.float32))
+    lo = np.full((q, 1, 3), -32768, np.int16)
+    hi = np.full((q, 1, 3), 32767, np.int16)
+    start = rng.integers(0, 1600 - width, q)
+    lo[:, 0, 0], hi[:, 0, 0] = start, start + width - 1
+    return qs, tf.FilterSpec(lo=torch.from_numpy(lo), hi=torch.from_numpy(hi))
+
+
+def _disk_budget(path, records):
+    """A resident budget that holds ``records`` cluster records."""
+    man = tstorage.load_manifest(str(path))
+    with tdisk.DiskIVFIndex.open(str(path), device="cpu") as d:
+        overhead = d.resident_bytes()  # an empty cache: the resident set
+    return overhead + records * man["record_stride"]
+
+
+@pytest.mark.parametrize("pipeline", ["off", "on"])
+@pytest.mark.parametrize("variant", ["dot-f32", "dot-bf16", "l2-f32", "sq8"])
+def test_disk_tier_on_card_matches_cpu(cuda, tmp_path, variant, pipeline):
+    """The disk tier on the card (blocks assembled in pinned memory, copied
+    on a side stream, scanned by the kernel) against the disk tier on the
+    CPU (the plain version), under a cache that holds 5 of 16 clusters."""
+    tstorage.save_index(_index(variant, "cpu"), str(tmp_path), n_shards=2)
+    qs, fspec = _window_batch(37, 4)
+    kw = dict(k=10, n_probes=4, q_block=16, pipeline=pipeline)
+    budget = _disk_budget(tmp_path, 5)
+    with tdisk.DiskIVFIndex.open(str(tmp_path), device="cpu",
+                                 resident_budget_bytes=budget) as cd:
+        cr = cd.search(qs, fspec, **kw)
+    with tdisk.DiskIVFIndex.open(str(tmp_path),
+                                 resident_budget_bytes=budget) as gd:
+        assert gd.centroids.device.type == "cuda"
+        before = tfs.LAUNCHES
+        gr = gd.search(qs.to(cuda), fspec.to(cuda), **kw)
+        assert vars(gd.cache.stats) == vars(cd.cache.stats)
+    # one launch for the batch, or one per tile of 16 queries
+    assert tfs.LAUNCHES == before + (1 if pipeline == "off" else 3)
+    _assert_topk_close((gr.scores, gr.ids), (cr.scores, cr.ids),
+                       ties_by_id=False)
+    for c in ("n_scanned", "n_passed", "n_pruned"):
+        assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_pipelined_stream_handoff(cuda, tmp_path, depth):
+    """Tiles fetched on the engine's worker and copied on side streams,
+    ``depth`` of them in flight under a cache that churns, give the sync
+    run's ids (operand cache on and off)."""
+    tstorage.save_index(_index("dot-bf16", "cpu"), str(tmp_path), n_shards=2)
+    qs, fspec = _window_batch(150, 5, width=1000)  # 10 tiles of 16
+    qs, fspec = qs.to(cuda), fspec.to(cuda)
+    kw = dict(k=10, n_probes=6, q_block=16)
+    with tdisk.DiskIVFIndex.open(
+            str(tmp_path), resident_budget_bytes=_disk_budget(tmp_path, 4),
+            pin_refresh=3) as gd:
+        sync = gd.search(qs, fspec, pipeline="off", **kw)
+        for oc in ("on", "off"):
+            eng = teng.SearchEngine(gd, pipeline="on", pipeline_depth=depth,
+                                    operand_cache=oc, **kw)
+            try:
+                for _ in range(2):
+                    got = eng.search(qs, fspec)
+                    assert torch.equal(got.ids, sync.ids), oc
+                    np.testing.assert_allclose(got.scores.cpu().numpy(),
+                                               sync.scores.cpu().numpy(),
+                                               rtol=1e-5)
+                    for c in ("n_scanned", "n_passed", "n_pruned"):
+                        assert torch.equal(getattr(got, c),
+                                           getattr(sync, c)), c
+                pending = [eng.submit(qs, fspec) for _ in range(2)]
+                for p in pending:
+                    assert torch.equal(eng.result(p).ids, sync.ids)
+            finally:
+                eng.close()
+            assert eng.stats.tiles_scanned == 4 * 10
+        assert gd.cache.stats.evictions > 0
+
+
+def test_assemble_blocks_pinned_copy(cuda):
+    """assemble_blocks(as_device=True): pinned host blocks copied on a side
+    stream equal a plain .to("cuda") of the host blocks, a short record's
+    dead-row fill included."""
+    rng = np.random.default_rng(6)
+    spec = tbs.BlockSpec(vpad=64, dim=24, n_attrs=3, has_norms=True,
+                         quantized=True, store_dtype=torch.bfloat16)
+
+    def rec(rows, cid):
+        return {
+            "vectors": torch.from_numpy(rng.standard_normal(
+                (rows, 24)).astype(np.float32)).bfloat16(),
+            "attrs": torch.from_numpy(rng.integers(
+                0, 9, (rows, 3)).astype(np.int16)),
+            "ids": torch.arange(rows, dtype=torch.int32) + 1000 * cid,
+            "norms": torch.rand(rows), "scales": torch.rand(rows),
+            "gen": torch.zeros(1, dtype=torch.int64),
+        }
+
+    recs = {c: rec(64 if c != 7 else 40, c) for c in (2, 5, 7, 11)}
+    flat = np.array([5, 5, 7, 2, 11, 7, 2, 2], np.int32)
+    uniq, local = tbs.first_need_unique(flat)
+    host = tbs.assemble_blocks(flat, uniq, local, recs, spec)
+    blocks = tbs.assemble_blocks(flat, uniq, local, recs, spec,
+                                 as_device=True, device=cuda)
+    assert isinstance(blocks, tbs.DeviceBlocks)
+    got = tbs.wait_blocks(blocks)
+    assert (host[3][list(uniq).index(7), 40:] == -1).all()  # dead rows
+    for h, g in zip(host, got):
+        assert g.device.type == "cuda"
+        assert torch.equal(h.to(cuda), g)
