@@ -9,9 +9,10 @@ Phases:
      instructions (HGMMA, HMMA) in each library's SASS;
   2. every kernel against its plain PyTorch version on the card, at small
      ragged shapes: filtered_scan_tiled and the per-probe filtered_scan
-     over their dtype pairs and metrics (F = 1 and 2 DNF terms),
-     centroid_topk over dot/l2 x f32/bf16 and T = 1, 7, 32 with tied
-     centroids, and a case where every score is below 0;
+     over their dtype pairs and metrics (F = 1 and 2 DNF terms; the tiled
+     scan also at k = 33, 100 and 257), centroid_topk over dot/l2 x
+     f32/bf16 and T = 1, 7, 32, 33, 56, 200 and K with tied centroids, and
+     a case where every score is below 0;
   3. the main path at real size: a 10M x 768 bf16 index with 10 int16
      attributes built on the card from given assignments, served by
      ``SearchEngine(k=10, n_probes=7, q_block=64, prune="auto")`` in batches
@@ -32,16 +33,30 @@ Phases:
      engine's result, and each (executor, mix) prints its batch time split
      into plan, fetch wait and scan+merge, the bytes fetched and moved to
      the card, the H2D bound of its distinct bytes (the card's pinned copy
-     rate, measured once), the overlap ratio and the cache's hit rate.  The
-     checkpoint is deleted at the end.  ``--disk-n`` serves a separate,
-     smaller index in this phase only;
+     rate, measured once), the overlap ratio and the cache's hit rate.
+     ``--disk-n`` serves a separate, smaller index in phases 3c and 3d;
+  3d. live updates on phase 3c's checkpoint: a 256 MiB ``DeltaTier``
+     attached to a fresh ``DiskIVFIndex`` over it; 1% of the cold rows
+     tombstoned (uniform, with cluster hints) and up to 1% more added from
+     the build's topic mixture (no cluster past its free slots); the
+     three mixes served through both executors and one batch at k = 100,
+     then ``compact_deltas`` + ``refresh`` and the same batches again; then
+     hot_window widened with ``t_max=4·n_probes`` and ``"auto"``.  Every
+     batch is held against a RAM engine over a rebuild at the same logical
+     state (``build_from_assignments`` over the live base rows and the
+     adds), each widened plan against the same plan computed on the CPU,
+     its results against an exact search over its probes, and its recall
+     against the unwidened plan's.  The checkpoint is deleted at the end;
   4. each kernel on one full-size batch: held against its plain version,
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
      for centroid_topk); filtered_scan_tiled on both of its full-size
      operand sets: the engine's (bf16 queries) and the sharded tiled
-     backend's (f32 queries against the bf16 index); the per-probe
-     filtered_scan on the per-probe slot table of each mix, pads included
-     (with ``--variants``, also its compile-time variants, FS_VARIANT_DEFINES).
+     backend's (f32 queries against the bf16 index), and on the engine's
+     at k = 100; centroid_topk at T = n_probes and at T = 56 (the widest
+     plan of ``t_max="auto"``), and timed at T = 8, 32, 128 and K; the
+     per-probe filtered_scan on the per-probe slot table of each mix, pads
+     included (with ``--variants``, also its compile-time variants,
+     FS_VARIANT_DEFINES).
 
 Prints the card's name and power limit, a JSON line describing every
 kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -79,6 +94,11 @@ N_PROBES = 7
 HOT_TOPICS = 8
 WARMUP, BATCHES = 2, 5
 DISK_WARMUP, DISK_BATCHES = 1, 3  # per (executor, mix) in phase 3c
+LIVE_WARMUP, LIVE_BATCHES = 1, 2  # per (executor, mix) in phase 3d
+DELTA_BUDGET_MB = 256  # the reference's --delta-budget-mb
+TOMB_SHARE = ADD_SHARE = 0.01  # of the base rows: 100,000 each at N = 10M
+K_WIDE = 100  # the paper's Table 1 k
+T_WIDE = 8 * N_PROBES  # the widest t_max="auto" plan
 N_CHECK = 16  # queries per batch held against search_reference
 SPIN_CYCLES = 200_000_000  # ~0.1 s at ~2 GHz: longer than a timed run takes to issue
 
@@ -178,7 +198,8 @@ def sass_counts(lib):
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
 
 
-def tiled_bound(slot_cluster, live, queries, lo, n_unique, qb, vpad):
+def tiled_bound(slot_cluster, live, queries, lo, n_unique, qb, vpad,
+                k=K_TOP):
     """filtered_scan_tiled's least time on the card for these operands:
     (bound_ms, byte_ms, op_ms, n_live, n_clusters).  Bytes: the distinct
     clusters' rows (bf16 vectors, int16 attributes, int32 ids) read once,
@@ -194,7 +215,7 @@ def tiled_bound(slot_cluster, live, queries, lo, n_unique, qb, vpad):
     nbytes = (n_clusters * vpad * row_bytes
               + queries.numel() * queries.element_size() + 2 * lo.numel() * 2
               + 2 * s * 4 + (0 if n_unique is None else n_unique.numel() * 4)
-              + s * qb * (K_TOP * 8 + 4))
+              + s * qb * (k * 8 + 4))
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = 2 * qb * vpad * DIM * n_live / PEAK_OPS["bf16"] * 1e3
     return max(byte_ms, op_ms), byte_ms, op_ms, n_live, n_clusters
@@ -304,6 +325,9 @@ def small_cases(dev, gen):
             kw = dict(metric="l2" if variant.startswith("l2") else "dot",
                       k=K_TOP, q_block=qb)
             yield f"{variant} F={f}", args, kw
+            if f == 1 and variant in ("dot-bf16", "dot-f32", "sq8"):
+                for k in (33, K_WIDE, 257):  # 2, 4 list slots; the sort body
+                    yield f"{variant} F={f} k={k}", args, dict(kw, k=k)
 
 
 def centroid_cases(dev, gen):
@@ -319,7 +343,7 @@ def centroid_cases(dev, gen):
                          torch.randn((q - 2, d), generator=gen, device=dev)])
     for metric in ("dot", "l2"):
         for dtype in (torch.float32, torch.bfloat16):
-            for t in (1, 7, 32):
+            for t in (1, 7, 32, 33, T_WIDE, 200, kc):
                 yield (f"{metric} {str(dtype)[6:]} T={t}", queries.to(dtype),
                        cents.to(dtype), t, metric)
     pos = torch.rand((4, 8), generator=gen, device=dev) + 0.1
@@ -638,13 +662,23 @@ def same_result(name, got, want):
     return float(err[live].max()) if bool(live.any()) else 0.0
 
 
+def disk_budget(ckpt, kc, record_stride):
+    """A resident budget of the resident set plus half the records."""
+    from repro_torch.core import DiskIVFIndex
+
+    with DiskIVFIndex.open(str(ckpt)) as probe:
+        overhead = probe.resident_bytes()  # empty cache: resident set
+    return overhead, overhead + (kc // 2) * record_stride
+
+
 def disk_phase(index, batches, ram_results, dev, *, reset_launches,
                launches, rate):
     """Phase 3c: ``index`` written with the port's save_index, opened as a
     DiskIVFIndex under a budget of half its records, and served through
     SearchEngine with both executors on each mix's first DISK_WARMUP +
     DISK_BATCHES batches; every batch held against the RAM engine's
-    result.  Returns the launch counts of the disk runs."""
+    result.  Returns the launch counts of the disk runs, the rows, and the
+    checkpoint, which the caller deletes (phase 3d serves it)."""
     import torch
 
     from repro_torch.core import DiskIVFIndex, SearchEngine
@@ -655,6 +689,7 @@ def disk_phase(index, batches, ram_results, dev, *, reset_launches,
     ckpt.parent.mkdir(parents=True, exist_ok=True)
     kc = index.n_clusters
     n_shards = 2 if kc % 2 == 0 else 1
+    ok = False
     try:
         free = shutil.disk_usage(ckpt.parent).free
         log(f"disk tier: {free / 2**30:.2f} GiB free under {ckpt.parent} "
@@ -671,9 +706,7 @@ def disk_phase(index, batches, ram_results, dev, *, reset_launches,
             f"after: {meminfo()}; shard pages in the page cache "
             f"{page_cache_share(paths):.4f}")
 
-        with DiskIVFIndex.open(str(ckpt)) as probe:
-            overhead = probe.resident_bytes()  # empty cache: resident set
-        budget = overhead + (kc // 2) * man["record_stride"]
+        overhead, budget = disk_budget(ckpt, kc, man["record_stride"])
         disk = DiskIVFIndex.open(str(ckpt), resident_budget_bytes=budget)
         bb = block_bytes(man)
         rows = {}
@@ -721,9 +754,11 @@ def disk_phase(index, batches, ram_results, dev, *, reset_launches,
                 f"{r['fetched']:.1f} / blocks_reused {r['reused']:.1f} a "
                 f"batch; cache hit "
                 f"rate {r['hit_rate']:.4f}; max |err| vs RAM {r['err']:.3e}")
-        return disk_launches, rows
+        ok = True
+        return disk_launches, rows, ckpt
     finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+        if not ok:
+            shutil.rmtree(ckpt, ignore_errors=True)
 
 
 def fetch_breakdown(disk, plan, bb, rate, dev):
@@ -824,6 +859,383 @@ def serve_disk(eng, disk, mix, batch_list, ram_list, bb, rate):
     out["err"] = err
     out["plan_obj"] = plan  # the last batch's plan, for fetch_breakdown
     return out
+
+
+def same_as_rebuild(name, got, want):
+    """A live batch against the rebuild's: ids equal except at near-ties,
+    scores within rtol 1e-5 (check_topk), n_passed exact.  Returns
+    max |err|."""
+    import torch
+
+    if got.scores.shape != want.scores.shape or not bool(
+            got.scores.isfinite().all()):
+        raise AssertionError(f"{name}: malformed scores")
+    err = check_topk(name, got.scores, got.ids, want.scores, want.ids)
+    if not torch.equal(got.n_passed, want.n_passed):
+        raise AssertionError(f"{name}: n_passed differs from the rebuild")
+    return err
+
+
+def rebuild_index(index, tomb_ids, core_new, attrs_new, ids_new, assign_new,
+                  dev, chunk=256):
+    """A from-scratch index at the live state: ``index``'s live rows minus
+    the tombstoned ids, cluster by cluster in slot order, then the adds in
+    add order, each under its cluster (the order a republish writes)."""
+    import torch
+
+    from repro_torch.core import build_from_assignments
+
+    kc, vpad, d = index.vectors.shape
+    live = (index.ids >= 0) & ~torch.isin(index.ids, tomb_ids)
+    n_base = int(live.sum())
+    n = n_base + core_new.shape[0]
+    core = torch.empty((n, d), dtype=index.vectors.dtype, device=dev)
+    attrs = torch.empty((n, index.attrs.shape[-1]), dtype=torch.int16,
+                        device=dev)
+    ids = torch.empty((n,), dtype=torch.int32, device=dev)
+    clusters = torch.empty((n,), dtype=torch.long, device=dev)
+    o = 0
+    for c0 in range(0, kc, chunk):  # chunks: no [N, D] gather temporary
+        lv = live[c0:c0 + chunk]
+        m = int(lv.sum())
+        core[o:o + m] = index.vectors[c0:c0 + chunk][lv]
+        attrs[o:o + m] = index.attrs[c0:c0 + chunk][lv]
+        ids[o:o + m] = index.ids[c0:c0 + chunk][lv]
+        clusters[o:o + m] = torch.arange(c0, c0 + lv.shape[0],
+                                         device=dev)[:, None].expand(lv.shape)[lv]
+        o += m
+    core[o:], attrs[o:], ids[o:], clusters[o:] = (core_new, attrs_new,
+                                                  ids_new, assign_new)
+    rebuilt, stats = build_from_assignments(
+        index.spec, index.centroids, core, attrs, clusters, ids=ids,
+        device=dev)
+    del core, attrs, ids, clusters
+    return rebuilt, stats, n_base
+
+
+def reference_over_probes(index, queries, fspec, plan, k, rows):
+    """Exact filtered top-k of each of ``rows`` queries over the rows of the
+    probes its plan kept (``probe_ok``), on ``index``: what a search over
+    those probes must return."""
+    import torch
+
+    from repro_torch.core import FilterSpec, filter_mask
+    from repro_torch.core.topk import masked_topk
+
+    sc = torch.as_tensor(plan.slot_cluster, device=index.ids.device).long()
+    sop = torch.as_tensor(plan.slot_of_probe, device=sc.device).long()
+    ok = torch.as_tensor(plan.probe_ok, device=sc.device)
+    vals, ids = [], []
+    for i in range(rows):
+        cl = sc[sop[i][ok[i]]]
+        m = index.ids[cl] >= 0
+        m &= filter_mask(FilterSpec(lo=fspec.lo[i:i + 1], hi=fspec.hi[i:i + 1]),
+                         index.attrs[cl][None])[0]
+        s = index.vectors[cl].float() @ queries[i].float()
+        flat_s, flat_m = s.reshape(1, -1), m.reshape(1, -1)
+        pad = max(k - flat_s.shape[1], 0)  # fewer rows than k
+        if pad:
+            flat_s = torch.cat([flat_s, flat_s.new_zeros((1, pad))], 1)
+            flat_m = torch.cat([flat_m, flat_m.new_zeros((1, pad))], 1)
+        v, j = masked_topk(flat_s, flat_m, k, ids=torch.cat(
+            [index.ids[cl].reshape(1, -1),
+             index.ids.new_full((1, pad), -1)], 1))
+        vals.append(v[0])
+        ids.append(j[0])
+    return torch.stack(vals), torch.stack(ids)
+
+
+def serve_live(eng, mix, batch_list, want_list):
+    """One mix through an engine with a delta tier: LIVE_WARMUP +
+    LIVE_BATCHES batches, each held against the rebuild's result.  The sync
+    executor's batches are split into plan, fetch, scan+merge and the delta
+    fold (CUDA events); returns the timed batches' medians."""
+    import torch
+
+    rows, err = [], 0.0
+    for i, ((queries, fspec), want) in enumerate(zip(batch_list, want_list)):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        plan = eng.plan(queries, fspec)
+        ev[1].record()
+        if eng.pipeline == "off":
+            operands = eng.fetch(plan)
+            ev[2].record()
+            res = eng.scan_merge(plan, operands)
+            ev[3].record()
+            res = eng._fold_delta(plan, res)
+            eng.stats.batches += 1
+        else:
+            res = eng.execute(plan)
+            ev[2].record()
+            ev[3].record()
+        ev[4].record()
+        ev[4].synchronize()
+        err = max(err, same_as_rebuild(
+            f"live pipeline={eng.pipeline} {mix} batch {i}", res, want))
+        if i >= LIVE_WARMUP:
+            rows.append(dict(batch=ev[0].elapsed_time(ev[4]),
+                             plan=ev[0].elapsed_time(ev[1]),
+                             fold=ev[3].elapsed_time(ev[4])))
+    out = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    out["err"] = err
+    out["plan_obj"] = plan
+    return out
+
+
+def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
+    """Phase 3d: live updates on the checkpoint of phase 3c (``index``'s):
+    a DiskIVFIndex with a DELTA_BUDGET_MB delta tier takes TOMB_SHARE of
+    the base rows as deletes and up to ADD_SHARE as adds, and serves the
+    three mixes through both executors and at k = K_WIDE, before and after
+    ``compact_deltas`` + ``refresh``, every batch held against a rebuild
+    at the same logical state; then hot_window through widened plans.
+    Returns the launch counts of the live runs and the figures to print."""
+    import torch
+
+    from repro_torch.core import (
+        DeltaTier, DiskIVFIndex, SearchEngine, compact_deltas, recall_at_k,
+        storage)
+    from repro_torch.core import delta as delta_lib
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import kmeans
+    from repro_torch.core.search import SearchResult
+    from repro_torch.core.summaries import ClusterSummaries
+
+    t_phase = time.perf_counter()
+    kc, vpad = index.n_clusters, index.vpad
+    man = storage.load_manifest(str(ckpt))
+    _, budget = disk_budget(ckpt, kc, man["record_stride"])
+    disk = DiskIVFIndex.open(str(ckpt), resident_budget_bytes=budget)
+    tier = disk.delta = DeltaTier.for_index(disk, DELTA_BUDGET_MB)
+    log(f"live updates: delta tier of {DELTA_BUDGET_MB} MiB = "
+        f"{tier.capacity} rows of {DeltaTier.row_bytes(disk)} B on {tier.device}")
+    engines = {}
+    try:
+        # ---- deletes: uniform over the cold ids, with cluster hints ----
+        live = index.ids >= 0
+        n_base = int(live.sum())
+        cluster_of = torch.full((int(index.ids.max()) + 1,), -1,
+                                dtype=torch.long, device=dev)
+        cluster_of[index.ids[live].long()] = torch.arange(
+            kc, device=dev)[:, None].expand(live.shape)[live]
+        n_tombs, n_draw = int(TOMB_SHARE * n_base), int(ADD_SHARE * n_base)
+        cold = index.ids[live]
+        tomb_ids = cold[torch.randperm(n_base, generator=gen, device=dev)
+                        [:n_tombs]]
+        hints = cluster_of[tomb_ids.long()]
+        t0 = time.perf_counter()
+        n_dead = tier.tombstone(tomb_ids.cpu().numpy(), hints.cpu().numpy())
+        t_tomb = time.perf_counter() - t0
+
+        # ---- adds: the build's topic mixture, within each cluster's room ----
+        band = TS_RANGE // kc
+        topics = torch.randint(0, kc, (n_draw,), generator=gen, device=dev)
+        x = centers[topics] + 0.05 * torch.randn((n_draw, DIM), generator=gen,
+                                                 device=dev)
+        core_new = (x / x.norm(dim=-1, keepdim=True)).bfloat16()
+        attrs_new = torch.randint(0, 16, (n_draw, M_ATTRS), generator=gen,
+                                  device=dev, dtype=torch.int16)
+        attrs_new[:, 0] = (topics * band + torch.randint(
+            0, max(band, 1), (n_draw,), generator=gen, device=dev)).to(
+                torch.int16)
+        assign = kmeans.assign(core_new.float(), disk.centroids).long()
+        room = (vpad - disk.counts.long()
+                + torch.bincount(hints, minlength=kc))
+        order = torch.argsort(assign, stable=True)
+        a_sorted = assign[order]
+        starts = torch.searchsorted(a_sorted, torch.arange(kc, device=dev))
+        keep = torch.zeros(n_draw, dtype=torch.bool, device=dev)
+        keep[order] = (torch.arange(n_draw, device=dev) - starts[a_sorted]
+                       < room[a_sorted])
+        core_new, attrs_new = core_new[keep], attrs_new[keep]
+        assign = assign[keep]
+        n_add = core_new.shape[0]
+        ids_new = (int(index.ids.max()) + 1 + torch.arange(
+            n_add, device=dev)).int()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tier.add(core_new, attrs_new, ids_new)
+        torch.cuda.synchronize()
+        t_add = time.perf_counter() - t0
+        log(f"live updates: tombstoned {n_dead} cold rows in {t_tomb:.3f} s "
+            f"({n_dead / t_tomb:.0f} rows/s); added {n_add} of {n_draw} drawn "
+            f"rows (the rest would overflow their cluster's free slots) in "
+            f"{t_add:.3f} s ({n_add / t_add:.0f} rows/s); delta "
+            f"{tier.stats()}")
+
+        # ---- the rebuild at the same logical state ----
+        t0 = time.perf_counter()
+        rebuilt, rstats, n_kept = rebuild_index(
+            index, tomb_ids, core_new, attrs_new, ids_new, assign, dev)
+        torch.cuda.synchronize()
+        if rstats.n_dropped:
+            raise AssertionError("the rebuild dropped rows")
+        log(f"rebuild: {n_kept} live base rows + {n_add} adds, K={kc} "
+            f"Vpad={rebuilt.vpad}, {rebuilt.nbytes() / 2**30:.2f} GiB, in "
+            f"{time.perf_counter() - t0:.2f} s; card memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        del core_new, attrs_new
+        torch.cuda.empty_cache()
+        ref_eng = SearchEngine(rebuilt, k=K_TOP, n_probes=N_PROBES,
+                               q_block=64, prune="auto")
+        mixes = ("hot", "uniform", "hot_window")
+        batches = {mix: [mix_batch(mix, centers, dev, gen)
+                         for _ in range(LIVE_WARMUP + LIVE_BATCHES)]
+                   for mix in mixes}
+        wants = {mix: [ref_eng.search(q, f) for q, f in batches[mix]]
+                 for mix in mixes}
+        wide_batch = batches["uniform"][-1]
+        want_wide = SearchEngine(rebuilt, k=K_WIDE, n_probes=N_PROBES,
+                                 q_block=64, prune="auto").search(*wide_batch)
+        for pipeline in ("off", "on"):
+            engines[pipeline] = SearchEngine(
+                disk, k=K_TOP, n_probes=N_PROBES, q_block=64, prune="auto",
+                pipeline=pipeline, pipeline_depth=2, operand_cache="auto")
+        engines["wide"] = SearchEngine(disk, k=K_WIDE, n_probes=N_PROBES,
+                                       q_block=64, prune="auto",
+                                       pipeline="off")
+
+        rows = {}
+        reset_launches()
+        for stage in ("before", "after"):
+            if stage == "after":  # the republish, then the flip
+                t0 = time.perf_counter()
+                rep = compact_deltas(str(ckpt), tier)
+                t_compact = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                changed = engines["off"].refresh()
+                t_refresh = time.perf_counter() - t0
+                if not changed or tier.stats()["rows"] != 0:
+                    raise AssertionError("the refresh did not adopt the "
+                                         "republished generation")
+                log(f"republish: compact_deltas {t_compact:.2f} s ({rep}); "
+                    f"refresh {t_refresh:.3f} s; delta {tier.stats()}")
+            for pipeline in ("off", "on"):
+                for mix in mixes:
+                    before = launches()["filtered_scan_tiled"]
+                    rows[stage, pipeline, mix] = serve_live(
+                        engines[pipeline], mix, batches[mix], wants[mix])
+                    if launches()["filtered_scan_tiled"] - before < len(
+                            batches[mix]):
+                        raise AssertionError(f"live {stage} {pipeline} {mix}: "
+                                             "not every batch launched "
+                                             "filtered_scan_tiled")
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            got = engines["wide"].search(*wide_batch)
+            ev[1].record()
+            ev[1].synchronize()
+            same_as_rebuild(f"live {stage} k={K_WIDE}", got, want_wide)
+            rows[stage, "wide"] = ev[0].elapsed_time(ev[1])
+            if stage == "before":
+                # the delta scan alone on the uniform batch's plan
+                plan = rows[stage, "off", "uniform"]["plan_obj"]
+                snap = plan.delta_snap
+                scan_ms = ms(lambda: delta_lib.scan_snapshot(
+                    snap, plan.queries, plan.queries_pad, plan.lo_pad,
+                    plan.hi_pad, plan.geo_probes, plan.geo_valid,
+                    metric="dot", k=K_TOP, n_clusters=kc), 5)
+
+        # ---- widening: hot_window through t_max plans ----
+        queries, fspec = batches["hot_window"][-1]
+        static = rows["after", "off", "hot_window"]
+        static_res = engines["off"].search(queries, fspec)
+        oracle = exact_oracle(rebuilt, queries, fspec)
+        r_static = recall_at_k(static_res, SearchResult(oracle[0], oracle[1],
+                                                        None, None))
+        summ = disk.summaries
+        summ_cpu = ClusterSummaries(**{f: getattr(summ, f).cpu() for f in (
+            "amin", "amax", "hist", "edges_lo", "edges_hi")})
+        wide_rows = {}
+        for t_max in (4 * N_PROBES, "auto"):
+            eng = SearchEngine(disk, k=K_TOP, n_probes=N_PROBES, q_block=64,
+                               prune="auto", pipeline="off", t_max=t_max)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            plan = eng.plan(queries, fspec)
+            res = eng.execute(plan)
+            ev[1].record()
+            ev[1].synchronize()
+            eng.close()
+            # the plan on the card and on the CPU from the same resident state
+            width = {}
+            tables = {}
+            for name, d_, sm in (("card", dev, summ),
+                                 ("cpu", torch.device("cpu"), summ_cpu)):
+                args = [a.to(d_) for a in (disk.centroids, disk.counts,
+                                           queries, fspec.lo, fspec.hi)]
+                tm = engine_lib.resolve_t_max(t_max, sm, args[1], args[3],
+                                              args[4], N_PROBES, kc)
+                width[name] = tm
+                cap = min(plan.q_block * tm, kc)
+                tables[name] = engine_lib.plan_fused_tiled(
+                    *args, metric="dot", n_probes=N_PROBES,
+                    q_block=plan.q_block, u_cap=cap,
+                    cast_dtype=torch.bfloat16, summaries=sm, t_max=tm)
+            if width["card"] != width["cpu"] or width["card"] is None:
+                raise AssertionError(f"t_max={t_max}: widths {width}")
+            for j, fld in enumerate(("slot_cluster", "slot_tile",
+                                     "slot_of_probe", "probe_ok",
+                                     "n_unique")):
+                if not torch.equal(tables["card"][j].cpu(), tables["cpu"][j]):
+                    raise AssertionError(f"t_max={t_max}: {fld} differs "
+                                         "between the card and the CPU")
+            ref = reference_over_probes(rebuilt, queries, fspec, plan, K_TOP,
+                                        N_CHECK)
+            check_topk(f"widened t_max={t_max} vs an exact search over its "
+                       "probes", res.scores[:N_CHECK], res.ids[:N_CHECK], *ref)
+            rec = recall_at_k(res, SearchResult(oracle[0], oracle[1], None,
+                                                None))
+            if rec < r_static:
+                raise AssertionError(f"t_max={t_max}: recall {rec} below the "
+                                     f"unwidened plan's {r_static}")
+            wide_rows[str(t_max)] = dict(
+                width=width["card"], ms=ev[0].elapsed_time(ev[1]), recall=rec,
+                live_probes=int(torch.as_tensor(plan.probe_ok).sum()),
+                u_cap=plan.u_cap)
+        live_launches = launches()
+        log(f"live phase (3d) {time.perf_counter() - t_phase:.2f} s")
+        return live_launches, dict(
+            rows=rows, scan_ms=scan_ms, t_tomb=t_tomb, t_add=t_add,
+            n_dead=n_dead, n_add=n_add, t_compact=t_compact,
+            t_refresh=t_refresh, wide=wide_rows, r_static=r_static,
+            static_ms=static["batch"])
+    finally:
+        for eng in engines.values():
+            eng.close()
+        disk.close()
+
+
+def print_live(fig):
+    """Phase 3d's figures."""
+    rows = fig["rows"]
+    for stage in ("before", "after"):
+        for pipeline in ("off", "on"):
+            for mix in ("hot", "uniform", "hot_window"):
+                r = rows[stage, pipeline, mix]
+                fold = (f", delta fold {r['fold']:.3f} ms "
+                        f"({r['fold'] / r['batch']:.1%} of the batch)"
+                        if pipeline == "off" else "")
+                log(f"live {stage} the republish, pipeline={pipeline} {mix}: "
+                    f"batch {r['batch']:.3f} ms (median of {LIVE_BATCHES}), "
+                    f"plan {r['plan']:.3f} ms{fold}; max |err| vs the rebuild "
+                    f"{r['err']:.3e}")
+        log(f"live {stage} the republish, k={K_WIDE} uniform batch (sync): "
+            f"{rows[stage, 'wide']:.3f} ms")
+    log(f"live: delta scan alone {fig['scan_ms']:.3f} ms a uniform batch "
+        f"({fig['n_add']} delta rows, card time); add {fig['n_add']} rows "
+        f"{fig['n_add'] / fig['t_add']:.0f} rows/s; tombstone "
+        f"{fig['n_dead']} rows {fig['n_dead'] / fig['t_tomb']:.0f} rows/s; "
+        f"compact_deltas {fig['t_compact']:.2f} s; refresh "
+        f"{fig['t_refresh']:.3f} s")
+    for t_max, w in fig["wide"].items():
+        log(f"widened hot_window t_max={t_max} (width {w['width']}, u_cap "
+            f"{w['u_cap']}, {w['live_probes']} live probes): batch "
+            f"{w['ms']:.3f} ms against {fig['static_ms']:.3f} ms unwidened; "
+            f"recall@{K_TOP} {w['recall']:.4f} against {fig['r_static']:.4f}; "
+            f"plan equal to the CPU's, results equal to an exact search over "
+            f"its probes")
 
 
 def main(argv=None):
@@ -1068,7 +1480,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     rate = h2d_rate(dev)
     n_disk = DISK_WARMUP + DISK_BATCHES
-    d_index, d_engine = index, engine
+    d_index, d_engine, d_centers = index, engine, centers
     d_batches = {mix: batches[mix][:n_disk] for mix in mixes}
     if args.disk_n not in (None, args.n):
         log(f"phase 3c cut: a separate index of N={args.disk_n} vectors "
@@ -1082,13 +1494,27 @@ def main(argv=None):
                            for _ in range(n_disk)] for mix in mixes}
     ram_results = {mix: [d_engine.search(q, f) for q, f in d_batches[mix]]
                    for mix in mixes}
-    disk_launches, _ = disk_phase(
+    disk_launches, _, ckpt = disk_phase(
         d_index, d_batches, ram_results, dev, reset_launches=reset_launches,
         launches=launches, rate=rate)
-    del d_index, d_engine, ram_results
-    torch.cuda.empty_cache()
+    del d_engine, ram_results
     log(f"phase 3c (disk tier) {time.perf_counter() - t0:.2f} s; "
         f"{time.perf_counter() - t_all:.2f} s since start")
+
+    # ---- phase 3d: live updates on the disk tier ----
+    t0 = time.perf_counter()
+    try:
+        live_launches, live_fig = live_phase(
+            d_index, d_centers, ckpt, dev, gen,
+            reset_launches=reset_launches, launches=launches)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del d_index
+    torch.cuda.empty_cache()
+    print_live(live_fig)
+    log(f"phase 3d (live updates) {time.perf_counter() - t0:.2f} s; "
+        f"{time.perf_counter() - t_all:.2f} s since start; launches "
+        f"{live_launches}")
 
     # ---- phase 4: each kernel on one full-size batch ----
     t0 = time.perf_counter()
@@ -1114,17 +1540,37 @@ def main(argv=None):
         f"{ops / PEAK_OPS['f32'] * 1e3:.3f} ms); "
         f"{ops / kernel_ms / 1e9:.1f} TFLOP/s achieved, kernel / bound "
         f"{kernel_ms / bound_ms:.2f}; max |err| {max_err:.3e}")
+    # the same operands at the paper's k = 100 (four list slots a lane)
+    kw100 = dict(kw, k=K_WIDE)
+    w_err = check_scan(f"full-size uniform batch, k={K_WIDE}",
+                       fs_mod.filtered_scan_tiled(*a, **kw100),
+                       *plain_scan(a, kw100))
+    w_ms = ms(lambda: fs_mod.filtered_scan_tiled(*a, **kw100), 10)
+    w_plain = ms(lambda: filtered_scan_tiled_ref(*a, **kw100), 3)
+    w_bound, w_byte, w_op, _, _ = tiled_bound(
+        plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
+        plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
+        index.vpad, k=K_WIDE)
+    log(f"filtered_scan_tiled full size, engine operands, k={K_WIDE}: kernel "
+        f"{w_ms:.3f} ms (k={K_TOP}: {kernel_ms:.3f} ms), plain {w_plain:.3f} "
+        f"ms, bound {w_bound:.3f} ms (bytes {w_byte:.3f} ms, bf16 ops "
+        f"{w_op:.3f} ms), kernel / bound {w_ms / w_bound:.2f}; max |err| "
+        f"{w_err:.3e}")
     kernels = [dict(
         name="filtered_scan_tiled", route="cuda",
         source="src/repro_torch/kernels/filtered_scan/csrc/filtered_scan_tiled.cu",
         replaces="src/repro/kernels/filtered_scan/filtered_scan.py:360",
         launches=(engine_launches["filtered_scan_tiled"]
                   + sharded_launches["filtered_scan_tiled"]
-                  + disk_launches["filtered_scan_tiled"]),
+                  + disk_launches["filtered_scan_tiled"]
+                  + live_launches["filtered_scan_tiled"]),
         max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by="bytes" if byte_ms >= op_ms else "operations",
         library_ms=None,
+        wide=dict(k=K_WIDE, ms=w_ms, plain_ms=w_plain, bound_ms=w_bound,
+                  bound_by="bytes" if w_byte >= w_op else "operations",
+                  max_abs_err=w_err),
     )]
 
     # the sharded tiled backend's own operands: f32 queries against the
@@ -1177,6 +1623,27 @@ def main(argv=None):
         f"{ct_ops / ct_ms / 1e9:.2f} TFLOP/s achieved; max |err| {ct_err:.3e}; "
         f"from an idle card, host issue included: kernel {ct_wall:.3f} ms, "
         f"torch.matmul + torch.topk {lib_wall:.3f} ms")
+    # at T = 56, the widest t_max="auto" plan (two list slots a lane)
+    tw = min(T_WIDE, kc)
+    _, cw_err = check_centroids(f"centroid_topk full size T={tw}",
+                                queries, cents, tw)
+    cw_ms = ms(lambda: ct_mod.centroid_topk(queries, cents, t=tw), 20)
+    cw_plain = ms(lambda: centroid_topk_ref(queries, cents, t=tw), 5)
+    cw_lib = ms(lambda: torch.topk(torch.matmul(queries, cents.T), tw), 20)
+    cw_byte_ms = ((Q * DIM + kc * DIM) * 4 + Q * tw * 8
+                  ) / HBM_BYTES_PER_S * 1e3
+    sweep = {t_: (ms(lambda t_=t_: ct_mod.centroid_topk(queries, cents, t=t_),
+                     20),
+                  ms(lambda t_=t_: torch.topk(torch.matmul(queries, cents.T),
+                                              t_), 20))
+             for t_ in sorted({8, 32, 128, kc} & set(range(1, kc + 1)))}
+    log("centroid_topk full size, kernel / torch.matmul + torch.topk ms: "
+        + ", ".join(f"T={t_} {a:.3f} / {b:.3f}" for t_, (a, b)
+                    in sweep.items()))
+    log(f"centroid_topk full size T={tw}: kernel {cw_ms:.3f} ms "
+        f"(T={N_PROBES}: {ct_ms:.3f} ms), plain {cw_plain:.3f} ms, "
+        f"torch.matmul + torch.topk {cw_lib:.3f} ms, bound "
+        f"{max(cw_byte_ms, ct_op_ms):.3f} ms; max |err| {cw_err:.3e}")
     kernels.append(dict(
         name="centroid_topk", route="cuda",
         source="src/repro_torch/kernels/centroid_topk/csrc/centroid_topk.cu",
@@ -1185,6 +1652,10 @@ def main(argv=None):
         ms=ct_ms, plain_ms=ct_plain, bound_ms=max(ct_byte_ms, ct_op_ms),
         bound_by="bytes" if ct_byte_ms >= ct_op_ms else "operations",
         library_ms=ct_lib,
+        wide=dict(t=tw, ms=cw_ms, plain_ms=cw_plain,
+                  bound_ms=max(cw_byte_ms, ct_op_ms),
+                  bound_by="bytes" if cw_byte_ms >= ct_op_ms else "operations",
+                  max_abs_err=cw_err, library_ms=cw_lib),
     ))
 
     # filtered_scan: each mix's per-probe slot table, pads included, as the

@@ -2,11 +2,19 @@
 tiers).
 
   HybridSpec, make_hybrid, l2_normalize              — hybrid vector layout
-  FilterBuilder, FilterSpec, match_all, filter_mask  — DNF filters
+  FilterBuilder, FilterSpec, match_all, filter_mask,
+  selectivity                                        — DNF filters
   build_from_assignments, index_from_arrays          — index construction
-  ClusterSummaries, build_summaries, can_match       — filter-aware pruning
+  ClusterSummaries, build_summaries, can_match,
+  expected_passing                                   — filter-aware pruning
   search_reference, brute_force, recall_at_k         — reference paths
-  SearchEngine, search_fused_tiled                   — the fused tiled path
+  SearchEngine, search_fused_tiled, SearchPlan,
+  TileWork, u_cap_buckets, scan_compile_count        — the fused tiled path
+  plan_probe_tiles, dedup_rows, fetch_order          — probe planning
+  masked_topk, merge_topk, merge_topk_many           — top-k monoid
+  add_vectors, tombstone, stale_counts,
+  compact_stale, compact_cluster                     — online updates
+  DeltaTier, compact_deltas, RepublishStats          — live hot/cold serving
   make_sharded_search, ShardedSearchConfig           — the sharded search
                                                        (one shard)
   RangeOwnership                                     — cluster ownership map
@@ -28,6 +36,7 @@ from repro_torch.core.filters import (
     filter_mask,
     from_builders,
     match_all,
+    selectivity,
 )
 from repro_torch.core.ivf import (
     BuildStats,
@@ -42,6 +51,7 @@ from repro_torch.core.summaries import (
     ClusterSummaries,
     build_summaries,
     can_match,
+    expected_passing,
 )
 from repro_torch.core.search import (
     SearchResult,
@@ -51,7 +61,30 @@ from repro_torch.core.search import (
     search_centroids,
     search_reference,
 )
-from repro_torch.core.engine import SearchEngine, search_fused_tiled
+from repro_torch.core.engine import (
+    SearchEngine,
+    SearchPlan,
+    TileWork,
+    scan_compile_count,
+    search_fused_tiled,
+    u_cap_buckets,
+)
+from repro_torch.core.probes import dedup_rows, fetch_order, plan_probe_tiles
+from repro_torch.core.topk import masked_topk, merge_topk, merge_topk_many
+from repro_torch.core.update import (
+    add_vectors,
+    compact_cluster,
+    compact_stale,
+    resync_partitions,
+    stale_counts,
+    tombstone,
+)
+from repro_torch.core.delta import (
+    DeltaOverflowError,
+    DeltaTier,
+    RepublishStats,
+    compact_deltas,
+)
 from repro_torch.core.blockstore import (
     BlockSpec,
     LocalBlockStore,
@@ -64,13 +97,19 @@ from repro_torch.core.storage import GenerationMismatchError
 
 __all__ = [
     "ATTR_MAX", "ATTR_MIN", "BlockSpec", "BuildStats", "ClusterCache",
-    "ClusterSummaries", "DiskIVFIndex", "FilterBuilder", "FilterSpec",
-    "GenerationMismatchError", "HybridSpec", "IVFFlatIndex",
-    "LocalBlockStore", "RangeOwnership", "ResidentBlockStore",
-    "SearchEngine", "SearchResult", "ShardedSearchConfig", "brute_force",
+    "ClusterSummaries", "DeltaOverflowError", "DeltaTier", "DiskIVFIndex",
+    "FilterBuilder", "FilterSpec", "GenerationMismatchError", "HybridSpec",
+    "IVFFlatIndex", "LocalBlockStore", "RangeOwnership", "RepublishStats",
+    "ResidentBlockStore", "SearchEngine", "SearchPlan", "SearchResult",
+    "ShardedSearchConfig", "TileWork", "add_vectors", "brute_force",
     "build_from_assignments", "build_summaries", "can_match",
-    "centroid_scores", "default_n_clusters", "filter_mask", "from_builders",
-    "index_from_arrays", "l2_normalize", "make_hybrid", "make_sharded_search",
-    "match_all", "quantize_index", "recall_at_k", "search_centroids",
-    "search_fused_tiled", "search_reference", "validity_mask",
+    "centroid_scores", "compact_cluster", "compact_deltas", "compact_stale",
+    "dedup_rows", "default_n_clusters", "expected_passing", "fetch_order",
+    "filter_mask", "from_builders", "index_from_arrays", "l2_normalize",
+    "make_hybrid", "make_sharded_search", "masked_topk", "match_all",
+    "merge_topk", "merge_topk_many", "plan_probe_tiles", "quantize_index",
+    "recall_at_k", "resync_partitions", "scan_compile_count",
+    "search_centroids", "search_fused_tiled", "search_reference",
+    "selectivity", "stale_counts", "tombstone", "u_cap_buckets",
+    "validity_mask",
 ]

@@ -391,8 +391,9 @@ class DiskIVFIndex:
 
     ``gens`` holds the per-cluster generation vector the plan pins fetches
     to; :meth:`refresh` flips to a republished checkpoint between batches.
-    The RAM delta tier (``delta``) and the device block cache
-    (``device_cache``) are not ported yet (ROADMAP A.5, A.6).
+    ``delta`` is the RAM delta tier the engine folds into every batch
+    (attach a :class:`~repro_torch.core.delta.DeltaTier`); the device block
+    cache (``device_cache``) is not ported yet (ROADMAP A.6).
     """
 
     def __init__(self, directory: str, man: dict, spec: HybridSpec,
@@ -484,11 +485,9 @@ class DiskIVFIndex:
         swaps in the new counts, summaries, bounds and gens and reopens the
         shard reader.  Cached records are not flushed: the next fetch
         carries the new expected gens, so exactly the rewritten clusters
-        invalidate.  Returns whether the on-disk generation changed."""
-        if self.delta is not None:
-            raise NotImplementedError(
-                "refresh with a RAM delta tier attached is not ported yet "
-                "(ROADMAP A.5 live updates)")
+        invalidate.  Then commits the attached delta tier's pending freeze
+        (the folded rows leave RAM; late tombstones carry over).  Returns
+        whether the on-disk generation changed."""
         man = storage.load_manifest(self.directory)
         gens = storage.load_gens(self.directory, man)
         changed = not np.array_equal(gens, self.gens)
@@ -505,6 +504,8 @@ class DiskIVFIndex:
             self.gens = gens
             self._overhead = _resident_overhead(
                 self.centroids, self.counts, self.summaries, self.bounds)
+        if self.delta is not None:
+            self.delta.commit()
         return changed
 
     # ---- paging (delegates to the BlockStore fetch layer) ----
@@ -535,17 +536,18 @@ class DiskIVFIndex:
                              prune: str = "auto",
                              t_max: Optional[int] = None):
         """Plans the next batch's probes and starts paging them in, in the
-        order the scan first needs them.  Pass the ``q_block``, ``fspec``
-        and ``prune`` the search will use: with the filters in hand, clusters
-        the summaries prove empty are never read."""
+        order the scan first needs them.  Pass the ``q_block``, ``fspec``,
+        ``prune`` and ``t_max`` the search will use: with the filters in
+        hand, clusters the summaries prove empty are never read, and the
+        plan has the search's width."""
         from repro_torch.core import probes as probes_lib
-        from repro_torch.core.engine import plan_fused_tiled, resolve_prune
+        from repro_torch.core.engine import (
+            plan_fused_tiled,
+            resolve_prune,
+            resolve_t_max,
+        )
         from repro_torch.core.filters import FilterSpec, match_all
 
-        if t_max is not None:
-            raise NotImplementedError(
-                "t_max is not ported yet (ROADMAP A.3 adaptive probe "
-                "widening)")
         queries = torch.as_tensor(queries, device=self.device)
         q = queries.shape[0]
         qb = min(q_block, ((q + 7) // 8) * 8)
@@ -556,18 +558,21 @@ class DiskIVFIndex:
             fspec = FilterSpec(lo=torch.as_tensor(fspec.lo, device=self.device),
                                hi=torch.as_tensor(fspec.hi, device=self.device))
             summ = resolve_prune(self, prune)
-        u_cap = min(qb * n_probes, self.n_clusters)
+        t_max = resolve_t_max(t_max, summ, self.counts, fspec.lo, fspec.hi,
+                              n_probes, self.n_clusters)
+        width = n_probes if t_max is None else t_max
+        u_cap = min(qb * width, self.n_clusters)
         cast_dtype = torch.float32 if self.quantized else self.store_dtype
         slot_cluster, _, _, _, n_unique, *_ = plan_fused_tiled(
             self.centroids, self.counts, queries, fspec.lo, fspec.hi,
             metric=self.spec.metric, n_probes=n_probes, q_block=qb,
-            u_cap=u_cap, cast_dtype=cast_dtype, summaries=summ)
+            u_cap=u_cap, cast_dtype=cast_dtype, summaries=summ, t_max=t_max)
         self.prefetch(probes_lib.fetch_order(slot_cluster, n_unique, u_cap))
 
     # ---- search ----
     def search(self, queries, fspec, *, k: int, n_probes: int,
                q_block: int = 64, v_block: int = 256,
-               u_cap: Optional[int] = None, prune: str = "auto",
+               u_cap: Optional[int] = None, prune: str = "auto", t_max=None,
                pipeline: str = "off", pipeline_depth: int = 2,
                blockstore=None, operand_cache: str = "auto", **unported):
         """Disk-tier filtered search with the RAM path's contract and ids.
@@ -577,7 +582,7 @@ class DiskIVFIndex:
 
         eng = SearchEngine(
             self, k=k, n_probes=n_probes, q_block=q_block, v_block=v_block,
-            u_cap=u_cap, prune=prune, pipeline=pipeline,
+            u_cap=u_cap, prune=prune, t_max=t_max, pipeline=pipeline,
             pipeline_depth=pipeline_depth, blockstore=blockstore,
             operand_cache=operand_cache, device=self.device, **unported)
         try:

@@ -3,9 +3,12 @@
 The port of ``repro.core.engine``:
 
     plan   — :func:`plan_fused_tiled` over resident state: centroid top-T,
-             filter-aware probe pruning (exact mode), per-tile probe dedup;
-             with ``adaptive_u_cap`` the slot tables are then cut to the
-             smallest bucket covering the observed unique counts.
+             filter-aware probe pruning (exact mode, or widened to refill
+             pruned probes from the geometric top-``t_max``), per-tile
+             probe dedup; with ``adaptive_u_cap`` the slot tables are then
+             cut to the smallest bucket covering the observed unique
+             counts.  With a delta tier, the batch's snapshot is taken
+             here and the planner sees its adjusted cluster counts.
     fetch  — RAM tier: the resident ``[K, Vpad, ...]`` arrays (a no-op).
              Disk tier: the plan's fetch list pages through a
              :mod:`~repro_torch.core.blockstore` store into batch-local
@@ -15,7 +18,10 @@ The port of ``repro.core.engine``:
              batch, however many tiles probe it.
     scan   — the tiled filtered scan kernel over the slot tables.
     merge  — monoid top-k across each query's probes, the l2 constant
-             fix-up and the scan accounting (:func:`_scan_merge_tiled`).
+             fix-up and the scan accounting (:func:`_scan_merge_tiled`);
+             then the delta fold: the RAM delta tier's exact scan merged in
+             through the same monoid (tombstoned cold ids are masked in the
+             scan's ids operand).
 
 Two executors share those stages and return the same results:
 
@@ -26,9 +32,9 @@ Two executors share those stages and return the same results:
     side stream (``pipeline_depth`` tiles in flight).  ``submit`` /
     ``result`` extend the overlap across batches.
 
-The remaining knobs of the reference (delta tier, device cache,
-partitions, termination, widening) are not ported yet and raise
-``NotImplementedError`` when set.
+The remaining knobs of the reference (device cache, partitions,
+termination) are not ported yet and raise ``NotImplementedError`` when
+set.
 """
 
 from __future__ import annotations
@@ -56,28 +62,60 @@ def plan_fused_tiled(centroids: torch.Tensor, counts: torch.Tensor,
                      queries: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                      *, metric: str, n_probes: int, q_block: int, u_cap: int,
                      cast_dtype: torch.dtype,
-                     summaries: Optional[summaries_lib.ClusterSummaries] = None):
+                     summaries: Optional[summaries_lib.ClusterSummaries] = None,
+                     t_max: Optional[int] = None):
     """Plan stage: centroid probe + per-tile dedup over resident state.
 
     Returns ``(slot_cluster, slot_tile, slot_of_probe, probe_ok, n_unique,
-    queries_pad, lo_pad, hi_pad, n_pruned)``; queries and bounds come back
-    padded to whole ``q_block`` tiles with edge rows.  With ``summaries``
-    the plan drops probes whose cluster provably holds no row passing the
-    query's filter (results unchanged).
+    queries_pad, lo_pad, hi_pad, n_pruned, geo_probes, geo_valid)``;
+    queries and bounds come back padded to whole ``q_block`` tiles with
+    edge rows.  ``geo_probes``/``geo_valid`` ``[Qpad, n_probes]`` are each
+    query's geometric top-``n_probes`` (before widening and pruning): the
+    delta tier's membership mask.
+
+    With ``summaries`` the plan drops probes whose cluster provably holds
+    no row passing the query's filter (results unchanged).  ``t_max`` (>
+    n_probes, with summaries) widens the plan: each query's probes are
+    refilled with its next-best unpruned centroids of the geometric
+    top-``t_max``, ranked by (centroid score, expected passing rows), so a
+    selective filter keeps ``n_probes`` productive probes.  Unfiltered
+    queries prune nothing and plan as without ``t_max``.
     """
     scores = centroid_scores(centroids, counts, queries, metric=metric)
     q = queries.shape[0]
-    cvals, probe_ids = topk_lib.top_k(scores, n_probes)  # [Q, T]
-    probe_ids = probe_ids.int()
     if summaries is None:
+        cvals, probe_ids = topk_lib.top_k(scores, n_probes)  # [Q, T]
+        probe_ids = probe_ids.int()
+        geo_ids, geo_ok = probe_ids, cvals > topk_lib.NEG_INF / 2
         probe_valid = None
         n_pruned = torch.zeros((q,), dtype=torch.int32, device=queries.device)
     else:
         cm = summaries_lib.can_match(summaries, lo, hi)  # [Q, K]
-        cm_c = torch.gather(cm, 1, probe_ids.long())  # [Q, T]
+        width = n_probes if t_max is None else t_max
+        cvals, cand = topk_lib.top_k(scores, width)  # [Q, W] geometric order
+        cm_c = torch.gather(cm, 1, cand)
         real = cvals > topk_lib.NEG_INF / 2  # exclude empty clusters
-        n_pruned = (~cm_c & real).sum(-1).int()
-        probe_valid = cm_c & real
+        geo_ids, geo_ok = cand[:, :n_probes].int(), real[:, :n_probes]
+        # probes a geometry-only plan would scan that the filter proved empty
+        n_pruned = (~cm_c[:, :n_probes] & real[:, :n_probes]).sum(-1).int()
+        if t_max is None:
+            probe_ids = cand.int()
+            probe_valid = cm_c & real
+        else:
+            # re-rank by (centroid score, expected passing rows): the
+            # estimate only breaks exact score ties; keep each query's first
+            # n_probes unpruned candidates.  Two stable sorts, the secondary
+            # key first: the reference's lexsort order.
+            epass = summaries_lib.expected_passing(summaries, lo, hi, counts)
+            ep_c = torch.gather(epass, 1, cand)
+            order = torch.argsort(-ep_c, dim=1, stable=True)
+            order = torch.gather(order, 1, torch.argsort(
+                torch.gather(-cvals, 1, order), dim=1, stable=True))
+            cand = torch.gather(cand, 1, order)
+            ok = torch.gather(cm_c & real, 1, order)
+            rank = torch.cumsum(ok.int(), dim=1) - 1
+            probe_ids = cand.int()
+            probe_valid = ok & (rank < n_probes)
     probe_pad = probes_lib.pad_to_tiles(probe_ids, q_block)
     valid_pad = (None if probe_valid is None
                  else probes_lib.pad_to_tiles(probe_valid, q_block))
@@ -89,7 +127,8 @@ def plan_fused_tiled(centroids: torch.Tensor, counts: torch.Tensor,
                                     probe_valid=valid_pad))
     return (slot_cluster, slot_tile, slot_of_probe, probe_ok, n_unique,
             queries_pad.contiguous(), lo_pad.contiguous(), hi_pad.contiguous(),
-            n_pruned)
+            n_pruned, probes_lib.pad_to_tiles(geo_ids, q_block),
+            probes_lib.pad_to_tiles(geo_ok, q_block))
 
 
 def _scan_merge_tiled(
@@ -153,6 +192,60 @@ def u_cap_buckets(full_cap: int, lo: int = 8,
     return tuple(sorted(set(caps)))
 
 
+def _batch_pass_fraction(summaries, counts, lo, hi) -> torch.Tensor:
+    """[Q] expected passing fraction of each query's filter, from the
+    resident summaries (the tier-agnostic selectivity estimate)."""
+    ep = summaries_lib.expected_passing(summaries, lo, hi, counts)  # [Q, K]
+    tot = torch.clamp(counts.float().sum(), min=1.0)
+    return ep.sum(1) / tot
+
+
+# t_max="auto" widening factors over n_probes: powers of two, so a serving
+# mix triggers a bounded set of plan widths.
+AUTO_T_FACTORS = (2, 4, 8)
+
+
+def resolve_auto_t_max(summaries, counts, lo, hi, n_probes: int,
+                       n_clusters: int,
+                       factors: Tuple[int, ...] = AUTO_T_FACTORS
+                       ) -> Optional[int]:
+    """Per-batch probe widening for ``t_max="auto"``: a batch whose filters
+    pass about 1/f of the rows (median over its queries, from the
+    summaries' expected passing mass) widens to ``f·n_probes`` for the
+    largest factor f it needs; an unfiltered batch returns None (the static
+    plan)."""
+    if summaries is None:
+        return None
+    sel = float(np.median(_batch_pass_fraction(summaries, counts, lo,
+                                               hi).cpu().numpy()))
+    need = 1.0 / max(sel, 1e-9)
+    factor = 1
+    for f in factors:
+        if need >= f:
+            factor = f
+    if factor == 1:
+        return None
+    return min(factor * n_probes, n_clusters)
+
+
+def resolve_t_max(t_max, summaries, counts, lo, hi, n_probes: int,
+                  n_clusters: int) -> Optional[int]:
+    """The plan width knob as the plan takes it: ``"auto"`` resolved for
+    this batch, validated against ``n_probes``, capped at K, and None where
+    widening means nothing (no pruning, or no wider than ``n_probes``)."""
+    if t_max == "auto":
+        t_max = resolve_auto_t_max(summaries, counts, lo, hi, n_probes,
+                                   n_clusters)
+    if t_max is None:
+        return None
+    if t_max < n_probes:
+        raise ValueError(f"t_max={t_max} < n_probes={n_probes}")
+    t_max = min(t_max, n_clusters)
+    if summaries is None or t_max == n_probes:
+        return None
+    return t_max
+
+
 def resolve_prune(index, prune: str):
     """The summaries to plan with (``"auto"``: iff the index has them;
     ``"on"``: demanded; ``"off"``: never)."""
@@ -213,6 +306,10 @@ class SearchPlan:
     lo_pad: torch.Tensor
     hi_pad: torch.Tensor
     n_pruned: torch.Tensor   # [Q] int32
+    # each query's geometric top-n_probes (before widening and pruning):
+    # the delta tier's membership mask; set when the batch has a snapshot
+    geo_probes: Optional[torch.Tensor] = None  # [Qpad, T] int32
+    geo_valid: Optional[torch.Tensor] = None   # [Qpad, T] bool
     # expected per-cluster generation vector at plan time (layout-3 disk
     # tier): every fetch of the batch carries it
     gens: Optional[np.ndarray] = None
@@ -223,6 +320,9 @@ class SearchPlan:
     operands: Optional[Dict[Tuple[int, int], dict]] = None
     # (cluster, gen) keys counted in blocks_fetched for this batch
     fetched_keys: Optional[set] = None
+    # the delta segment as this batch sees it (appends after plan() land
+    # in the next batch)
+    delta_snap: Any = None
 
     def tile_work(self) -> List[TileWork]:
         """Materializes (and caches) the per-tile work items with their
@@ -269,6 +369,13 @@ class EngineStats:
     # BlockStore fetch path accounting
     blocks_fetched: int = 0   # per-cluster blocks pulled through the store
     blocks_reused: int = 0    # slots served from the per-batch operand cache
+    # batches whose result folded a non-empty delta segment
+    delta_folds: int = 0
+    # batches whose delta scan was skipped because the segment's summary
+    # (or its interval envelope) proved no live delta row passes any filter
+    delta_skips: int = 0
+    # of those, skipped by the per-attribute envelope alone
+    delta_interval_skips: int = 0
 
     @property
     def overlap_ratio(self) -> float:
@@ -300,7 +407,8 @@ _PROM_COUNTERS = frozenset((
     "batches", "pipelined_batches", "tiles_scanned", "scan_compilations",
     "blocks_fetched", "blocks_reused", "hits", "misses", "evictions",
     "invalidations", "prefetched", "errors", "stalled_waits", "gets",
-    "blocks", "scan_compile_count",
+    "blocks", "scan_compile_count", "delta_folds", "delta_skips",
+    "delta_interval_skips", "adds", "tombstoned", "commits",
 ))
 
 
@@ -400,12 +508,10 @@ def scan_compile_count() -> int:
 
 # Reference knobs the port does not have yet: name → (default, ROADMAP item).
 _UNPORTED = {
-    "delta": (None, "A.5 live updates"),
     "device_cache": (None, "A.6 device cache"),
     "partitions": ("auto", "A.6 sub-partition routing"),
     "termination": (None, "A.6 bound-driven termination"),
     "epsilon": (0.0, "A.6 bound-driven termination"),
-    "t_max": (None, "A.3 adaptive probe widening"),
     "backend": (None, "the port picks the kernel by the tensors' device"),
 }
 
@@ -422,12 +528,10 @@ def _reject_unported(index, knobs: dict):
         raise NotImplementedError(
             "an index with a partition catalog is not ported yet "
             "(ROADMAP A.6 sub-partition routing)")
-    for attr, item in (("delta", "A.5 live updates"),
-                       ("device_cache", "A.6 device cache")):
-        if getattr(index, attr, None) is not None:
-            raise NotImplementedError(
-                f"an index with a {attr} attached is not ported yet "
-                f"(ROADMAP {item})")
+    if getattr(index, "device_cache", None) is not None:
+        raise NotImplementedError(
+            "an index with a device_cache attached is not ported yet "
+            "(ROADMAP A.6 device cache)")
 
 
 class SearchEngine:
@@ -438,6 +542,12 @@ class SearchEngine:
     row chunk), ``u_cap`` (pinned slot-table width) or ``adaptive_u_cap``
     (bucketed from the observed unique counts, the default when ``u_cap``
     is None) with ``u_cap_ladder``/``u_cap_bucket_set``, ``prune``, and:
+
+      * ``t_max`` — adaptive probe widening (an int > ``n_probes``, or
+        ``"auto"``: per batch from the summaries' expected passing mass);
+        needs pruning, else the plan is the static one.
+      * ``delta`` — a :class:`~repro_torch.core.delta.DeltaTier` to fold
+        into every batch (default: the index's ``delta`` attribute).
 
       * ``pipeline`` — ``"off"``: one whole-batch fetch and scan;
         ``"on"``: per-tile fetch/scan overlap (same results); ``"auto"``:
@@ -467,8 +577,11 @@ class SearchEngine:
                  adaptive_u_cap: Optional[bool] = None,
                  u_cap_bucket_set: Optional[Tuple[int, ...]] = None,
                  u_cap_ladder: str = "pow2", operand_cache: str = "auto",
-                 device="cuda", **unported):
+                 t_max=None, delta=None, device="cuda", **unported):
         _reject_unported(index, unported)
+        if isinstance(t_max, str) and t_max != "auto":
+            raise ValueError(f"t_max must be an int, 'auto' or None, got "
+                             f"{t_max!r}")
         self.device = resolve_device(device)
         if index.centroids.device.type != self.device.type:
             raise ValueError(f"index lives on {index.centroids.device}, "
@@ -492,6 +605,8 @@ class SearchEngine:
         self.v_block = v_block
         self.u_cap = u_cap
         self.prune = prune
+        self.t_max = t_max
+        self._delta = delta
         self.pipeline_depth = pipeline_depth
         self.u_cap_bucket_set = u_cap_bucket_set
         self.u_cap_ladder = u_cap_ladder
@@ -541,6 +656,10 @@ class SearchEngine:
         """A table or operand on the engine's device (None passes)."""
         return None if x is None else torch.as_tensor(x, device=self.device)
 
+    def _delta_tier(self):
+        return self._delta if self._delta is not None else getattr(
+            self.index, "delta", None)
+
     # ---- plan ----
     def plan(self, queries, fspec: FilterSpec) -> SearchPlan:
         """Plans at the sound worst-case table width; with
@@ -555,23 +674,40 @@ class SearchEngine:
         q = queries.shape[0]
         qb = min(self.q_block, round_up(q, 8))
         summ = resolve_prune(index, self.prune)
-        full_cap = min(qb * self.n_probes, index.n_clusters)
+        kc = index.n_clusters
+        # the batch's view of the delta segment; the planner sees the counts
+        # a rebuild would (centroid_scores masks empty clusters by count)
+        counts = index.counts
+        tier = self._delta_tier()
+        snap = tier.snapshot() if tier is not None else None
+        if snap is not None:
+            adj = tier.count_adjustment(kc)
+            if adj is not None:
+                counts = counts + torch.from_numpy(adj).to(dev)
+        t_max = resolve_t_max(self.t_max, summ, counts, lo, hi,
+                              self.n_probes, kc)
+        width = self.n_probes if t_max is None else t_max
+        full_cap = min(qb * width, kc)
         cap = full_cap if self.u_cap is None else self.u_cap
         cast_dtype = torch.float32 if index.quantized else index.store_dtype
         (slot_cluster, slot_tile, slot_of_probe, probe_ok, n_unique,
-         queries_pad, lo_pad, hi_pad, n_pruned) = plan_fused_tiled(
-            index.centroids, index.counts, queries, lo, hi,
+         queries_pad, lo_pad, hi_pad, n_pruned, geo_probes,
+         geo_valid) = plan_fused_tiled(
+            index.centroids, counts, queries, lo, hi,
             metric=index.spec.metric, n_probes=self.n_probes, q_block=qb,
-            u_cap=cap, cast_dtype=cast_dtype, summaries=summ)
+            u_cap=cap, cast_dtype=cast_dtype, summaries=summ, t_max=t_max)
         plan = SearchPlan(
             q=q, q_block=qb, n_tiles=queries_pad.shape[0] // qb, u_cap=cap,
-            width=self.n_probes, slot_cluster=slot_cluster,
+            width=width, slot_cluster=slot_cluster,
             slot_tile=slot_tile, slot_of_probe=slot_of_probe,
             probe_ok=probe_ok, n_unique=n_unique, queries=queries,
             queries_orig_pad=(probes_lib.pad_to_tiles(queries, qb)
                               if self.pipeline == "on" else None),
             queries_pad=queries_pad, lo_pad=lo_pad, hi_pad=hi_pad,
             n_pruned=n_pruned, gens=self._plan_gens(),
+            geo_probes=geo_probes if snap is not None else None,
+            geo_valid=geo_valid if snap is not None else None,
+            delta_snap=snap,
         )
         if self.adaptive_u_cap:
             self._provision(plan)
@@ -705,10 +841,77 @@ class SearchEngine:
             norms is None, scales is None,
         )
 
+    def _mask_tombstones(self, plan: SearchPlan, ids):
+        """Masks the snapshot's tombstoned ids out of the cold scan's ids
+        operand (not the merged result), so the scan's top-k surfaces the
+        next live candidate, as a rebuild without the deleted rows would."""
+        snap = plan.delta_snap
+        if snap is None or snap.tombstones is None:
+            return ids
+        from repro_torch.core import delta as delta_lib
+
+        return delta_lib.mask_tombstones(ids, snap.tombstones.to(ids.device))
+
+    def _fold_delta(self, plan: SearchPlan, res: SearchResult) -> SearchResult:
+        """Merge stage, tier two: the delta segment's exact scan folded into
+        the cold result through the same top-k monoid (cold wins ties, as
+        the concat order of a rebuilt index's merge).  Skipped, with only
+        the reach count added to ``n_scanned``, where the segment's
+        interval envelope or its summary proves no filter can match."""
+        snap = plan.delta_snap
+        if snap is None or snap.n_rows == 0:
+            return res
+        t0 = time.perf_counter()
+        from repro_torch.core import delta as delta_lib
+
+        q, kc = plan.q, self.index.n_clusters
+
+        def skipped(count_reach=True):
+            self.stats.delta_skips += 1
+            out = res
+            if count_reach:
+                dscan = delta_lib.snapshot_reach(snap, plan.geo_probes,
+                                                 plan.geo_valid, kc)
+                out = dataclasses.replace(
+                    res, n_scanned=res.n_scanned + dscan[:q])
+            self._observe_stage("delta_fold", time.perf_counter() - t0)
+            return out
+
+        # per-attribute envelope pre-test: every non-void term disjoint
+        # from the segment's [M] lo/hi envelope on some attribute
+        if snap.attr_lo is not None and snap.attr_hi is not None:
+            lo, hi = plan.lo_pad, plan.hi_pad
+            alo = torch.from_numpy(snap.attr_lo).to(lo.device)
+            ahi = torch.from_numpy(snap.attr_hi).to(lo.device)
+            nonvoid = (lo <= hi).all(-1)  # [Qpad, F]
+            overlap = ((lo <= ahi) & (hi >= alo)).all(-1)
+            if not bool((nonvoid & overlap).any()):
+                self.stats.delta_interval_skips += 1
+                return skipped()
+        summ = delta_lib.snapshot_summary(snap)
+        if summ is None:  # no live rows: the reach is zero
+            return skipped(count_reach=False)
+        if not bool(summaries_lib.can_match(summ, plan.lo_pad,
+                                            plan.hi_pad).any()):
+            return skipped()
+        dvals, dids, dscan, dpass = delta_lib.scan_snapshot(
+            snap, plan.queries, plan.queries_pad, plan.lo_pad, plan.hi_pad,
+            plan.geo_probes, plan.geo_valid, metric=self.index.spec.metric,
+            k=self.k, n_clusters=kc)
+        vals, out_ids = topk_lib.merge_topk(
+            (res.scores, res.ids), (dvals[:q], dids[:q]), self.k)
+        self.stats.delta_folds += 1
+        self._observe_stage("delta_fold", time.perf_counter() - t0)
+        return dataclasses.replace(
+            res, scores=vals, ids=out_ids,
+            n_scanned=res.n_scanned + dscan[:q],
+            n_passed=res.n_passed + dpass[:q])
+
     def scan_merge(self, plan: SearchPlan, operands) -> SearchResult:
         """Whole-batch scan/merge over fetched operands (sync executor)."""
         t0 = time.perf_counter()
         slot_cluster, vectors, attrs, ids, norms, scales = operands
+        ids = self._mask_tombstones(plan, ids)
         self._count_scan(self._scan_key(
             plan, q=plan.q, qpad=plan.n_tiles * plan.q_block,
             s=plan.n_tiles * plan.u_cap, q_block=plan.q_block,
@@ -730,6 +933,7 @@ class SearchEngine:
         concatenate to the sync result."""
         t0 = time.perf_counter()
         slot_cluster, vectors, attrs, ids, norms, scales = operands
+        ids = self._mask_tombstones(plan, ids)
         qb, cap = plan.q_block, plan.u_cap
         if plan.queries_orig_pad is None:  # plan was built for a sync run
             plan.queries_orig_pad = probes_lib.pad_to_tiles(plan.queries, qb)
@@ -754,8 +958,10 @@ class SearchEngine:
     def execute(self, plan: SearchPlan) -> SearchResult:
         self.stats.batches += 1
         if self.pipeline == "on":
-            return self._execute_pipelined(plan)
-        return self.scan_merge(plan, self.fetch(plan))
+            res = self._execute_pipelined(plan)
+        else:
+            res = self.scan_merge(plan, self.fetch(plan))
+        return self._fold_delta(plan, res)
 
     def submit(self, queries, fspec: FilterSpec) -> PendingSearch:
         """Starts a batch: plans it and (pipelined, with a fetch source)
@@ -774,10 +980,12 @@ class SearchEngine:
         """Finishes a :meth:`submit`-started batch (scan + merge)."""
         plan = pending.plan
         if pending.inflight is not None:
-            return self._run_tiles(plan, pending.inflight)
-        if self.pipeline == "on":
-            return self._execute_pipelined(plan)
-        return self.scan_merge(plan, self.fetch(plan))
+            res = self._run_tiles(plan, pending.inflight)
+        elif self.pipeline == "on":
+            res = self._execute_pipelined(plan)
+        else:
+            res = self.scan_merge(plan, self.fetch(plan))
+        return self._fold_delta(plan, res)
 
     def _tile_operands(self, plan: SearchPlan, i: int):
         """RAM-tier per-tile operands: the resident arrays and the tile's
@@ -951,9 +1159,10 @@ class SearchEngine:
 
     def refresh(self) -> bool:
         """Flips the engine to the latest published generation, strictly
-        between batches: reopens the store's reader and reloads the index's
-        resident state.  Gen-keyed caches need no flush.  Returns True when
-        a new generation was picked up."""
+        between batches: reopens the store's reader, reloads the index's
+        resident state and commits any pending delta freeze (the index's
+        ``refresh`` does).  Gen-keyed caches need no flush.  Returns True
+        when a new generation was picked up."""
         if self._store is not None:
             store_refresh = getattr(self._store, "refresh", None)
             if store_refresh is not None:
@@ -983,6 +1192,9 @@ class SearchEngine:
             c = dataclasses.asdict(cstats)
             c["hit_rate"] = cache.hit_rate
             _flatten_metrics(out, "cache", c)
+        tier = self._delta_tier()
+        if tier is not None:
+            _flatten_metrics(out, "delta", tier.stats())
         return out
 
     def metrics_text(self) -> str:
@@ -1004,8 +1216,8 @@ def search_fused_tiled(index, queries, fspec: FilterSpec, *, k: int,
                        pipeline: str = "off", pipeline_depth: int = 2,
                        adaptive_u_cap: bool = False,
                        u_cap_ladder: str = "pow2",
-                       operand_cache: str = "auto", device="cuda",
-                       **unported) -> SearchResult:
+                       operand_cache: str = "auto", t_max=None, delta=None,
+                       device="cuda", **unported) -> SearchResult:
     """Query-tiled, probe-deduplicated fused search: a one-batch
     :class:`SearchEngine` (same contract as ``search_reference``)."""
     eng = SearchEngine(
@@ -1013,7 +1225,8 @@ def search_fused_tiled(index, queries, fspec: FilterSpec, *, k: int,
         u_cap=u_cap, gather_fn=gather_fn, blockstore=blockstore, prune=prune,
         pipeline=pipeline, pipeline_depth=pipeline_depth,
         adaptive_u_cap=adaptive_u_cap, u_cap_ladder=u_cap_ladder,
-        operand_cache=operand_cache, device=device, **unported)
+        operand_cache=operand_cache, t_max=t_max, delta=delta, device=device,
+        **unported)
     try:
         return eng.search(queries, fspec)
     finally:

@@ -183,3 +183,45 @@ def filter_mask(spec: FilterSpec, attrs: torch.Tensor,
         out = torch.zeros(attrs.shape[:-1], dtype=torch.bool,
                           device=attrs.device)
     return out
+
+
+def sample_rows(n: int, sample_size: int, seed: int = 0,
+                device="cpu") -> torch.Tensor:
+    """The rows :func:`selectivity` samples: ``sample_size`` distinct row
+    indices of ``[0, n)``, drawn from an explicit ``torch.Generator``
+    seeded with ``seed`` (int64, in draw order)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randperm(n, generator=gen)[:sample_size].to(device)
+
+
+def selectivity(spec: FilterSpec, attrs: torch.Tensor, *,
+                sample_size: Optional[int] = None, seed: int = 0,
+                chunk: int = 4096) -> torch.Tensor:
+    """Fraction of rows passing each query's filter (paper §4.3 "filter
+    selectivity").
+
+    Rows are optionally subsampled (``sample_size`` rows, drawn by
+    :func:`sample_rows` from ``seed``; None = exact over every row) and
+    evaluated ``chunk`` rows at a time, so the only intermediate is a
+    ``[Q, chunk]`` mask, whatever N.
+
+    Args:
+      spec: FilterSpec with lo/hi [Q, n_terms, M].
+      attrs: [N, M] attribute rows.
+
+    Returns [Q] f32 passing fractions (estimates under sampling).
+    """
+    attrs = torch.as_tensor(attrs, device=spec.lo.device)
+    n = attrs.shape[0]
+    if sample_size is not None and sample_size < n:
+        attrs = attrs[sample_rows(n, sample_size, seed, device=attrs.device)]
+        n = sample_size
+    q = spec.lo.shape[0]
+    passed = torch.zeros((q,), dtype=torch.int32, device=attrs.device)
+    for start in range(0, n, chunk):
+        block = attrs[start:start + chunk]
+        mask = filter_mask(spec, block.expand((q,) + tuple(block.shape)))
+        passed += mask.sum(-1, dtype=torch.int32)
+    passed = passed.float()
+    # a tensor divisor: IEEE division on the card too
+    return passed / torch.full_like(passed, max(n, 1))

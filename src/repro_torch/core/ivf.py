@@ -253,7 +253,10 @@ def quantize_index(index: IVFFlatIndex) -> IVFFlatIndex:
     scale = torch.empty((k, vpad), dtype=torch.float32, device=dev)
     for c0 in range(0, k, _CLUSTER_CHUNK):
         v32 = index.vectors[c0:c0 + _CLUSTER_CHUNK].float()
-        s = torch.clamp(v32.abs().amax(-1), min=1e-12) / 127.0
+        # a tensor divisor: the card divides too (by a Python scalar it
+        # would multiply by the reciprocal and round otherwise)
+        s = torch.clamp(v32.abs().amax(-1), min=1e-12)
+        s = s / torch.full_like(s, 127.0)
         q[c0:c0 + _CLUSTER_CHUNK] = torch.clamp(
             torch.round(v32 / s[..., None]), -127, 127).to(torch.int8)
         scale[c0:c0 + _CLUSTER_CHUNK] = s

@@ -10,6 +10,12 @@ writer need).
 
 Both tests may only fail to prune, never prune a cluster that holds a
 passing row, so a pruned plan returns the same ids as an unpruned one.
+Maintenance keeps that contract: an add widens the intervals and adds
+histogram mass (:func:`widen_for_add`), a tombstone leaves the summaries
+stale-wide, and a compaction rebuilds the cluster's row exactly
+(:func:`rebuild_cluster`, :func:`rebuild_cluster_bounds`).
+:func:`expected_passing` turns the histograms into a ranking signal for
+probe widening.
 
 :class:`ClusterBounds` holds the per-cluster geometric statistics
 (``radius``, ``slack``) that ``storage.save_index`` writes beside the
@@ -130,6 +136,72 @@ def build_summaries(attrs: torch.Tensor, ids: torch.Tensor, *,
     )
 
 
+def rebuild_cluster(summaries: ClusterSummaries, attrs_row: torch.Tensor,
+                    ids_row: torch.Tensor, cluster: int) -> ClusterSummaries:
+    """Recomputes one cluster's summary row exactly (compaction, rebuilds),
+    keeping the global edges so the histogram stays comparable with its
+    neighbours.  Returns new summaries; the input is not modified."""
+    live = ids_row >= 0  # [Vpad]
+    a = attrs_row.int()
+    amin = summaries.amin.clone()
+    amax = summaries.amax.clone()
+    hist = summaries.hist.clone()
+    amin[cluster] = torch.where(live[:, None], a, ATTR_MAX).amin(0).short()
+    amax[cluster] = torch.where(live[:, None], a, ATTR_MIN).amax(0).short()
+    m, n_bins = summaries.n_attrs, summaries.n_bins
+    bins = attr_bins(attrs_row, summaries.edges_lo, summaries.edges_hi,
+                     n_bins).long()  # [Vpad, M]
+    row = torch.zeros((m * n_bins,), dtype=torch.int32, device=hist.device)
+    flat = (torch.arange(m, device=bins.device)[None, :] * n_bins + bins)
+    row.index_add_(0, flat.reshape(-1),
+                   live[:, None].expand(bins.shape).reshape(-1).int())
+    hist[cluster] = row.reshape(m, n_bins)
+    return dataclasses.replace(summaries, amin=amin, amax=amax, hist=hist)
+
+
+def widen_for_add(summaries: ClusterSummaries, assignments: torch.Tensor,
+                  attrs_new: torch.Tensor, ok: torch.Tensor
+                  ) -> ClusterSummaries:
+    """Folds a batch of appended rows into the summaries: intervals widen
+    by scatter-min/max and each row adds histogram mass at its bins; rows
+    with ``ok == False`` (capacity drops) are left out, so the summaries
+    keep describing exactly the rows the index holds."""
+    b, m = attrs_new.shape
+    a = assignments.long()
+    a_hi = torch.where(ok[:, None], attrs_new, ATTR_MAX).short()
+    a_lo = torch.where(ok[:, None], attrs_new, ATTR_MIN).short()
+    amin = summaries.amin.scatter_reduce(0, a[:, None].expand(b, m), a_hi,
+                                         "amin")
+    amax = summaries.amax.scatter_reduce(0, a[:, None].expand(b, m), a_lo,
+                                         "amax")
+    bins = attr_bins(attrs_new, summaries.edges_lo, summaries.edges_hi,
+                     summaries.n_bins).long()  # [B, M]
+    hist = summaries.hist.clone()
+    hist.index_put_(
+        (a[:, None].expand(b, m), torch.arange(m, device=a.device)[None, :]
+         .expand(b, m), bins),
+        ok[:, None].expand(b, m).int(), accumulate=True)
+    return dataclasses.replace(summaries, amin=amin, amax=amax, hist=hist)
+
+
+def _bin_mass(summaries: ClusterSummaries, lo: torch.Tensor,
+              hi: torch.Tensor) -> torch.Tensor:
+    """[Q, F, K, M] int32 — histogram mass of each term's covered bins
+    (``blo..bhi`` inclusive) per cluster and attribute."""
+    n_bins = summaries.n_bins
+    kc, m = summaries.amin.shape
+    # cdf[..., b] = rows in bins < b
+    cdf = torch.cat(
+        [torch.zeros_like(summaries.hist[..., :1]),
+         torch.cumsum(summaries.hist, dim=-1).int()], dim=-1
+    )  # [K, M, B+1]
+    blo = attr_bins(lo, summaries.edges_lo, summaries.edges_hi, n_bins).long()
+    bhi = attr_bins(hi, summaries.edges_lo, summaries.edges_hi, n_bins).long()
+    kk = torch.arange(kc, device=cdf.device)[None, None, :, None]
+    mm = torch.arange(m, device=cdf.device)[None, None, None, :]
+    return cdf[kk, mm, (bhi + 1)[:, :, None, :]] - cdf[kk, mm, blo[:, :, None, :]]
+
+
 def can_match(summaries: ClusterSummaries, lo: torch.Tensor,
               hi: torch.Tensor) -> torch.Tensor:
     """[Q, K] bool — can any live row of cluster k pass query q's filter?
@@ -144,24 +216,32 @@ def can_match(summaries: ClusterSummaries, lo: torch.Tensor,
     tlo = lo.int()[:, :, None, :]  # [Q, F, 1, M]
     thi = hi.int()[:, :, None, :]
     overlap = torch.maximum(tlo, amin) <= torch.minimum(thi, amax)
-
-    n_bins = summaries.n_bins
-    kc, m = summaries.amin.shape
-    # cdf[..., b] = rows in bins < b
-    cdf = torch.cat(
-        [torch.zeros_like(summaries.hist[..., :1]),
-         torch.cumsum(summaries.hist, dim=-1).int()], dim=-1
-    )  # [K, M, B+1]
-    blo = attr_bins(lo, summaries.edges_lo, summaries.edges_hi, n_bins).long()
-    bhi = attr_bins(hi, summaries.edges_lo, summaries.edges_hi, n_bins).long()
-    kk = torch.arange(kc, device=cdf.device)[None, None, :, None]
-    mm = torch.arange(m, device=cdf.device)[None, None, None, :]
-    # mass of bins blo..bhi inclusive, per (query, term, cluster, attr)
-    hi_mass = cdf[kk, mm, (bhi + 1)[:, :, None, :]]
-    lo_mass = cdf[kk, mm, blo[:, :, None, :]]
-    nonzero = (hi_mass - lo_mass) > 0
+    nonzero = _bin_mass(summaries, lo, hi) > 0
     per_term = torch.all(overlap & nonzero, dim=-1)  # [Q, F, K]
     return torch.any(per_term, dim=1)  # [Q, K]
+
+
+def expected_passing(summaries: ClusterSummaries, lo: torch.Tensor,
+                     hi: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """[Q, K] f32 — histogram-mass estimate of the rows passing each filter.
+
+    Per term and attribute, the covered-bin mass (partial bins included,
+    so it over-estimates) over the cluster's live rows is a passing
+    fraction; attributes multiply (independence, in attribute order),
+    terms add, and the estimate is clipped to the live count.  A ranking
+    signal only: pruning never rides on it.
+    """
+    # [K, M] live rows (the same count under each attribute)
+    total = torch.clamp(summaries.hist.sum(-1), min=1)
+    frac = _bin_mass(summaries, lo, hi).float() / total[None, None]
+    per_term = frac[..., 0] if frac.shape[-1] else torch.ones(
+        frac.shape[:-1], device=frac.device)
+    for a in range(1, frac.shape[-1]):
+        per_term = per_term * frac[..., a]
+    void = (lo > hi).any(-1)  # [Q, F]: voided spare terms pass nothing
+    per_term = torch.where(void[:, :, None], 0.0, per_term)  # [Q, F, K]
+    c = counts.float()[None, :]
+    return torch.minimum(per_term.sum(1) * c, c)
 
 
 def pad_clusters(summaries: ClusterSummaries, k_new: int) -> ClusterSummaries:
@@ -226,21 +306,48 @@ def build_bounds(centroids: torch.Tensor, vectors: torch.Tensor,
     dev = vectors.device
     radius = torch.empty((k,), dtype=torch.float32, device=dev)
     slack = torch.zeros((k,), dtype=torch.float32, device=dev)
-    cents = centroids.float()
     for c0 in range(0, k, _BOUNDS_CHUNK):
         sl = slice(c0, c0 + _BOUNDS_CHUNK)
-        x32 = vectors[sl].float()
-        if scales is not None:
-            x32 = x32 * scales[sl].float()[..., None]
-        live = ids[sl] >= 0
-        diff = x32 - cents[sl][:, None, :]
-        d2 = (diff * diff).sum(-1)  # [c, Vpad]
-        del diff
-        # d2 >= 0: masking dead rows to 0 keeps the max sound and gives an
-        # empty cluster radius 0
-        radius[sl] = torch.sqrt(torch.where(live, d2, 0.0).amax(1))
-        if norms is not None:
-            s = (x32 * x32).sum(-1) - norms[sl].float()
-            s = torch.where(live, s, float("-inf")).amax(1)
-            slack[sl] = torch.where(live.any(1), s, 0.0)
+        radius[sl], slack[sl] = _bounds_rows(
+            vectors[sl], ids[sl], centroids[sl],
+            None if norms is None else norms[sl],
+            None if scales is None else scales[sl])
     return ClusterBounds(radius=radius, slack=slack)
+
+
+def _bounds_rows(vectors, ids, centroids, norms, scales):
+    """(radius, slack) [c] of clusters ``vectors [c, Vpad, D]`` (store
+    dtype, SQ8 codes with ``scales``) over their live rows."""
+    x32 = vectors.float()
+    if scales is not None:
+        x32 = x32 * scales.float()[..., None]
+    live = ids >= 0
+    diff = x32 - centroids.float()[:, None, :]
+    d2 = (diff * diff).sum(-1)  # [c, Vpad]
+    del diff
+    # d2 >= 0: masking dead rows to 0 keeps the max sound and gives an
+    # empty cluster radius 0
+    radius = torch.sqrt(torch.where(live, d2, 0.0).amax(1))
+    slack = torch.zeros_like(radius)
+    if norms is not None:
+        s = (x32 * x32).sum(-1) - norms.float()
+        s = torch.where(live, s, float("-inf")).amax(1)
+        slack = torch.where(live.any(1), s, 0.0)
+    return radius, slack
+
+
+def rebuild_cluster_bounds(bounds: ClusterBounds, centroid_row: torch.Tensor,
+                           vectors_row: torch.Tensor, ids_row: torch.Tensor,
+                           norms_row: Optional[torch.Tensor],
+                           scales_row: Optional[torch.Tensor],
+                           cluster: int) -> ClusterBounds:
+    """Recomputes one cluster's bound row exactly (compaction, rebuilds).
+    Returns new bounds; the input is not modified."""
+    radius, slack = _bounds_rows(
+        vectors_row[None], ids_row[None], centroid_row[None],
+        None if norms_row is None else norms_row[None],
+        None if scales_row is None else scales_row[None])
+    out_r, out_s = bounds.radius.clone(), bounds.slack.clone()
+    out_r[cluster] = radius[0]
+    out_s[cluster] = slack[0]
+    return ClusterBounds(radius=out_r, slack=out_s)

@@ -6,7 +6,7 @@ The path is chosen by the tensors' device alone: CPU tensors take the plain
 PyTorch version (:func:`~repro_torch.kernels.centroid_topk.ref.
 centroid_topk_ref`), CUDA tensors launch the kernel or raise.  The TPU
 kernel's ``q_block``/``k_block`` were its tiling and have no counterpart:
-the CUDA kernel takes any Q and K.
+the CUDA kernel takes any Q and K, and any T up to K.
 """
 
 from __future__ import annotations
@@ -23,21 +23,22 @@ SOURCE = build.KERNELS_DIR / "centroid_topk" / "csrc" / "centroid_topk.cu"
 # Kernel launches in this process; the wrapper adds one per launch.
 LAUNCHES = 0
 
-MAX_T = 32
 _METRICS = {"dot": 0, "l2": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib():
     lib = build.load(SOURCE)
-    fn, chunks = lib.centroid_topk_launch, lib.centroid_topk_chunks
+    fn = lib.centroid_topk_launch
+    chunks, list_len = lib.centroid_topk_chunks, lib.centroid_topk_list_len
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         fn.restype = ci
-        chunks.argtypes = [ci]
-        chunks.restype = ci
-    return fn, chunks
+        for g in (chunks, list_len):
+            g.argtypes = [ci]
+            g.restype = ci
+    return fn, chunks, list_len
 
 
 def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *, t: int,
@@ -59,8 +60,6 @@ def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *, t: int,
         return centroid_topk_ref(queries, centroids, t=t, metric=metric)
     if centroids.device.type != "cuda":
         raise ValueError(f"unsupported device {centroids.device}")
-    if t > MAX_T:
-        raise NotImplementedError(f"the CUDA kernel keeps t <= {MAX_T}, got {t}")
     dev = centroids.device
     for name, x, shape in (("queries", queries, (q, d)),
                            ("centroids", centroids, (k, d))):
@@ -78,10 +77,11 @@ def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *, t: int,
     ids = torch.empty((q, t), dtype=torch.int32, device=dev)
     if q == 0:
         return vals, ids
-    fn, chunks = _lib()
-    # each K chunk's top-T, merged by the kernel's second pass
-    part_vals = torch.empty((q, chunks(k), t), dtype=torch.float32, device=dev)
-    part_ids = torch.empty((q, chunks(k), t), dtype=torch.int32, device=dev)
+    fn, chunks, list_len = _lib()
+    # each K chunk's top-min(T, 128), merged by the kernel's second pass
+    part = (q, chunks(k), list_len(t))
+    part_vals = torch.empty(part, dtype=torch.float32, device=dev)
+    part_ids = torch.empty(part, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q, k, d, t, queries.data_ptr(), centroids.data_ptr(),

@@ -16,12 +16,12 @@
 // - Split K.  The grid is (query groups of 32) x (K chunks of 128
 //   centroids): 8 x 25 = 200 CTAs at the sharded search's shape, all
 //   resident at once (two per SM: 46 KB of shared memory and at most 128
-//   registers a thread).  Each CTA writes its chunk's top-T per query to a
-//   [Q, n_chunks, T] scratch that the wrapper allocates, and a second small
-//   kernel merges the chunks of a query in chunk order by (value
-//   descending, id ascending), so ties still go to the lower id across
-//   chunk edges.  No padding of K: the last chunk
-//   masks its missing centroids to NEG_INF.
+//   registers a thread).  Each CTA writes its chunk's top-min(T, 128) per
+//   query to a [Q, n_chunks, min(T, 128)] scratch that the wrapper
+//   allocates, and a second small kernel merges the chunks of a query by
+//   (value descending, id ascending), so ties still go to the lower id
+//   across chunk edges.  No padding of K: the last chunk masks its missing
+//   centroids to NEG_INF.
 // - Register-blocked micro-tiles.  Each of the 256 threads computes 4
 //   queries x 4 centroids, reading both as float4 along the depth from
 //   shared memory (rows of 36 floats: 16-byte aligned, conflict-free), so 8
@@ -34,9 +34,18 @@
 // - Under l2 each warp sums ||c||^2 for one float4 of every slice of the
 //   staged centroid tile; the 8 partial sums are added at the chunk's end.
 //
-// The selection (both kernels): lane j of a warp holds the query's j-th best
-// (value, id); candidates above the running T-th are ballot-selected in id
-// order and inserted after equal entries with warp shuffles.
+// The selection, any T up to K: each warp bitonic-sorts a query's 128 chunk
+// scores in registers (4 a lane, 28 compare-exchange steps, by value
+// descending then id ascending) and keeps the first min(T, 128).  The
+// first design inserted the candidates above the running T-th one at a
+// time, a chain of warp shuffles per insert: the sort costs the same for
+// every T and took less time on an H100 already at T = 8 (PERF.md).  The
+// merge runs one CTA per query, which sorts all its chunk entries in
+// shared memory with a bitonic network (the lists of K <= 8192 centroids
+// fit), or else places every chunk entry straight at its rank: its
+// position in its own list plus, in each other chunk's list, the length of
+// the prefix that comes before it (a binary search).  Both orders send
+// ties to the lower id.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,8 +59,6 @@ constexpr int DK = 32;       // depth per staging step
 constexpr int LD = DK + 4;   // staged row stride in floats
 constexpr int NT = 256;      // threads: 8 query rows x 32 centroid columns
 constexpr int RPW = QT / (NT / 32);  // queries selected by each warp
-constexpr int MERGE_Q = 8;   // queries per merge CTA, one warp each
-constexpr int MAX_T = 32;
 constexpr float NEG_INF = -3.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -129,30 +136,50 @@ struct Slice {
   }
 };
 
-// Inserts the candidates of `cand` (lane order = id order) that beat the
-// running T-th into the warp's list (rv, ri): strictly greater, after
-// equal entries, so the earlier candidate wins a tie.
-__device__ __forceinline__ void fold(float& rv, int& ri, float cand, int cid,
-                                     int lane, int t) {
-  float kth = __shfl_sync(FULL, rv, t - 1);
-  unsigned sel = __ballot_sync(FULL, cand > kth);
-  while (sel) {
-    const int src = __ffs(sel) - 1;
-    sel &= sel - 1;
-    const float cv = __shfl_sync(FULL, cand, src);
-    const int ci = __shfl_sync(FULL, cid, src);
-    if (cv > kth) {  // uniform over the warp
-      const int p = __popc(__ballot_sync(FULL, lane < t && rv >= cv));
-      const float up_v = __shfl_up_sync(FULL, rv, 1);
-      const int up_i = __shfl_up_sync(FULL, ri, 1);
-      if (lane < t && lane > p) {
-        rv = up_v;
-        ri = up_i;
-      } else if (lane == p) {
-        rv = cv;
-        ri = ci;
+// Whether (va, ia) comes before (vb, ib) in a list: value descending, then
+// id ascending.
+__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+// Sorts the warp's 128 (value, id) pairs, element e = 32*j + lane in slot
+// j, best first (a bitonic network: strides below 32 across lanes, the
+// others between a lane's own slots).
+__device__ __forceinline__ void warp_sort128(float (&v)[CT / 32],
+                                             int (&id)[CT / 32], int lane) {
+#pragma unroll
+  for (int k = 2; k <= CT; k <<= 1) {
+#pragma unroll
+    for (int s = k >> 1; s > 0; s >>= 1) {
+      if (s >= 32) {
+#pragma unroll
+        for (int j = 0; j < CT / 32; ++j) {
+          const int jp = j ^ (s >> 5);
+          if (jp < j) continue;
+          const bool up = ((32 * j + lane) & k) == 0;
+          if (up == before(v[jp], id[jp], v[j], id[j])) {
+            const float tv = v[j];
+            const int ti = id[j];
+            v[j] = v[jp];
+            id[j] = id[jp];
+            v[jp] = tv;
+            id[jp] = ti;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < CT / 32; ++j) {
+          const int e = 32 * j + lane;
+          const float pv = __shfl_xor_sync(FULL, v[j], s);
+          const int pi = __shfl_xor_sync(FULL, id[j], s);
+          // the lower index of an ascending pair keeps the one first
+          const bool first = ((e & s) == 0) == ((e & k) == 0);
+          if (first == before(pv, pi, v[j], id[j])) {
+            v[j] = pv;
+            id[j] = pi;
+          }
+        }
       }
-      kth = __shfl_sync(FULL, rv, t - 1);
     }
   }
 }
@@ -274,46 +301,169 @@ __global__ void __launch_bounds__(NT, 2) chunk_topk_kernel(
   __syncthreads();
 
   const int nch = gridDim.y;
+  const int tc = min(t, CT);  // the chunk's list length
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int row = warp * RPW + i;
     if (row >= nq) continue;  // uniform over the warp
-    float rv = NEG_INF;
-    int ri = -1;
+    const size_t o = ((size_t)(q0 + row) * nch + chunk) * tc;
+    float v[CT / 32];
+    int id[CT / 32];
+#pragma unroll
+    for (int h = 0; h < CT / 32; ++h) {
+      v[h] = ss[row * (CT + 1) + h * 32 + lane];  // NEG_INF past nc
+      id[h] = c0 + h * 32 + lane;
+    }
+    warp_sort128(v, id, lane);
 #pragma unroll
     for (int h = 0; h < CT / 32; ++h)
-      fold(rv, ri, ss[row * (CT + 1) + h * 32 + lane], c0 + h * 32 + lane,
-           lane, t);
-    if (lane < t) {
-      const size_t o = ((size_t)(q0 + row) * nch + chunk) * t + lane;
-      part_vals[o] = rv;
-      part_ids[o] = ri;
+      if (h * 32 + lane < tc) {
+        part_vals[o + h * 32 + lane] = v[h];
+        part_ids[o + h * 32 + lane] = v[h] > 0.5f * NEG_INF ? id[h] : -1;
+      }
+  }
+}
+
+// The merge where a query's lists do not fit in shared memory: one CTA a
+// query.  Every live entry of every chunk list goes straight to its rank:
+// its position in its own list plus, in each other list, the length of the
+// prefix that comes before it (a binary search: the lists are sorted,
+// their -1 pads last).  Ranks are distinct,
+// so each output slot is written once; slots past the live entries keep
+// the (NEG_INF, -1) they were filled with.  Where a list holds T entries
+// (T <= 128), an entry that comes after the best of the lists' last
+// entries has at least T entries before it, so it is dropped before any
+// search.
+__global__ void __launch_bounds__(256) rank_merge_kernel(
+    const float* __restrict__ part_vals, const int* __restrict__ part_ids,
+    float* __restrict__ out_vals, int* __restrict__ out_ids, int nch, int t,
+    int tc) {
+  const int qi = blockIdx.x;
+  const int n = nch * tc;
+  const float* pv = part_vals + (size_t)qi * n;
+  const int* pi = part_ids + (size_t)qi * n;
+  for (int r = threadIdx.x; r < t; r += blockDim.x) {
+    out_vals[(size_t)qi * t + r] = NEG_INF;
+    out_ids[(size_t)qi * t + r] = -1;
+  }
+  __syncthreads();
+  // the bound: the best full list's last entry (id -1: no bound)
+  __shared__ float bv[32];
+  __shared__ int bi[32];
+  float tv = NEG_INF;
+  int ti = -1;
+  if (tc == t)
+    for (int c = threadIdx.x; c < nch; c += blockDim.x) {
+      const int li = pi[c * tc + tc - 1];
+      const float lv = pv[c * tc + tc - 1];
+      if (li >= 0 && (ti < 0 || before(lv, li, tv, ti))) {
+        tv = lv;
+        ti = li;
+      }
+    }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(FULL, tv, o);
+    const int oi = __shfl_xor_sync(FULL, ti, o);
+    if (oi >= 0 && (ti < 0 || before(ov, oi, tv, ti))) {
+      tv = ov;
+      ti = oi;
+    }
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    bv[warp] = tv;
+    bi[warp] = ti;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    tv = lane < (int)(blockDim.x >> 5) ? bv[lane] : NEG_INF;
+    ti = lane < (int)(blockDim.x >> 5) ? bi[lane] : -1;
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(FULL, tv, o);
+      const int oi = __shfl_xor_sync(FULL, ti, o);
+      if (oi >= 0 && (ti < 0 || before(ov, oi, tv, ti))) {
+        tv = ov;
+        ti = oi;
+      }
+    }
+    if (lane == 0) {
+      bv[0] = tv;
+      bi[0] = ti;
+    }
+  }
+  __syncthreads();
+  tv = bv[0];
+  ti = bi[0];
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int id = pi[e];
+    if (id < 0) continue;
+    const float v = pv[e];
+    if (ti >= 0 && before(tv, ti, v, id)) continue;  // T entries before it
+    const int c = e / tc;
+    int rank = e - c * tc;
+    for (int c2 = 0; c2 < nch && rank < t; ++c2) {
+      if (c2 == c) continue;
+      const float* lv = pv + c2 * tc;
+      const int* li = pi + c2 * tc;
+      int lo = 0, hi = tc;  // the first entry not before (v, id)
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (li[mid] >= 0 && before(lv[mid], li[mid], v, id))
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      rank += lo;
+    }
+    if (rank < t) {
+      out_vals[(size_t)qi * t + rank] = v;
+      out_ids[(size_t)qi * t + rank] = id;
     }
   }
 }
 
-// Merges each query's per-chunk lists in chunk order: a chunk's ids are all
-// above the earlier chunks', so inserting after equal entries keeps ties in
-// ascending id order.
-__global__ void __launch_bounds__(MERGE_Q * 32) merge_kernel(
+// The merge where a query's n chunk entries fit in shared memory (p, a
+// power of two >= n, pairs of 8 bytes): one CTA a query sorts them, -1
+// pads last, and writes the first T.
+__global__ void __launch_bounds__(256) sort_merge_kernel(
     const float* __restrict__ part_vals, const int* __restrict__ part_ids,
-    float* __restrict__ out_vals, int* __restrict__ out_ids, int q, int nch,
+    float* __restrict__ out_vals, int* __restrict__ out_ids, int n, int p,
     int t) {
-  const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * MERGE_Q + (threadIdx.x >> 5);
-  if (qi >= q) return;  // uniform over the warp
-  float rv = NEG_INF;
-  int ri = -1;
-  for (int c = 0; c < nch; ++c) {
-    const size_t o = ((size_t)qi * nch + c) * t + lane;
-    fold(rv, ri, lane < t ? part_vals[o] : NEG_INF,
-         lane < t ? part_ids[o] : -1, lane, t);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sv = reinterpret_cast<float*>(smem_raw);
+  int* si = reinterpret_cast<int*>(sv + p);
+  const int qi = blockIdx.x;
+  for (int e = threadIdx.x; e < p; e += blockDim.x) {
+    const int id = e < n ? part_ids[(size_t)qi * n + e] : -1;
+    sv[e] = id >= 0 ? part_vals[(size_t)qi * n + e] : NEG_INF;
+    si[e] = id;
   }
-  if (lane < t) {
-    out_vals[(size_t)qi * t + lane] = rv;
-    out_ids[(size_t)qi * t + lane] = rv > 0.5f * NEG_INF ? ri : -1;
+  __syncthreads();
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < p / 2; i += blockDim.x) {
+        const int a = 2 * i - (i & (j - 1));
+        const int b = a + j;
+        const float va = sv[a], vb = sv[b];
+        const int ia = si[a], ib = si[b];
+        if (((a & k) == 0) ? before(vb, ib, va, ia) : before(va, ia, vb, ib)) {
+          sv[a] = vb;
+          sv[b] = va;
+          si[a] = ib;
+          si[b] = ia;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int r = threadIdx.x; r < t; r += blockDim.x) {
+    const bool live = r < n && si[r] >= 0;
+    out_vals[(size_t)qi * t + r] = live ? sv[r] : NEG_INF;
+    out_ids[(size_t)qi * t + r] = live ? si[r] : -1;
   }
 }
+
+constexpr size_t SORT_MERGE_MAX = 64 * 1024;  // shared memory of a sort merge
 
 template <typename TQ, typename TC, int METRIC, bool VEC>
 cudaError_t launch(int q, int k, int d, int t, const void* queries,
@@ -326,19 +476,38 @@ cudaError_t launch(int q, int k, int d, int t, const void* queries,
       (int*)part_ids, q, k, d, t);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_kernel<<<(q + MERGE_Q - 1) / MERGE_Q, MERGE_Q * 32, 0, stream>>>(
-      (const float*)part_vals, (const int*)part_ids, (float*)out_vals,
-      (int*)out_ids, q, nch, t);
+  const int tc = min(t, CT);
+  const int n = nch * tc;
+  int p = 1;
+  while (p < n) p <<= 1;
+  if ((size_t)p * 8 <= SORT_MERGE_MAX) {
+    if ((size_t)p * 8 > 48 * 1024) {
+      err = cudaFuncSetAttribute(sort_merge_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)SORT_MERGE_MAX);
+      if (err != cudaSuccess) return err;
+    }
+    sort_merge_kernel<<<q, 256, (size_t)p * 8, stream>>>(
+        (const float*)part_vals, (const int*)part_ids, (float*)out_vals,
+        (int*)out_ids, n, p, t);
+  } else {
+    rank_merge_kernel<<<q, 256, 0, stream>>>(
+        (const float*)part_vals, (const int*)part_ids, (float*)out_vals,
+        (int*)out_ids, nch, t, tc);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The number of K chunks: the scratch holds [Q, n_chunks, T] values and ids.
+// The number of K chunks and each chunk's list length: the scratch holds
+// [Q, n_chunks, list_len] values and ids.
 extern "C" int centroid_topk_chunks(int k) { return (k + CT - 1) / CT; }
+extern "C" int centroid_topk_list_len(int t) { return min(t, CT); }
 
 // Plain C entry point (bound with ctypes).  part_vals/part_ids are the
-// wrapper's [Q, centroid_topk_chunks(K), T] f32/int32 scratch.  Returns a
+// wrapper's [Q, centroid_topk_chunks(K), centroid_topk_list_len(T)]
+// f32/int32 scratch.  Returns a
 // cudaError_t: 0 on a successful launch of both kernels.
 extern "C" int centroid_topk_launch(int q, int k, int d, int t,
                                     const void* queries, const void* centroids,
@@ -346,7 +515,7 @@ extern "C" int centroid_topk_launch(int q, int k, int d, int t,
                                     void* out_vals, void* out_ids, int metric,
                                     int q_dtype, int c_dtype, void* stream) {
   if (q <= 0) return cudaSuccess;
-  if (t < 1 || t > MAX_T || t > k || d < 1) return cudaErrorInvalidValue;
+  if (t < 1 || t > k || d < 1) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   // 16-byte copies need 16-byte aligned rows
   const bool vec = d % 4 == 0 && (uintptr_t)queries % 16 == 0 &&

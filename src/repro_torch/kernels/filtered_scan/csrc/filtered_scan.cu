@@ -108,14 +108,14 @@ constexpr int PLAN_CAP = 8192;     // slots one plan sorts (8 per thread)
 constexpr int PLAN_E = PLAN_CAP / PLAN_NT;
 constexpr float NEG_INF = -3.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
-// A slot's sort word: cluster (31 bits) | query (QUERY_BITS) | the slot's
-// place in the plan (SLOT_BITS), so one 64-bit compare orders by (cluster,
-// query) and the word carries its slot.  Slots out of range take the
-// cluster field kBadCluster (after every real cluster, query field 0); the
-// sort's padding, all ones, sorts after everything.
+// A slot's sort word: cluster (cbits) | query (qbits) | the slot's place in
+// the plan (SLOT_BITS), so one 64-bit compare orders by (cluster, query) and
+// the word carries its slot.  The field widths follow the operands: qbits
+// holds every query index (Q < 2^qbits) and cbits every cluster index plus
+// the all-ones field `bad` that slots out of range take (after every real
+// cluster, query field 0); the launcher checks cbits + qbits + SLOT_BITS
+// <= 64.  The sort's padding, all ones, sorts after everything.
 constexpr int SLOT_BITS = 13;   // PLAN_CAP slots
-constexpr int QUERY_BITS = 20;  // queries < 2^20
-constexpr unsigned long long kBadCluster = 0x7fffffffull;
 constexpr unsigned long long kPadKey = ~0ull;
 static_assert(PLAN_CAP <= (1 << SLOT_BITS), "a plan's slots fit SLOT_BITS");
 
@@ -219,8 +219,8 @@ __device__ __forceinline__ void segment_steps(unsigned long long& a0,
 // threads; pc (a power of two >= n, >= PLAN_NT) keys in shared memory.
 __global__ void __launch_bounds__(PLAN_NT) plan_kernel(
     const int* __restrict__ slot_cluster, const int* __restrict__ slot_query,
-    int base, int n, int pc, int n_clusters, int n_queries, int g, int n_rb,
-    Plan plan) {
+    int base, int n, int pc, int n_clusters, int n_queries, int qbits,
+    unsigned long long bad, int g, int n_rb, Plan plan) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned long long* key = reinterpret_cast<unsigned long long*>(smem_raw);
   __shared__ int ws[32];
@@ -231,8 +231,8 @@ __global__ void __launch_bounds__(PLAN_NT) plan_kernel(
     if (i < n) {
       const int c = slot_cluster[base + i], q = slot_query[base + i];
       const bool ok = c >= 0 && c < n_clusters && q >= 0 && q < n_queries;
-      k = (ok ? ((unsigned long long)c << QUERY_BITS | (unsigned)q)
-              : kBadCluster << QUERY_BITS) << SLOT_BITS | (unsigned)i;
+      k = (ok ? ((unsigned long long)c << qbits | (unsigned)q)
+              : bad << qbits) << SLOT_BITS | (unsigned)i;
     }
     key[i] = k;
   }
@@ -300,7 +300,7 @@ __global__ void __launch_bounds__(PLAN_NT) plan_kernel(
       const int p = run++;
       key[p] = kk[e];  // compacted pair keys (p <= i)
       plan.pair_begin[p] = i0 + e;
-      plan.pair_query[p] = (int)(kk[e] & ((1u << QUERY_BITS) - 1));
+      plan.pair_query[p] = (int)(kk[e] & ((1ull << qbits) - 1));
     }
   }
   if (tid == 0) plan.pair_begin[n_pairs] = n;
@@ -317,8 +317,8 @@ __global__ void __launch_bounds__(PLAN_NT) plan_kernel(
     cand[e] = 0;
     cl[e] = 0;
     if (e < e_per && j < n_pairs) {
-      cl[e] = (unsigned)(key[j] >> QUERY_BITS);  // pair keys now
-      if (j == 0 || (unsigned)(key[j - 1] >> QUERY_BITS) != cl[e]) cand[e] = j;
+      cl[e] = (unsigned)(key[j] >> qbits);  // pair keys now
+      if (j == 0 || (unsigned)(key[j - 1] >> qbits) != cl[e]) cand[e] = j;
     }
     m = max(m, cand[e]);
     cand[e] = m;  // inclusive within the thread
@@ -344,11 +344,11 @@ __global__ void __launch_bounds__(PLAN_NT) plan_kernel(
     if (!(e < e_per && j < n_pairs)) continue;
     if (chunk_heads >> e & 1u) {
       plan.chunk_pair_begin[run] = j;
-      plan.chunk_cluster[run] = cl[e] == kBadCluster ? -1 : (int)cl[e];
+      plan.chunk_cluster[run] = cl[e] == bad ? -1 : (int)cl[e];
       ++run;
     }
     const int cid = run - 1;
-    if (j == n_pairs - 1 || (unsigned)(key[j + 1] >> QUERY_BITS) != cl[e]) {
+    if (j == n_pairs - 1 || (unsigned)(key[j + 1] >> qbits) != cl[e]) {
       const int cf = cand[e];  // the cluster's last pair: describe its chunks
       const int nch = (j - cf) / g + 1;
       const int c0 = cid - (j - cf) / g;
@@ -803,6 +803,13 @@ cudaError_t launch_scan(const Plan& plan, int n_slots, int n_rb,
   return cudaGetLastError();
 }
 
+// The bits that hold x: the least b with x < 2^b.
+inline int bit_length(unsigned x) {
+  int b = 0;
+  while (b < 32 && (x >> b) != 0) ++b;
+  return b;
+}
+
 template <typename TQ, typename TV, int MODE>
 cudaError_t launch(int n_slots, const void* slot_cluster, const void* slot_query,
                    int n_clusters, int n_queries, const void* queries,
@@ -818,6 +825,10 @@ cudaError_t launch(int n_slots, const void* slot_cluster, const void* slot_query
   const Plan plan = plan_at((int*)scratch, n_max);
   const bool vec = ((size_t)d * sizeof(TV)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(vectors) % 16 == 0;
+  const int qbits = bit_length((unsigned)n_queries);
+  const int cbits = bit_length((unsigned)n_clusters);
+  if (qbits + cbits + SLOT_BITS > 64) return cudaErrorInvalidValue;
+  const unsigned long long bad = (1ull << cbits) - 1;  // > every cluster
   cudaError_t err = cudaFuncSetAttribute(
       plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       PLAN_CAP * 8);
@@ -828,7 +839,7 @@ cudaError_t launch(int n_slots, const void* slot_cluster, const void* slot_query
     while (pc < n) pc <<= 1;
     plan_kernel<<<1, PLAN_NT, (size_t)pc * 8, stream>>>(
         (const int*)slot_cluster, (const int*)slot_query, base, n, pc,
-        n_clusters, n_queries, g, n_rb, plan);
+        n_clusters, n_queries, qbits, bad, g, n_rb, plan);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
 #if FS_VARIANT == 3  // experiment: the plan alone
     continue;
@@ -864,8 +875,8 @@ extern "C" int filtered_scan_launch(
     const void* aux, void* out, int d, int vpad, int m, int f, int mode,
     int q_dtype, int v_dtype, void* scratch, void* stream) {
   if (n_slots <= 0 || vpad <= 0) return cudaSuccess;
-  if (d < 1 || f < 1 || m < 0 || scratch == nullptr ||
-      n_queries >= (1 << QUERY_BITS))
+  if (d < 1 || f < 1 || m < 0 || scratch == nullptr || n_queries < 0 ||
+      n_clusters < 0)
     return cudaErrorInvalidValue;
   if ((long long)PLAN_CAP * ((vpad + RB - 1) / RB) > 0x7fffffffLL)
     return cudaErrorInvalidValue;

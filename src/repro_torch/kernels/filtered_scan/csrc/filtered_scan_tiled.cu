@@ -57,6 +57,17 @@
 //   running k-th are inserted in row order, one per row per step for 4
 //   rows at once: lane j < k holds the row's j-th best (value, id), and a
 //   candidate goes after equal entries, so the earliest row wins a tie.
+// - Any k.  Both bodies keep each row's list in registers, R = 1, 2, 4 or
+//   8 slots a lane (lane j holds ranks j, j+32, ...; an insert shifts every
+//   slot one rank, lane 0 of slot s taking lane 31 of slot s-1), so
+//   k <= 256 is the same streaming fold (R = 1, k <= 32, is the first
+//   design's code unchanged; the tensor-core epilogue masks 4 / 2 / 1 rows
+//   at once as R grows, to bound its registers).  k > 256 (up to Vpad)
+//   takes a third body, scan_sort_kernel: one CTA per (slot, query row)
+//   scores the whole cluster into shared memory and bitonic-sorts it by
+//   (value descending, row ascending), the same order as the fold.  It
+//   reads a cluster once per query row, so it is slow; no full-size path
+//   asks for k > 256.
 // - D not a multiple of 8, or unaligned operands, take scalar staging loads
 //   into the same ring (the tests' D = 97 and 100); Vpad and D are walked
 //   in whole tiles with the ragged edge zero-filled and masked.
@@ -76,7 +87,7 @@ namespace {
 constexpr int QT = 64;   // query rows per CTA
 constexpr int NT = 256;  // FMA body threads; the tensor-core body has 2 x NT
 constexpr int RPW = QT / (NT / 32);  // query rows folded by each warp
-constexpr int MAX_K = 32;
+constexpr int MAX_R = 8;  // register slots a lane: k <= 256 in registers
 constexpr float NEG_INF = -3.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -89,12 +100,52 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
+// The value at warp-uniform rank r of a list held R slots a lane.
+template <int R>
+__device__ __forceinline__ float rank_value(const float (&rv)[R], int r) {
+  const int s = r >> 5;
+  float x = rv[0];
+#pragma unroll
+  for (int j = 1; j < R; ++j) x = s == j ? rv[j] : x;
+  return __shfl_sync(FULL, x, r & 31);
+}
+
+// Where `ins` (uniform over the warp), inserts (cv, ci) after the entries
+// >= cv of the warp's k-list: ranks p+1 .. k-1 take the rank below them.
+// Branch-free, so several rows' insert chains overlap.
+template <int R>
+__device__ __forceinline__ void insert_if(float (&rv)[R], int (&ri)[R],
+                                          float cv, int ci, int lane, int k,
+                                          bool ins) {
+  int p = 0;
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    p += __popc(__ballot_sync(FULL, s * 32 + lane < k && rv[s] >= cv));
+#pragma unroll
+  for (int s = R - 1; s >= 0; --s) {  // slot s-1 is read before it moves
+    float up_v = __shfl_up_sync(FULL, rv[s], 1);
+    int up_i = __shfl_up_sync(FULL, ri[s], 1);
+    if (s > 0) {
+      const float wv = __shfl_sync(FULL, rv[s > 0 ? s - 1 : 0], 31);
+      const int wi = __shfl_sync(FULL, ri[s > 0 ? s - 1 : 0], 31);
+      up_v = lane == 0 ? wv : up_v;
+      up_i = lane == 0 ? wi : up_i;
+    }
+    const int r = s * 32 + lane;
+    const bool shift = ins && r < k && r > p;
+    const bool put = ins && r == p;
+    rv[s] = shift ? up_v : put ? cv : rv[s];
+    ri[s] = shift ? up_i : put ? ci : ri[s];
+  }
+}
+
 // Inserts the candidates of `cand` (lane order = row order) that beat the
 // running k-th into the warp's list (rv, ri): strictly greater, after equal
 // entries, so the earlier row wins a tie.
-__device__ __forceinline__ void fold(float& rv, int& ri, float cand, int cid,
-                                     int lane, int k) {
-  float kth = __shfl_sync(FULL, rv, k - 1);
+template <int R>
+__device__ __forceinline__ void fold(float (&rv)[R], int (&ri)[R], float cand,
+                                     int cid, int lane, int k) {
+  float kth = rank_value<R>(rv, k - 1);
   unsigned sel = __ballot_sync(FULL, cand > kth);
   while (sel) {
     const int src = __ffs(sel) - 1;
@@ -102,18 +153,34 @@ __device__ __forceinline__ void fold(float& rv, int& ri, float cand, int cid,
     const float cv = __shfl_sync(FULL, cand, src);
     const int ci = __shfl_sync(FULL, cid, src);
     if (cv > kth) {  // uniform over the warp
-      const int p = __popc(__ballot_sync(FULL, lane < k && rv >= cv));
-      const float up_v = __shfl_up_sync(FULL, rv, 1);
-      const int up_i = __shfl_up_sync(FULL, ri, 1);
-      if (lane < k && lane > p) {
-        rv = up_v;
-        ri = up_i;
-      } else if (lane == p) {
-        rv = cv;
-        ri = ci;
-      }
-      kth = __shfl_sync(FULL, rv, k - 1);
+      insert_if<R>(rv, ri, cv, ci, lane, k, true);
+      kth = rank_value<R>(rv, k - 1);
     }
+  }
+}
+
+// Writes a warp's k-list to out[0, k): values, and ids where the value is
+// not a NEG_INF pad.
+template <int R>
+__device__ __forceinline__ void write_list(const float (&rv)[R],
+                                           const int (&ri)[R], float* out_v,
+                                           int* out_i, int lane, int k) {
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int r = s * 32 + lane;
+    if (r < k) {
+      out_v[r] = rv[s];
+      out_i[r] = rv[s] > 0.5f * NEG_INF ? ri[s] : -1;
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void init_list(float (&rv)[R], int (&ri)[R]) {
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    rv[s] = NEG_INF;
+    ri[s] = -1;
   }
 }
 
@@ -152,7 +219,7 @@ size_t smem_bytes(int m, int f) {
   return 4 * (floats + ints);
 }
 
-template <typename TQ, typename TV, int MODE>
+template <typename TQ, typename TV, int MODE, int R>
 __global__ void __launch_bounds__(NT) scan_fma_kernel(
     const int* __restrict__ slot_cluster, const int* __restrict__ slot_tile,
     const int* __restrict__ n_unique, int u_cap, int n_clusters,
@@ -198,13 +265,10 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
   }
   for (int e = tid; e < QT; e += NT) npass_s[e] = 0;
 
-  float rv[RPW];
-  int ri[RPW];
+  float rv[RPW][R];
+  int ri[RPW][R];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    rv[i] = NEG_INF;
-    ri[i] = -1;
-  }
+  for (int i = 0; i < RPW; ++i) init_list<R>(rv[i], ri[i]);
 
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -299,8 +363,8 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
       if (r >= nq) continue;  // uniform over the warp
 #pragma unroll
       for (int h = 0; h < VT / 32; ++h)
-        fold(rv[i], ri[i], ss[r * (VT + 1) + h * 32 + lane],
-             idss[h * 32 + lane], lane, k);
+        fold<R>(rv[i], ri[i], ss[r * (VT + 1) + h * 32 + lane],
+                idss[h * 32 + lane], lane, k);
     }
     __syncthreads();  // ss and the staged row constants are reused next chunk
   }
@@ -308,11 +372,9 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int r = warp + (NT / 32) * i;
-    if (r < nq && lane < k) {
-      const size_t o = (out_row0 + r) * k + lane;
-      out_vals[o] = rv[i];
-      out_ids[o] = rv[i] > 0.5f * NEG_INF ? ri[i] : -1;
-    }
+    if (r < nq)
+      write_list<R>(rv[i], ri[i], out_vals + (out_row0 + r) * k,
+                    out_ids + (out_row0 + r) * k, lane, k);
   }
   __syncthreads();
   for (int e = tid; e < nq; e += NT) out_npass[out_row0 + e] = npass_s[e];
@@ -476,7 +538,7 @@ __device__ __forceinline__ bool dnf_pass(const unsigned* act,
   return false;
 }
 
-template <typename TQ, int MODE, bool VEC>
+template <typename TQ, int MODE, bool VEC, int R>
 __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     const int* __restrict__ slot_cluster, const int* __restrict__ slot_tile,
     const int* __restrict__ n_unique, int u_cap, int n_clusters,
@@ -680,12 +742,14 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     act_s[e] = act;
   }
 
-  float rv[RPW];
-  int ri[RPW], npass[RPW];
+  // rows masked and folded at once: fewer as the lists grow, to bound the
+  // registers
+  constexpr int RBR = R == 1 ? RB : R == 2 ? 2 : 1;
+  float rv[RPW][R];
+  int ri[RPW][R], npass[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
-    rv[i] = NEG_INF;
-    ri[i] = -1;
+    init_list<R>(rv[i], ri[i]);
     npass[i] = 0;
   }
   unsigned free_rows = 0;  // bit i: row warp + 8*i passes every live row
@@ -715,13 +779,13 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     // every live row, counted once per chunk), then the inserts of those
     // above the running k-th
 #pragma unroll
-    for (int i0 = 0; i0 < RPW; i0 += RB) {
-      float cand[RB][VT / 32], kth[RB];
-      unsigned sel[RB][VT / 32];
+    for (int i0 = 0; i0 < RPW; i0 += RBR) {
+      float cand[RBR][VT / 32], kth[RBR];
+      unsigned sel[RBR][VT / 32];
 #pragma unroll
-      for (int i = 0; i < RB; ++i) {
+      for (int i = 0; i < RBR; ++i) {
         const int r = warp + (NT / 32) * (i0 + i);
-        kth[i] = __shfl_sync(FULL, rv[i0 + i], k - 1);
+        kth[i] = rank_value<R>(rv[i0 + i], k - 1);
         if (r < nq && (free_rows >> (i0 + i) & 1)) {  // every live row passes
           npass[i0 + i] += n_live;
 #pragma unroll
@@ -755,7 +819,7 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
       while (true) {
         bool more = false;
 #pragma unroll
-        for (int i = 0; i < RB; ++i) {
+        for (int i = 0; i < RBR; ++i) {
           int h = VT / 32;
           unsigned w = 0;
 #pragma unroll
@@ -776,15 +840,8 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
           const float cv = __shfl_sync(FULL, ch, src);
           const int ci = __shfl_sync(FULL, cid, src);
           const bool ins = w != 0 && cv > kth[i];
-          const int p =
-              __popc(__ballot_sync(FULL, lane < k && rv[i0 + i] >= cv));
-          const float up_v = __shfl_up_sync(FULL, rv[i0 + i], 1);
-          const int up_i = __shfl_up_sync(FULL, ri[i0 + i], 1);
-          const bool shift = ins && lane < k && lane > p;
-          const bool put = ins && lane == p;
-          rv[i0 + i] = shift ? up_v : put ? cv : rv[i0 + i];
-          ri[i0 + i] = shift ? up_i : put ? ci : ri[i0 + i];
-          kth[i] = __shfl_sync(FULL, rv[i0 + i], k - 1);
+          insert_if<R>(rv[i0 + i], ri[i0 + i], cv, ci, lane, k, ins);
+          kth[i] = rank_value<R>(rv[i0 + i], k - 1);
 #pragma unroll
           for (int j = 0; j < VT / 32; ++j) {
             if (j == h) sel[i][j] = w & (w - 1);
@@ -800,16 +857,138 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int r = warp + (NT / 32) * i;
-    if (r < nq && lane < k) {
-      const size_t o = (out_row0 + r) * k + lane;
-      out_vals[o] = rv[i];
-      out_ids[o] = rv[i] > 0.5f * NEG_INF ? ri[i] : -1;
-    }
+    if (r < nq)
+      write_list<R>(rv[i], ri[i], out_vals + (out_row0 + r) * k,
+                    out_ids + (out_row0 + r) * k, lane, k);
     if (r < nq && lane == 0) out_npass[out_row0 + r] = npass[i];
   }
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// Sort body: k > 256 (up to Vpad), every dtype pair.
+// ---------------------------------------------------------------------------
+
+namespace sortk {
+
+constexpr int NTS = 256;  // threads of a sort CTA
+
+// Shared memory of a sort CTA: the cluster's scores and rows padded to a
+// power of two p, the query row in f32, its bounds.
+size_t smem_bytes(int p, int d, int m, int f) {
+  return (size_t)p * 8 + (size_t)d * 4 + (size_t)2 * f * m * 4;
+}
+
+// Whether (va, ia) comes before (vb, ib): value descending, row ascending.
+__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+template <typename TQ, typename TV, int MODE>
+__global__ void __launch_bounds__(NTS) scan_sort_kernel(
+    const int* __restrict__ slot_cluster, const int* __restrict__ slot_tile,
+    const int* __restrict__ n_unique, int u_cap, int n_clusters,
+    const TQ* __restrict__ queries, const int16_t* __restrict__ lo,
+    const int16_t* __restrict__ hi, const TV* __restrict__ vectors,
+    const int16_t* __restrict__ attrs, const int* __restrict__ ids,
+    const float* __restrict__ aux, float* __restrict__ out_vals,
+    int* __restrict__ out_ids, int* __restrict__ out_npass, int qb, int d,
+    int vpad, int m, int f, int k, int p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* vals = reinterpret_cast<float*>(smem_raw);  // [p]
+  int* rows = reinterpret_cast<int*>(vals + p);       // [p]
+  float* qs = reinterpret_cast<float*>(rows + p);     // [d]
+  int* lo_s = reinterpret_cast<int*>(qs + d);         // [f][m]
+  int* hi_s = lo_s + f * m;                           // [f][m]
+  __shared__ int npass_s;
+
+  const int s = blockIdx.x;
+  const int r = blockIdx.y;  // query row within the tile
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const size_t out_row = (size_t)s * qb + r;
+  const int tile = slot_tile[s];
+  const int cluster = slot_cluster[s];
+  if (is_pad(s, tile, cluster, n_unique, u_cap, n_clusters)) {
+    write_pad(out_vals, out_ids, out_npass, out_row, 1, k);
+    return;  // uniform over the CTA
+  }
+  const size_t qrow = (size_t)tile * qb + r;
+  const size_t crow0 = (size_t)cluster * vpad;
+  const int fm = f * m;
+  for (int e = tid; e < d; e += NTS) qs[e] = to_f32(queries[qrow * d + e]);
+  for (int e = tid; e < fm; e += NTS) {
+    lo_s[e] = lo[qrow * fm + e];
+    hi_s[e] = hi[qrow * fm + e];
+  }
+  if (tid == 0) npass_s = 0;
+  __syncthreads();
+
+  // one warp a row: the score, the row constant, liveness and the DNF test
+  for (int v = tid >> 5; v < p; v += NTS / 32) {
+    float sc = NEG_INF;
+    bool ok = false;
+    if (v < vpad) {
+      const size_t row = crow0 + v;
+      float acc = 0.f;
+      for (int e = lane; e < d; e += 32)
+        acc = fmaf(qs[e], to_f32(vectors[row * d + e]), acc);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
+      if (MODE == kSq8) acc *= aux[row];
+      if (MODE == kL2) acc = 2.f * acc - aux[row];
+      ok = ids[row] >= 0;
+      if (ok) {
+        bool any = false;
+        for (int t = 0; t < f && !any; ++t) {
+          bool all = true;
+          for (int a = 0; a < m && all; ++a) {
+            const int av = attrs[row * m + a];
+            all = av >= lo_s[t * m + a] && av <= hi_s[t * m + a];
+          }
+          any = all;
+        }
+        ok = any;
+      }
+      sc = ok ? acc : NEG_INF;
+    }
+    if (lane == 0) {
+      vals[v] = sc;
+      rows[v] = v;
+      if (ok) atomicAdd(&npass_s, 1);
+    }
+  }
+  __syncthreads();
+
+  // bitonic sort, best first
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < p / 2; i += NTS) {
+        const int a = 2 * i - (i & (stride - 1));
+        const int b = a + stride;
+        const bool up = (a & size) == 0;
+        const float va = vals[a], vb = vals[b];
+        const int ra = rows[a], rb = rows[b];
+        if (up ? before(vb, rb, va, ra) : before(va, ra, vb, rb)) {
+          vals[a] = vb;
+          vals[b] = va;
+          rows[a] = rb;
+          rows[b] = ra;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int j = tid; j < k; j += NTS) {
+    const float v = vals[j];
+    out_vals[out_row * k + j] = v;
+    out_ids[out_row * k + j] = v > 0.5f * NEG_INF ? ids[crow0 + rows[j]] : -1;
+  }
+  if (tid == 0) out_npass[out_row] = npass_s;
+}
+
+}  // namespace sortk
 
 #define FS_PARAMS                                                          \
   int n_slots, const void *slot_cluster, const void *slot_tile,            \
@@ -834,9 +1013,30 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The register slots a lane the k-list needs: 1, 2, 4 or 8 (k <= 256).
+inline int list_slots(int k) {
+  return k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8;
+}
+
+// k > 256: one CTA per (slot, query row), the cluster sorted in shared
+// memory.
 template <typename TQ, typename TV, int MODE>
-cudaError_t launch_fma(FS_PARAMS) {
-  auto kernel = ffma::scan_fma_kernel<TQ, TV, MODE>;
+cudaError_t launch_sort(FS_PARAMS) {
+  auto kernel = sortk::scan_sort_kernel<TQ, TV, MODE>;
+  int p = 1;
+  while (p < vpad) p <<= 1;
+  const size_t smem = sortk::smem_bytes(p, d, m, f);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(n_slots, qb);
+  kernel<<<grid, sortk::NTS, smem, stream>>>(FS_KERNEL_ARGS(TQ, TV), p);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TV, int MODE, int R>
+cudaError_t launch_fma_r(FS_PARAMS) {
+  auto kernel = ffma::scan_fma_kernel<TQ, TV, MODE, R>;
   const size_t smem = ffma::smem_bytes(m, f);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(kernel, smem);
@@ -846,9 +1046,25 @@ cudaError_t launch_fma(FS_PARAMS) {
   return cudaGetLastError();
 }
 
-template <typename TQ, int MODE, bool VEC>
-cudaError_t launch_tc(FS_PARAMS) {
-  auto kernel = tc::scan_tc_kernel<TQ, MODE, VEC>;
+#define FS_FWD                                                              \
+  n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters, queries,   \
+      lo, hi, vectors, attrs, ids, aux, out_vals, out_ids, out_npass, qb, d, \
+      vpad, m, f, k, stream
+
+template <typename TQ, typename TV, int MODE>
+cudaError_t launch_fma(FS_PARAMS) {
+  if (k > 32 * MAX_R) return launch_sort<TQ, TV, MODE>(FS_FWD);
+  switch (list_slots(k)) {
+    case 1: return launch_fma_r<TQ, TV, MODE, 1>(FS_FWD);
+    case 2: return launch_fma_r<TQ, TV, MODE, 2>(FS_FWD);
+    case 4: return launch_fma_r<TQ, TV, MODE, 4>(FS_FWD);
+    default: return launch_fma_r<TQ, TV, MODE, 8>(FS_FWD);
+  }
+}
+
+template <typename TQ, int MODE, bool VEC, int R>
+cudaError_t launch_tc_r(FS_PARAMS) {
+  auto kernel = tc::scan_tc_kernel<TQ, MODE, VEC, R>;
   const size_t smem = tc::layout(sizeof(TQ) == 4, d, m, f).total;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -857,16 +1073,27 @@ cudaError_t launch_tc(FS_PARAMS) {
   return cudaGetLastError();
 }
 
+template <typename TQ, int MODE, bool VEC>
+cudaError_t launch_tc(FS_PARAMS) {
+  switch (list_slots(k)) {
+    case 1: return launch_tc_r<TQ, MODE, VEC, 1>(FS_FWD);
+    case 2: return launch_tc_r<TQ, MODE, VEC, 2>(FS_FWD);
+    case 4: return launch_tc_r<TQ, MODE, VEC, 4>(FS_FWD);
+    default: return launch_tc_r<TQ, MODE, VEC, 8>(FS_FWD);
+  }
+}
+
 // Whether the tensor-core body takes bf16 vectors at these shapes: at most
 // MAX_M attributes, and its shared memory fits.
 bool tc_fits(bool f32q, int d, int m, int f) {
   return m <= tc::MAX_M && tc::layout(f32q, d, m, f).total <= SMEM_MAX;
 }
 
-// bf16 vectors: the tensor-core body where it fits, else the FMA body.
+// bf16 vectors: the tensor-core body where it fits (k <= 256), else the
+// FMA or sort body.
 template <typename TQ, int MODE>
 cudaError_t launch_bf16(FS_PARAMS) {
-  if (!tc_fits(sizeof(TQ) == 4, d, m, f))
+  if (!tc_fits(sizeof(TQ) == 4, d, m, f) || k > 32 * MAX_R)
     return launch_fma<TQ, __nv_bfloat16, MODE>(
         n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters,
         queries, lo, hi, vectors, attrs, ids, aux, out_vals, out_ids,
@@ -905,7 +1132,7 @@ extern "C" int filtered_scan_tiled_launch(
     void* out_npass, int qb, int d, int vpad, int m, int f, int k, int mode,
     int q_dtype, int v_dtype, void* stream) {
   if (n_slots <= 0) return cudaSuccess;
-  if (k < 1 || k > MAX_K || qb < 1 || d < 1 || f < 1 || m < 0)
+  if (k < 1 || k > vpad || qb < 1 || d < 1 || f < 1 || m < 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define FS_ARGS                                                               \

@@ -32,8 +32,6 @@ PER_PROBE_SOURCE = build.KERNELS_DIR / "filtered_scan" / "csrc" / "filtered_scan
 LAUNCHES = 0
 PER_PROBE_LAUNCHES = 0
 
-MAX_K = 32
-MAX_PER_PROBE_QUERIES = 1 << 20  # the per-probe plan packs a query in 20 bits
 _MODES = {"dot": 0, "l2": 1, "sq8": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -152,7 +150,8 @@ def filtered_scan_tiled(
       norms / scales [K, Vpad] f32 — l2 / SQ8 row constants
 
     Returns vals [S, QB, k] f32 (NEG_INF pads), ids [S, QB, k] int32 (-1
-    pads), npass [S, QB] int32; pad slots hold (NEG_INF, -1, 0).
+    pads), npass [S, QB] int32; pad slots hold (NEG_INF, -1, 0).  Any k in
+    ``[1, Vpad]``.
     """
     global LAUNCHES
     _check_metric(metric, norms, scales)
@@ -166,12 +165,11 @@ def filtered_scan_tiled(
             attrs, ids, norms, scales, metric=metric, k=k, q_block=q_block)
     if vectors.device.type != "cuda":
         raise ValueError(f"unsupported device {vectors.device}")
-    if not 1 <= k <= MAX_K:
-        raise NotImplementedError(f"the CUDA kernel keeps k <= {MAX_K}, got {k}")
-
     dev = vectors.device
     s = slot_cluster.shape[0]
     kc, vpad, _ = vectors.shape
+    if not 1 <= k <= vpad:  # the plain version's top_k refuses k > Vpad
+        raise ValueError(f"k={k} must lie in [1, Vpad={vpad}]")
     f, m = lo.shape[1], lo.shape[2]
     quantized = scales is not None
     i32 = torch.int32
@@ -283,9 +281,6 @@ def filtered_scan(
         _check("norms" if metric == "l2" else "scales", aux, torch.float32,
                (kc, vpad), dev)
 
-    if nq >= MAX_PER_PROBE_QUERIES:
-        raise NotImplementedError(
-            f"the CUDA kernel's plan keeps Q < {MAX_PER_PROBE_QUERIES}, got {nq}")
     out = torch.empty((p, vpad), dtype=torch.float32, device=dev)
     if p == 0:
         return out

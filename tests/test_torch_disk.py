@@ -26,6 +26,7 @@ from repro.core import ivf as jivf
 from repro.core import probes as jp
 from repro.core import storage as js
 from repro_torch.core import blockstore as tbs
+from repro_torch.core import delta as tdelta
 from repro_torch.core import disk as tdisk
 from repro_torch.core import engine as teng
 from repro_torch.core import filters as tf
@@ -301,9 +302,11 @@ def test_shard_reader_records_match_reference(built):
 
 def test_prefetch_for_queries(built):
     """The prefetch plan pages exactly the clusters the search then needs,
-    on the background thread, so the search misses nothing."""
-    *_, ram, ckpt = built
-    _, _, tq, tfs = _queries(16, "selective", seed=7)
+    on the background thread, so the search misses nothing; with a widened
+    plan (``t_max``) too, and the widened disk search equals the widened
+    RAM engine and the JAX disk tier."""
+    jd, _, ram, ckpt = built
+    jq, jfs, tq, tfs = _queries(16, "selective", seed=7)
     with tdisk.DiskIVFIndex.open(ckpt, device="cpu") as td:
         td.prefetch_for_queries(tq, 4, q_block=16, fspec=tfs)
         td.cache.drain()
@@ -313,14 +316,25 @@ def test_prefetch_for_queries(built):
         assert td.cache.stats.misses == before
         _assert_same(teng.search_fused_tiled(ram, tq, tfs, k=8, n_probes=4,
                                              q_block=16, device="cpu"), got)
-        with pytest.raises(NotImplementedError, match="A.3"):
-            td.prefetch_for_queries(tq, 4, t_max=8)
+        td.prefetch_for_queries(tq, 4, q_block=16, fspec=tfs, t_max=8)
+        td.cache.drain()
+        before = td.cache.stats.misses
+        got = td.search(tq, tfs, k=8, n_probes=4, q_block=16, t_max=8)
+        assert td.cache.stats.misses == before
+        _assert_same(teng.search_fused_tiled(ram, tq, tfs, k=8, n_probes=4,
+                                             q_block=16, t_max=8,
+                                             device="cpu"), got)
+        _assert_same(jd.search(jq, jfs, k=8, n_probes=4, q_block=16,
+                               t_max=8, backend="xla"), got)
+        with pytest.raises(ValueError, match="t_max"):
+            td.prefetch_for_queries(tq, 4, fspec=tfs, t_max=3)
 
 
 def test_refresh_adopts_a_republished_checkpoint(tmp_path):
     """A republish with bumped generations: refresh() picks it up and the
     next fetch invalidates exactly the rewritten clusters, as in the
-    reference; a delta tier attached raises (not ported)."""
+    reference; with a delta tier attached, refresh commits its pending
+    freeze, as the reference's does."""
     index = _jax_index("dot")
     q = _queries(16, "match_all", seed=8)
     counts = {}
@@ -340,9 +354,12 @@ def test_refresh_adopts_a_republished_checkpoint(tmp_path):
             di.search(qq, ff, k=8, n_probes=4, q_block=16, **ekw)
             counts[pkg] = vars(di.cache.stats).copy()
             if pkg == "port":
-                di.delta = object()
-                with pytest.raises(NotImplementedError, match="A.5"):
-                    di.refresh()
+                di.delta = tdelta.DeltaTier.for_index(di, 1)
+                di.delta.freeze()
+                assert di.delta.stats()["pending"]
+                assert not di.refresh()
+                assert not di.delta.stats()["pending"]
+                assert di.delta.stats()["commits"] == 1
                 di.delta = None
     assert counts["port"] == counts["jax"]
     assert counts["port"]["invalidations"] > 0
@@ -369,8 +386,7 @@ def test_fetch_lists_match_reference(u_cap):
 
 # Reference metrics of features the port does not have yet.
 UNPORTED_METRICS = {
-    "engine.degraded_batches", "engine.delta_folds", "engine.delta_skips",
-    "engine.delta_interval_skips", "engine.probes_terminated",
+    "engine.degraded_batches", "engine.probes_terminated",
     "engine.term_segments_skipped", "engine.partition_hits",
     "engine.partition_fallbacks", "engine.partition_rows_scanned",
     "engine.flat_rows_scanned",

@@ -233,9 +233,9 @@ def test_port_runs_without_jax_or_repro():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("epsilon", 0.1), ("t_max", "auto"), ("device_cache", object()),
-    ("delta", object()), ("device_cache", 64), ("termination", "exact"),
-    ("t_max", 8), ("partitions", "on"), ("backend", "xla"),
+    ("epsilon", 0.1), ("termination", "bounded"), ("device_cache", object()),
+    ("partitions", "off"), ("device_cache", 64), ("termination", "exact"),
+    ("device_cache", True), ("partitions", "on"), ("backend", "xla"),
 ])
 def test_engine_raises_on_unported_knob(knob, value):
     _, ti, _, _ = _indexes("dot-f32")
@@ -245,6 +245,42 @@ def test_engine_raises_on_unported_knob(knob, value):
                       partitions="auto")  # the defaults are accepted
     with pytest.raises(TypeError):
         teng.SearchEngine(ti, k=5, n_probes=2, device="cpu", no_such_knob=1)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("t_max", "auto"), ("t_max", 8), ("delta", "tier"),
+])
+def test_engine_takes_the_ported_update_knobs(knob, value):
+    """The knobs live updates and widening brought: the port's engine with
+    each equals the JAX engine with it on a window-filtered batch (a delta
+    tier holding the same adds and deletes on both sides)."""
+    from repro.core import delta as jdelta
+    from repro_torch.core import delta as tdelta
+
+    ji, ti, core, attrs = _indexes("dot-f32")
+    qs, lo, hi = _queries(40, "window", seed=5)
+    jkw, tkw = {knob: value}, {knob: value}
+    if knob == "delta":
+        rng = np.random.default_rng(5)
+        new = core[:30] + 0.01 * rng.standard_normal((30, D)).astype(np.float32)
+        new_ids = np.arange(N, N + 30)
+        jkw["delta"], tkw["delta"] = (jdelta.DeltaTier(ji, 64),
+                                      tdelta.DeltaTier(ti, 64))
+        for tier in (jkw["delta"], tkw["delta"]):
+            tier.add(new, attrs[:30], new_ids)
+            tier.tombstone(np.arange(0, N, 7))
+    kw = dict(k=10, n_probes=3, q_block=16)
+    want = jeng.SearchEngine(ji, backend="xla", **kw, **jkw).search(
+        jnp.asarray(qs), jf.FilterSpec(lo=jnp.asarray(lo), hi=jnp.asarray(hi)))
+    got = teng.SearchEngine(ti, device="cpu", **kw, **tkw).search(
+        torch.from_numpy(qs), tf.FilterSpec(lo=torch.from_numpy(lo),
+                                            hi=torch.from_numpy(hi)))
+    np.testing.assert_array_equal(np.asarray(want.ids), got.ids.numpy())
+    np.testing.assert_allclose(np.asarray(want.scores), got.scores.numpy(),
+                               rtol=1e-5)
+    for c in ("n_scanned", "n_passed", "n_pruned"):
+        np.testing.assert_array_equal(np.asarray(getattr(want, c)),
+                                      getattr(got, c).numpy(), err_msg=c)
 
 
 @pytest.mark.parametrize("knobs", [
@@ -276,3 +312,48 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     _, ti, _, _ = _indexes("dot-f32")
     with pytest.raises(RuntimeError, match="CUDA"):
         teng.SearchEngine(ti, k=5, n_probes=2)
+
+
+# Public names of repro.core the port does not have yet, by ROADMAP item.
+UNPORTED_CORE = {
+    # A.1 index build and data
+    "build_ivf", "concat_hybrid", "split_hybrid", "encode_numeric_attr",
+    "encode_categorical_attr",
+    # A.6 sub-partitions
+    "partitions", "FilterTrafficRecorder", "PartitionBuild",
+    "PartitionCatalog", "build_partitions", "choose_attrs",
+    # A.8 sharded ring
+    "faults", "health", "transport", "BlockStoreServer", "CircuitBreaker",
+    "FaultRule", "FaultSchedule", "FaultyBlockStore", "FaultyTransport",
+    "HashRing", "LoopbackTransport", "PeerHealth", "ShardedBlockStore",
+    "SocketTransport", "StoreStats", "TransportError", "TransportTimeout",
+    "open_sharded",
+    # A.9 multi-device
+    "topk_tree_merge",
+}
+
+
+def test_core_exports_match_reference():
+    """``repro_torch.core`` exports every public name of ``repro.core``
+    except the unported ones; a name that gets ported leaves the list."""
+    import repro.core
+    import repro_torch.core
+
+    got = {n for n in dir(repro_torch.core) if not n.startswith("_")}
+    missing = set(repro.core.__all__) - UNPORTED_CORE - got
+    assert not missing, sorted(missing)
+    assert not UNPORTED_CORE & got, sorted(UNPORTED_CORE & got)
+    assert set(repro_torch.core.__all__) <= got
+
+
+def test_filtered_scan_kernel_exports_match_reference():
+    """The package exports the reference's names, ``search_fused_tiled``
+    included; ``filtered_scan`` names the module there (it holds the
+    launch counters), by design."""
+    import repro.kernels.filtered_scan as jk
+    import repro_torch.kernels.filtered_scan as tk
+
+    assert set(jk.__all__) - {"filtered_scan"} == set(tk.__all__)
+    for name in tk.__all__:
+        assert callable(getattr(tk, name)), name
+    assert tk.search_fused_tiled is teng.search_fused_tiled

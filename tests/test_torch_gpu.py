@@ -15,6 +15,8 @@ queries as three bf16 terms), the others in another f32 FMA order.  Pass
 counts and the search counters are integers and stay exact.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -223,10 +225,28 @@ def test_tiled_kernel_body_choice(cuda, variant, d, m, f, body):
     _assert_close(got, *_plain_with_next(args, kw))
 
 
-def test_kernel_rejects_large_k(cuda):
-    args, kw = _case("dot-f32", 1, cuda, k=33, vpad=128)
-    with pytest.raises(NotImplementedError):
-        tfs.filtered_scan_tiled(*args, **kw)
+ANY_K_VPAD = 300
+
+
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 100, 256, 257, ANY_K_VPAD])
+@pytest.mark.parametrize("variant", ["dot-bf16", "l2-f32q-bf16v", "dot-f32",
+                                     "sq8"])
+def test_kernel_any_k(cuda, variant, k):
+    """Every k up to Vpad: the register lists (1, 2, 4 or 8 slots a lane,
+    both bodies) and, past 256, the sort body; equal scores go to the
+    earlier row, as in the plain version."""
+    args, kw = _case(variant, 1, cuda, seed=k, q_block=40, vpad=ANY_K_VPAD,
+                     d=64, k=k)
+    before = tfs.LAUNCHES
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES == before + 1
+    if k < ANY_K_VPAD:
+        _assert_close(got, *_plain_with_next(args, kw))
+    else:
+        _assert_close(got, filtered_scan_tiled_ref(*args, **kw))
+    with pytest.raises(ValueError):
+        tfs.filtered_scan_tiled(*args, **{**kw, "k": ANY_K_VPAD + 1})
 
 
 def _index(variant, dev):
@@ -320,10 +340,45 @@ def test_centroid_topk_keeps_real_probes_where_all_scores_are_negative(cuda):
     assert (got[1] >= 0).all()
 
 
-def test_centroid_topk_rejects_large_t(cuda):
-    c = torch.randn((64, 8), device=cuda)
-    with pytest.raises(NotImplementedError):
-        tct.centroid_topk(c[:4], c, t=33)
+@pytest.mark.parametrize("t", [32, 33, 56, 200, 333])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_centroid_topk_any_t(cuda, dtype, t):
+    """Every T up to K = 333 (three chunks, the last partial): chunk lists
+    of min(T, 128), merged in registers up to T = 256 and by rank past it;
+    a centroid repeated in every chunk keeps its copies in id order."""
+    rng = np.random.default_rng(t)
+    cents = rng.standard_normal((333, 97)).astype(np.float32)
+    cents[[40, 200, 300]] = cents[7]
+    queries = np.concatenate([cents[[7]], rng.standard_normal((40, 97))])
+    q = torch.from_numpy(queries.astype(np.float32)).to(cuda, dtype)
+    c = torch.from_numpy(cents).to(cuda, dtype)
+    for metric in ("dot", "l2"):
+        before = tct.LAUNCHES
+        got = tct.centroid_topk(q, c, t=t, metric=metric)
+        torch.cuda.synchronize()
+        assert tct.LAUNCHES == before + 1
+        want = centroid_topk_ref(q, c, t=min(t + 1, 333), metric=metric)
+        w_next = want[0][:, t].cpu().numpy() if t < 333 else None
+        _assert_topk_close(got, (want[0][:, :t], want[1][:, :t]), w_next)
+        np.testing.assert_array_equal(got[1][0, :4].cpu().numpy(),
+                                      [7, 40, 200, 300])
+
+
+@pytest.mark.parametrize("t", [100, 128, 129, 9000])
+def test_centroid_topk_many_chunks(cuda, t):
+    """K = 9000 (71 chunks): the shared-memory sort merge at T = 100, the
+    merge by rank past it (with its bound at T = 128), up to T = K."""
+    rng = np.random.default_rng(t)
+    cents = rng.standard_normal((9000, 24)).astype(np.float32)
+    cents[[500, 8999]] = cents[3]
+    queries = np.concatenate([cents[[3]], rng.standard_normal((19, 24))])
+    q = torch.from_numpy(queries.astype(np.float32)).to(cuda)
+    c = torch.from_numpy(cents).to(cuda)
+    got = tct.centroid_topk(q, c, t=t)
+    want = centroid_topk_ref(q, c, t=min(t + 1, 9000))
+    w_next = want[0][:, t].cpu().numpy() if t < 9000 else None
+    _assert_topk_close(got, (want[0][:, :t], want[1][:, :t]), w_next)
+    np.testing.assert_array_equal(got[1][0, :3].cpu().numpy(), [3, 500, 8999])
 
 
 def _legacy_case(variant, f, dev, *, d=97, vpad=300, p=40, seed=0):
@@ -358,6 +413,35 @@ def test_filtered_scan_matches_plain_version(cuda, variant, f, d):
     torch.cuda.synchronize()
     assert tfs.PER_PROBE_LAUNCHES == before + 1
     _assert_scores_close(got, filtered_scan_ref(*args, **kw))
+
+
+def test_filtered_scan_many_queries(cuda):
+    """Q = 2^20 + 8 queries: the plan's sort words widen their query field
+    with Q; slots reach the last queries, repeat pairs, and fall out of
+    range."""
+    q, d, m, kc, vpad = (1 << 20) + 8, 16, 2, 5, 40
+    rng = np.random.default_rng(3)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+
+    queries = t(rng.standard_normal((q, d)).astype(np.float32))
+    lo = np.full((q, 1, m), -32768, np.int16)
+    hi = np.full((q, 1, m), 32767, np.int16)
+    lo[-8:, 0, 0] = 0
+    sq = np.concatenate([np.arange(q - 8, q), np.arange(q - 8, q),
+                         rng.integers(0, q, 40), [5, q, -1, 5]])
+    sc = np.concatenate([rng.integers(0, kc, 56), [1, 1, 1, kc]])
+    args = (t(sc.astype(np.int32)), t(sq.astype(np.int32)), queries, t(lo),
+            t(hi), t(rng.standard_normal((kc, vpad, d)).astype(np.float32)),
+            t(rng.integers(-5, 5, (kc, vpad, m)).astype(np.int16)),
+            t(rng.integers(-1, 99, (kc, vpad)).astype(np.int32)))
+    got = tfs.filtered_scan(*args)
+    torch.cuda.synchronize()
+    inr = slice(0, 57)  # the in-range slots; the last three are out of range
+    _assert_scores_close(got[inr], filtered_scan_ref(
+        args[0][inr], args[1][inr], *args[2:]))
+    assert (got[57:] == NEG_INF).all()
 
 
 def _schedule_case(schedule, variant, dev, d):
@@ -525,6 +609,65 @@ def test_disk_tier_on_card_matches_cpu(cuda, tmp_path, variant, pipeline):
                        ties_by_id=False)
     for c in ("n_scanned", "n_passed", "n_pruned"):
         assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
+
+
+@pytest.mark.parametrize("pipeline", ["off", "on"])
+@pytest.mark.parametrize("variant", ["dot-bf16", "l2-f32", "sq8"])
+def test_live_updates_on_card_match_cpu(cuda, tmp_path, variant, pipeline):
+    """A delta tier on the card (its buffers, the delta scan and the
+    tombstone mask there) against one on the CPU, through the same adds and
+    deletes, a republish and a refresh: the same results at every step, the
+    same republished checkpoint, and the tiled kernel at k = 40 (two list
+    slots a lane) and k = 100 (four)."""
+    from repro_torch.core import delta as tdelta
+
+    rng = np.random.default_rng(9)
+    index = _index(variant, "cpu")
+    new = (index.centroids[rng.integers(0, 16, 60)].numpy()
+           + 0.3 * rng.standard_normal((60, 32))).astype(np.float32)
+    new_attrs = rng.integers(0, 16, (60, 3)).astype(np.int16)
+    new_attrs[:, 0] = rng.integers(0, 1600, 60)
+    new_ids = np.arange(10_000, 10_060)
+    kill = rng.choice(4000, 300, replace=False)
+    ckpt = {}
+    for side in ("cpu", "card"):
+        ckpt[side] = tmp_path / side
+        tstorage.save_index(index, str(ckpt[side]), n_shards=2)
+    qs, fspec = _window_batch(37, 5)
+    results = {}
+    for side, dev in (("cpu", "cpu"), ("card", cuda)):
+        with tdisk.DiskIVFIndex.open(str(ckpt[side]), device=dev) as d:
+            d.delta = tdelta.DeltaTier.for_index(d, 1)
+            assert d.delta.device.type == torch.device(dev).type
+            d.delta.add(new, new_attrs, new_ids)
+            d.delta.tombstone(np.concatenate([kill, new_ids[:5]]))
+            out = []
+            for k in (10, 40, 100):
+                eng = teng.SearchEngine(d, k=k, n_probes=4, q_block=16,
+                                        pipeline=pipeline, device=dev)
+                out.append(eng.search(qs.to(dev), fspec.to(dev)))
+                eng.close()
+            stats = tdelta.compact_deltas(str(ckpt[side]), d.delta)
+            assert d.refresh() and d.delta.stats()["rows"] == 0
+            eng = teng.SearchEngine(d, k=10, n_probes=4, q_block=16,
+                                    pipeline=pipeline, device=dev)
+            out.append(eng.search(qs.to(dev), fspec.to(dev)))
+            eng.close()
+            results[side] = (out, vars(stats))
+    assert results["card"][1] == results["cpu"][1]
+    for cr, gr in zip(results["cpu"][0], results["card"][0]):
+        _assert_topk_close((gr.scores, gr.ids), (cr.scores, cr.ids),
+                           ties_by_id=False)
+        for c in ("n_scanned", "n_passed", "n_pruned"):
+            assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
+    for f in sorted(os.listdir(ckpt["cpu"])):
+        # f32 sums in the card's own order: the bounds, and the l2 norms of
+        # the added rows in the shard records
+        if f.startswith("bounds_") or (variant == "l2-f32"
+                                       and f.startswith("shard_")):
+            continue
+        assert (ckpt["cpu"] / f).read_bytes() == \
+            (ckpt["card"] / f).read_bytes(), f
 
 
 @pytest.mark.parametrize("depth", [1, 3])
