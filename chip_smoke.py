@@ -46,7 +46,20 @@ Phases:
      state (``build_from_assignments`` over the live base rows and the
      adds), each widened plan against the same plan computed on the CPU,
      its results against an exact search over its probes, and its recall
-     against the unwidened plan's.  The checkpoint is deleted at the end;
+     against the unwidened plan's; hot also through a sync engine with an
+     8 GiB device cache, whose refresh must drop exactly the rewritten
+     clusters' entries.  The checkpoint is deleted at the end;
+  3e. (run between 3c and 3d, on 3c's checkpoint before 3d republishes
+     it) the device cache: an 8 GiB ``DeviceBlockCache`` per executor on
+     3c's batches, each equal to the RAM engine's; sub-partitions:
+     ``build_partitions(attrs=[1], max_subs=4096)`` written as a layout-4
+     checkpoint beside 3c's (shard files hard-linked), served on cat_eq
+     and cat_mixed traffic by both executors with ``partitions="auto"``
+     and ``"off"`` (results equal bit for bit), and by the RAM tier over
+     ``attach`` where the card holds it; termination: the RAM engine on
+     the three mixes untruncated, ``"exact"`` (ids and scores equal bit
+     for bit) and ``"bounded"`` (equal to an exact top-k over the probes
+     its merge kept), and one disk batch with ``"exact"``;
   4. each kernel on one full-size batch: held against its plain version,
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
      for centroid_topk); filtered_scan_tiled on both of its full-size
@@ -999,6 +1012,7 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
     from repro_torch.core import delta as delta_lib
     from repro_torch.core import engine as engine_lib
     from repro_torch.core import kmeans
+    from repro_torch.core.devicecache import DeviceBlockCache
     from repro_torch.core.search import SearchResult
     from repro_torch.core.summaries import ClusterSummaries
 
@@ -1095,11 +1109,19 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
         engines["wide"] = SearchEngine(disk, k=K_WIDE, n_probes=N_PROBES,
                                        q_block=64, prune="auto",
                                        pipeline="off")
+        # a sync engine with a device cache on the hot mix: its entries of
+        # the clusters the republish rewrites must drop at its refresh
+        dc = DeviceBlockCache(disk.blockstore.spec, DEVICE_CACHE_MB << 20,
+                              heat_fn=disk.cache.probe_heat, device=dev)
+        engines["dc"] = SearchEngine(disk, k=K_TOP, n_probes=N_PROBES,
+                                     q_block=64, prune="auto", pipeline="off",
+                                     device_cache=dc)
 
         rows = {}
         reset_launches()
         for stage in ("before", "after"):
             if stage == "after":  # the republish, then the flip
+                gens_before = disk.gens.copy()
                 t0 = time.perf_counter()
                 rep = compact_deltas(str(ckpt), tier)
                 t_compact = time.perf_counter() - t0
@@ -1111,6 +1133,23 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
                                          "republished generation")
                 log(f"republish: compact_deltas {t_compact:.2f} s ({rep}); "
                     f"refresh {t_refresh:.3f} s; delta {tier.stats()}")
+                resident = dc.resident_ids()
+                st0 = dc.stats()
+                engines["dc"].refresh()
+                rewritten = set(np.nonzero(disk.gens > gens_before)[0].tolist())
+                stale = [c for c in resident if c in rewritten]
+                dropped = dc.stats()["invalidations"] - st0["invalidations"]
+                if (set(dc.resident_ids()) != set(resident) - rewritten
+                        or dropped != len(stale) + st0["tiles"]):
+                    raise AssertionError(
+                        f"device cache: {dropped} invalidations for "
+                        f"{len(stale)} stale entries and {st0['tiles']} tiles")
+                dc_inval = dict(resident=len(resident), rewritten=len(
+                    rewritten), dropped=dropped, tiles=st0["tiles"])
+                log(f"republish: device cache refresh dropped {dropped} = "
+                    f"{len(stale)} entries of rewritten clusters (of "
+                    f"{len(resident)} resident; {len(rewritten)} clusters "
+                    f"rewritten) + {st0['tiles']} memoized tiles")
             for pipeline in ("off", "on"):
                 for mix in mixes:
                     before = launches()["filtered_scan_tiled"]
@@ -1121,6 +1160,9 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
                         raise AssertionError(f"live {stage} {pipeline} {mix}: "
                                              "not every batch launched "
                                              "filtered_scan_tiled")
+            rows[stage, "dc", "hot"] = serve_live(
+                engines["dc"], "hot", batches["hot"], wants["hot"])
+            rows[stage, "dc", "hot"]["hit_rate"] = dc.hit_rate()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             got = engines["wide"].search(*wide_batch)
@@ -1200,7 +1242,7 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
             rows=rows, scan_ms=scan_ms, t_tomb=t_tomb, t_add=t_add,
             n_dead=n_dead, n_add=n_add, t_compact=t_compact,
             t_refresh=t_refresh, wide=wide_rows, r_static=r_static,
-            static_ms=static["batch"])
+            static_ms=static["batch"], dc_inval=dc_inval)
     finally:
         for eng in engines.values():
             eng.close()
@@ -1223,6 +1265,11 @@ def print_live(fig):
                     f"{r['err']:.3e}")
         log(f"live {stage} the republish, k={K_WIDE} uniform batch (sync): "
             f"{rows[stage, 'wide']:.3f} ms")
+        r = rows[stage, "dc", "hot"]
+        log(f"live {stage} the republish, device cache (sync) hot: batch "
+            f"{r['batch']:.3f} ms (median of {LIVE_BATCHES}); cache hit rate "
+            f"so far {r['hit_rate']:.4f}; max |err| vs the rebuild "
+            f"{r['err']:.3e}")
     log(f"live: delta scan alone {fig['scan_ms']:.3f} ms a uniform batch "
         f"({fig['n_add']} delta rows, card time); add {fig['n_add']} rows "
         f"{fig['n_add'] / fig['t_add']:.0f} rows/s; tombstone "
@@ -1236,6 +1283,446 @@ def print_live(fig):
             f"recall@{K_TOP} {w['recall']:.4f} against {fig['r_static']:.4f}; "
             f"plan equal to the CPU's, results equal to an exact search over "
             f"its probes")
+
+
+DEVICE_CACHE_MB = 8192  # about half of the 15.8 GB of cluster records
+PART_ATTR = 1  # attr1: uniform over 16 values, one per-value entry each
+PART_MAX_SUBS = 4096  # build_partitions' default cap
+PART_WARMUP, PART_BATCHES = 1, 2  # per (executor, mix, routing) in phase 3e
+TERM_WARMUP, TERM_BATCHES = 1, 3  # per (mix, termination) in phase 3e
+EPSILON = 0.1
+
+
+def cat_batch(mix, centers, dev, gen):
+    """Phase 3e's catalogue traffic: Q uniform-topic queries filtering
+    attr1 == 0 (``cat_eq``, every probe routes to a sub-partition), or
+    every other one attr1 == 0 and the rest attr1 == v, v uniform in
+    [2, 16) (``cat_mixed``: those route to an entry without subs, so every
+    tile mixes sub-partitions and parents)."""
+    import torch
+
+    from repro_torch.core import FilterSpec
+
+    queries, fspec = mix_batch("uniform", centers, dev, gen)
+    lo, hi = fspec.lo.clone(), fspec.hi.clone()
+    val = torch.zeros((Q,), dtype=torch.int16, device=dev)
+    if mix == "cat_mixed":  # every other query: each tile mixes both kinds
+        val[1::2] = torch.randint(2, 16, (Q // 2,), generator=gen,
+                                  device=dev, dtype=torch.int16)
+    lo[:, 0, PART_ATTR] = hi[:, 0, PART_ATTR] = val
+    return queries, FilterSpec(lo=lo, hi=hi)
+
+
+def over_kept(index, queries, fspec, plan, k, rows):
+    """Exact filtered top-k of each of ``rows`` queries over the rows of the
+    probes whose fragments its terminated merge kept (``plan.term.kept``):
+    what a bounded result must equal."""
+    from types import SimpleNamespace
+
+    kept = SimpleNamespace(slot_cluster=plan.slot_cluster,
+                           slot_of_probe=plan.slot_of_probe,
+                           probe_ok=plan.term.kept)
+    return reference_over_probes(index, queries, fspec, kept, k, rows)
+
+
+def device_cache_part(ckpt, budget, batches, ram_results, dev, launches):
+    """Phase 3e (a): the phase-3c checkpoint under phase 3c's host budget
+    plus a DEVICE_CACHE_MB device cache (a fresh one per executor), both
+    executors, each mix's phase-3c batches; every batch held against the
+    RAM engine's.  Returns the rows to print and the tiled launches."""
+    import torch
+
+    from repro_torch.core import DiskIVFIndex, SearchEngine
+    from repro_torch.core.devicecache import DeviceBlockCache
+
+    rows = {}
+    n0 = launches()["filtered_scan_tiled"]
+    disk = DiskIVFIndex.open(str(ckpt), resident_budget_bytes=budget)
+    try:
+        for pipeline in ("off", "on"):
+            dc = DeviceBlockCache(disk.blockstore.spec, DEVICE_CACHE_MB << 20,
+                                  heat_fn=disk.cache.probe_heat, device=dev)
+            eng = SearchEngine(disk, k=K_TOP, n_probes=N_PROBES, q_block=64,
+                               prune="auto", pipeline=pipeline,
+                               device_cache=dc)
+            try:
+                for mix, blist in batches.items():
+                    out = []
+                    for i, ((queries, fspec), want) in enumerate(
+                            zip(blist, ram_results[mix])):
+                        before = (dict(dc.stats()), dc.bytes_copied,
+                                  eng.stats.io_wait_s)
+                        ev = [torch.cuda.Event(enable_timing=True)
+                              for _ in range(4)]
+                        ev[0].record()
+                        plan = eng.plan(queries, fspec)
+                        ev[1].record()
+                        if pipeline == "off":
+                            operands = eng.fetch(plan)
+                            ev[2].record()
+                            res = eng.scan_merge(plan, operands)
+                            eng.stats.batches += 1
+                        else:
+                            res = eng.execute(plan)
+                            ev[2].record()
+                        ev[3].record()
+                        ev[3].synchronize()
+                        err = same_result(f"device cache pipeline={pipeline} "
+                                          f"{mix} batch {i}", res, want)
+                        if i < DISK_WARMUP:
+                            continue
+                        st = dc.stats()
+                        hits = st["hits"] - before[0]["hits"]
+                        misses = st["misses"] - before[0]["misses"]
+                        fetch = (ev[1].elapsed_time(ev[2]) if pipeline == "off"
+                                 else (eng.stats.io_wait_s - before[2]) * 1e3)
+                        out.append(dict(
+                            batch=ev[0].elapsed_time(ev[3]), fetch=fetch,
+                            hit_rate=hits / max(hits + misses, 1),
+                            tile_hits=st["tile_hits"]
+                            - before[0]["tile_hits"],
+                            gb=(dc.bytes_copied - before[1]) / 1e9,
+                            evictions=st["evictions"]
+                            - before[0]["evictions"],
+                            resident=st["resident_bytes"], err=err))
+                    rows[pipeline, mix] = {
+                        key: statistics.median(r[key] for r in out)
+                        for key in out[0]}
+            finally:
+                eng.close()
+            del eng, dc  # the engine holds the cache's entries
+            torch.cuda.empty_cache()
+    finally:
+        disk.close()
+    return rows, launches()["filtered_scan_tiled"] - n0
+
+
+def write_partitions(index, ckpt, dev):
+    """Phase 3e (b): ``build_partitions(index, attrs=[PART_ATTR])`` and a
+    layout-4 checkpoint beside phase 3c's: the shard files and resident
+    files hard-linked from it (their bytes are what save_index(layout=4)
+    writes), the partition region, the extended generation vector and the
+    manifest written anew.  Returns (build, directory, figures)."""
+    from repro_torch.core import partitions as partitions_lib
+    from repro_torch.core import storage
+
+    t0 = time.perf_counter()
+    build = partitions_lib.build_partitions(index, attrs=[PART_ATTR],
+                                            max_subs=PART_MAX_SUBS)
+    t_build = time.perf_counter() - t0
+    cat = build.catalog
+    kc = cat.n_base
+    part_dir = ROOT / "build" / "partition_checkpoint"
+    shutil.rmtree(part_dir, ignore_errors=True)
+    part_dir.mkdir(parents=True)
+    man = storage.load_manifest(str(ckpt))
+    for f in os.listdir(ckpt):
+        if f not in (storage.MANIFEST, storage.GENS_FILE):
+            os.link(ckpt / f, part_dir / f)
+    t0 = time.perf_counter()
+    gens = storage.load_gens(str(ckpt), man)
+    gens = np.concatenate([gens, gens[cat.parent.astype(np.int64)]])
+    storage.write_partition_region(str(part_dir), man, build, gens[kc:])
+    storage._atomic_save(str(part_dir / storage.GENS_FILE),
+                         lambda p: storage._np_save(p, gens))
+    man.update(layout=4, has_partitions=True,
+               partitions=dict(n_subs=build.n_subs, n_entries=cat.n_entries))
+    storage._atomic_save(str(part_dir / storage.MANIFEST),
+                         lambda p: open(p, "w").write(json.dumps(man, indent=2)))
+    t_write = time.perf_counter() - t0
+    region = (part_dir / storage.PARTITION_DATA).stat().st_size
+    values, per_value = np.unique(cat.sub_lo[:, PART_ATTR], return_counts=True)
+    caps, per_cap = np.unique(build.vpads, return_counts=True)
+    fig = dict(t_build=t_build, t_write=t_write, region=region,
+               n_subs=build.n_subs, n_entries=cat.n_entries,
+               catalog=cat.nbytes(),
+               per_value=dict(zip(values.tolist(), per_value.tolist())),
+               vpads=dict(zip(caps.tolist(), per_cap.tolist())),
+               mean_rows=float(cat.sub_counts.mean()) if build.n_subs else 0)
+    return build, part_dir, fig
+
+
+def tile_heights(plan, vpad_of):
+    """The row height of each tile's block: its tallest live record."""
+    sc = np.asarray(plan.slot_cluster).reshape(plan.n_tiles, plan.u_cap)
+    nu = np.asarray(plan.n_unique)
+    return [int(vpad_of[sc[t, :max(int(nu[t]), 1)]].max())
+            for t in range(plan.n_tiles)]
+
+
+def partition_part(index, build, part_dir, budget, centers, dev, gen,
+                   launches):
+    """Phase 3e (b): the layout-4 checkpoint on the disk tier, both
+    executors, cat_eq and cat_mixed, ``partitions="auto"`` against
+    ``"off"`` on the same batches: ids, scores and n_passed identical (the
+    kernel scores a row alike in a short sub block and in its parent);
+    then, where the card holds it, the RAM tier over the attached index.
+    Returns the rows, the RAM figures and the tiled launches."""
+    import torch
+
+    from repro_torch.core import DiskIVFIndex, SearchEngine
+    from repro_torch.core import partitions as partitions_lib
+    from repro_torch.core import storage
+
+    kc = build.catalog.n_base
+    vpad_of = np.concatenate([np.full(kc, index.vpad), build.vpads])
+    man = storage.load_manifest(str(part_dir))
+    stride_of = np.asarray(
+        [man["record_stride"]] * kc
+        + [storage.partition_record_layout(man, int(v))[1]
+           for v in build.vpads], np.int64)
+    n0 = launches()["filtered_scan_tiled"]
+    mixes = ("cat_eq", "cat_mixed")
+    batches = {mix: [cat_batch(mix, centers, dev, gen)
+                     for _ in range(PART_WARMUP + PART_BATCHES)]
+               for mix in mixes}
+    rows = {}
+    disk = DiskIVFIndex.open(str(part_dir), resident_budget_bytes=budget)
+    try:
+        for pipeline in ("off", "on"):
+            engs = {mode: SearchEngine(disk, k=K_TOP, n_probes=N_PROBES,
+                                       q_block=64, prune="auto",
+                                       pipeline=pipeline, partitions=mode)
+                    for mode in ("auto", "off")}
+            try:
+                for mix in mixes:
+                    for mode, eng in engs.items():
+                        out, results = [], []
+                        for i, (queries, fspec) in enumerate(batches[mix]):
+                            hits0 = eng.stats.partition_hits
+                            fetched0 = eng.stats.blocks_fetched
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            plan = eng.plan(queries, fspec)
+                            res = eng.execute(plan)
+                            torch.cuda.synchronize()
+                            t_batch = (time.perf_counter() - t0) * 1e3
+                            results.append(res)
+                            if i < PART_WARMUP:
+                                continue
+                            sc = np.asarray(plan.slot_cluster)
+                            live = np.unique(sc)
+                            out.append(dict(
+                                batch=t_batch,
+                                hits=eng.stats.partition_hits - hits0,
+                                fetched=eng.stats.blocks_fetched - fetched0,
+                                gb=float(stride_of[live].sum()) / 1e9,
+                                heights=tile_heights(plan, vpad_of),
+                                scanned=float(res.n_scanned.float().mean())))
+                        rows[pipeline, mix, mode] = (out, results)
+                    for i, (a, b) in enumerate(zip(rows[pipeline, mix, "auto"][1],
+                                                   rows[pipeline, mix, "off"][1])):
+                        name = f"routed vs flat pipeline={pipeline} {mix} batch {i}"
+                        if not (torch.equal(a.ids, b.ids)
+                                and torch.equal(a.scores, b.scores)
+                                and torch.equal(a.n_passed, b.n_passed)):
+                            raise AssertionError(f"{name}: results differ")
+                        if bool((a.n_scanned > b.n_scanned).any()):
+                            raise AssertionError(f"{name}: routed scans more")
+            finally:
+                for eng in engs.values():
+                    eng.close()
+    finally:
+        disk.close()
+    disk_launches = launches()["filtered_scan_tiled"] - n0
+
+    # the RAM tier: attach pads every sub to Vpad, a second index beside
+    # phase 3's (which phases 3d and 4 still serve)
+    need = (index.nbytes() * (index.n_clusters + build.n_subs)
+            // index.n_clusters)
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    if need + (2 << 30) > free:
+        ram = dict(cut=f"attach needs {need / 2**30:.2f} GiB, "
+                   f"{free / 2**30:.2f} GiB free beside phase 3's index")
+    else:
+        t0 = time.perf_counter()
+        attached = partitions_lib.attach(index, build)
+        torch.cuda.synchronize()
+        t_attach = time.perf_counter() - t0
+        ram = dict(t_attach=t_attach, gib=attached.nbytes() / 2**30, rows={})
+        try:
+            for mix in mixes:
+                for mode in ("auto", "off"):
+                    eng = SearchEngine(attached, k=K_TOP, n_probes=N_PROBES,
+                                       q_block=64, prune="auto",
+                                       partitions=mode)
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    res_list, times = [], []
+                    for i, (queries, fspec) in enumerate(batches[mix]):
+                        ev[0].record()
+                        res_list.append(eng.search(queries, fspec))
+                        ev[1].record()
+                        ev[1].synchronize()
+                        if i >= PART_WARMUP:
+                            times.append(ev[0].elapsed_time(ev[1]))
+                    ram["rows"][mix, mode] = (statistics.median(times),
+                                              res_list)
+                for i, (a, b) in enumerate(zip(ram["rows"][mix, "auto"][1],
+                                               ram["rows"][mix, "off"][1])):
+                    if not (torch.equal(a.ids, b.ids)
+                            and torch.equal(a.scores, b.scores)):
+                        raise AssertionError(f"RAM routed vs flat {mix} "
+                                             f"batch {i}: results differ")
+                    # the flat RAM plan is the disk tier's flat plan
+                    flat_disk = rows["off", mix, "off"][1][i]
+                    same_result(f"RAM flat vs disk flat {mix} batch {i}", b,
+                                flat_disk)
+        finally:
+            del attached
+            torch.cuda.empty_cache()
+    return rows, ram, disk_launches, launches()["filtered_scan_tiled"] - n0
+
+
+def termination_part(index, batches, ckpt, budget, dev, launches):
+    """Phase 3e (c): the RAM engine over phase 3's index on each mix,
+    untruncated, ``termination="exact"`` and ``"bounded"`` (ε = EPSILON),
+    TERM_WARMUP + TERM_BATCHES batches each; then one sync uniform disk
+    batch with "exact" over the checkpoint's bounds.  Gates: "exact" gives
+    the untruncated ids and scores bit for bit, ``n_scanned`` and
+    ``n_passed`` no higher (equal where no pair was dropped: a dropped
+    probe's rows are not scanned, so not counted); "bounded" equals an
+    exact top-k over the probes its merge kept.  Returns the rows and the
+    tiled launches."""
+    import torch
+
+    from repro_torch.core import DiskIVFIndex, SearchEngine, recall_at_k
+    from repro_torch.core.search import SearchResult
+
+    n0 = launches()["filtered_scan_tiled"]
+    rows = {}
+    engines = {mode: SearchEngine(
+        index, k=K_TOP, n_probes=N_PROBES, q_block=64, prune="auto",
+        termination=None if mode == "none" else mode,
+        epsilon=EPSILON if mode == "bounded" else 0.0)
+        for mode in ("none", "exact", "bounded")}
+    for mix, blist in batches.items():
+        blist = blist[:TERM_WARMUP + TERM_BATCHES]
+        base = []
+        for mode, eng in engines.items():
+            out = []
+            for i, (queries, fspec) in enumerate(blist):
+                st0 = (eng.stats.probes_terminated,
+                       eng.stats.term_segments_skipped)
+                l0 = launches()["filtered_scan_tiled"]
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                plan = eng.plan(queries, fspec)
+                res = eng.execute(plan)
+                ev[1].record()
+                ev[1].synchronize()
+                name = f"termination={mode} {mix} batch {i}"
+                dropped = eng.stats.probes_terminated - st0[0]
+                if mode == "none":
+                    base.append(res)
+                else:
+                    want = base[i]
+                    if mode == "exact":
+                        if not (torch.equal(res.ids, want.ids)
+                                and torch.equal(res.scores, want.scores)):
+                            raise AssertionError(f"{name}: differs from the "
+                                                 "untruncated batch")
+                        for c in ("n_scanned", "n_passed"):
+                            got, ref = getattr(res, c), getattr(want, c)
+                            if bool((got > ref).any()) or (
+                                    dropped == 0 and not torch.equal(got, ref)):
+                                raise AssertionError(f"{name}: {c}")
+                    else:
+                        ref = over_kept(index, queries, fspec, plan, K_TOP,
+                                        N_CHECK)
+                        check_topk(f"{name} vs an exact top-k over its kept "
+                                   "probes", res.scores[:N_CHECK],
+                                   res.ids[:N_CHECK], *ref)
+                if i < TERM_WARMUP:
+                    continue
+                term = plan.term
+                out.append(dict(
+                    batch=ev[0].elapsed_time(ev[1]),
+                    launches=launches()["filtered_scan_tiled"] - l0,
+                    dropped=dropped,
+                    skipped=eng.stats.term_segments_skipped - st0[1],
+                    syncs=(0 if term is None
+                           else plan.n_tiles * (term.n_seg - 1)),
+                    seg=0 if term is None else term.seg,
+                    recall=recall_at_k(res, SearchResult(
+                        base[i].scores, base[i].ids, None, None))))
+            rows[mix, mode] = {key: statistics.median(r[key] for r in out)
+                               for key in out[0]}
+    for eng in engines.values():
+        eng.close()
+    # one sync uniform disk batch over the checkpoint's bounds
+    queries, fspec = batches["uniform"][0]
+    disk = DiskIVFIndex.open(str(ckpt), resident_budget_bytes=budget)
+    try:
+        res = {}
+        # untruncated, exact, untruncated: the first fills the host cache
+        for mode in (None, "exact", None):
+            eng = SearchEngine(disk, k=K_TOP, n_probes=N_PROBES, q_block=64,
+                               prune="auto", pipeline="off", termination=mode)
+            t0 = time.perf_counter()
+            res[mode] = eng.search(queries, fspec)
+            torch.cuda.synchronize()
+            rows["disk", str(mode)] = dict(
+                batch=(time.perf_counter() - t0) * 1e3,
+                dropped=eng.stats.probes_terminated)
+            eng.close()
+        if not (torch.equal(res["exact"].ids, res[None].ids)
+                and torch.equal(res["exact"].scores, res[None].scores)):
+            raise AssertionError("disk termination=exact differs from the "
+                                 "untruncated batch")
+    finally:
+        disk.close()
+    return rows, launches()["filtered_scan_tiled"] - n0
+
+
+def print_phase_3e(dc_rows, part_fig, part_rows, ram, term_rows):
+    """Phase 3e's figures."""
+    for (pipeline, mix), r in dc_rows.items():
+        log(f"device cache pipeline={pipeline} {mix}: batch {r['batch']:.3f} "
+            f"ms, fetch wait {r['fetch']:.3f} ms (medians of "
+            f"{DISK_BATCHES}); device hit rate {r['hit_rate']:.4f}, tile-memo "
+            f"hits {r['tile_hits']:.1f}, {r['gb']:.3f} GB copied to the card, "
+            f"evictions {r['evictions']:.1f} a batch, resident "
+            f"{r['resident'] / 2**30:.3f} GiB; max |err| vs RAM "
+            f"{r['err']:.3e}")
+    f = part_fig
+    log(f"partitions: build_partitions(attrs=[{PART_ATTR}], max_subs="
+        f"{PART_MAX_SUBS}) {f['t_build']:.2f} s: {f['n_entries']} entries, "
+        f"{f['n_subs']} subs (per value {f['per_value']}), "
+        f"mean {f['mean_rows']:.1f} rows, capacities {f['vpads']}; catalog "
+        f"{f['catalog'] / 2**20:.2f} MiB; region {f['region'] / 1e9:.3f} GB "
+        f"written in {f['t_write']:.2f} s")
+    for (pipeline, mix, mode), (out, _) in part_rows.items():
+        med = {k: statistics.median(r[k] for r in out)
+               for k in ("batch", "hits", "fetched", "gb", "scanned")}
+        heights = sorted({h for r in out for h in r["heights"]})
+        log(f"partitions={mode} pipeline={pipeline} {mix}: batch "
+            f"{med['batch']:.3f} ms (median of {PART_BATCHES}), "
+            f"partition_hits {med['hits']:.0f}, tile heights {heights}, "
+            f"{med['gb']:.3f} GB of records, blocks_fetched "
+            f"{med['fetched']:.0f}, mean n_scanned {med['scanned']:.1f}")
+    if "cut" in ram:
+        log(f"partitions RAM tier cut: {ram['cut']}")
+    else:
+        log(f"partitions RAM tier: attach {ram['t_attach']:.2f} s, "
+            f"{ram['gib']:.2f} GiB; " + "; ".join(
+                f"{mix} {mode} {t:.3f} ms" for (mix, mode), (t, _)
+                in ram["rows"].items()) + " (medians); routed equals flat")
+    for key, r in term_rows.items():
+        if key[0] == "disk":
+            continue
+        mix, mode = key
+        log(f"termination={mode} {mix}: batch {r['batch']:.3f} ms (median of "
+            f"{TERM_BATCHES}), recall@{K_TOP} vs untruncated "
+            f"{r['recall']:.4f}, probes terminated {r['dropped']:.1f}, "
+            f"segments skipped {r['skipped']:.1f}, scan launches "
+            f"{r['launches']:.1f}, host syncs {r['syncs']:.1f} (segment "
+            f"{r['seg']:.0f} slots)")
+    log(f"termination disk uniform (sync, after a warm-up batch): "
+        f"untruncated {term_rows['disk', 'None']['batch']:.3f} ms, exact "
+        f"{term_rows['disk', 'exact']['batch']:.3f} ms, probes terminated "
+        f"{term_rows['disk', 'exact']['dropped']}; equal")
 
 
 def main(argv=None):
@@ -1262,6 +1749,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.core import SearchEngine, recall_at_k
+    from repro_torch.core import storage as storage_lib
     from repro_torch.core.distributed import (
         BACKENDS, ShardedSearchConfig, make_sharded_search)
     from repro_torch.core.search import SearchResult
@@ -1497,9 +1985,45 @@ def main(argv=None):
     disk_launches, _, ckpt = disk_phase(
         d_index, d_batches, ram_results, dev, reset_launches=reset_launches,
         launches=launches, rate=rate)
-    del d_engine, ram_results
+    del d_engine
     log(f"phase 3c (disk tier) {time.perf_counter() - t0:.2f} s; "
         f"{time.perf_counter() - t_all:.2f} s since start")
+
+    # ---- phase 3e: device cache, sub-partitions, termination (before 3d
+    # republishes the checkpoint) ----
+    t0 = time.perf_counter()
+    ok = False
+    try:
+        man = storage_lib.load_manifest(str(ckpt))
+        _, budget = disk_budget(ckpt, d_index.n_clusters, man["record_stride"])
+        reset_launches()
+        dc_rows, dc_launches = device_cache_part(
+            ckpt, budget, d_batches, ram_results, dev, launches)
+        log(f"phase 3e device cache {time.perf_counter() - t0:.2f} s")
+        build, part_dir, part_fig = write_partitions(d_index, ckpt, dev)
+        try:
+            part_rows, ram_part, _, part_launches = partition_part(
+                d_index, build, part_dir, budget, d_centers, dev, gen,
+                launches)
+        finally:
+            shutil.rmtree(part_dir, ignore_errors=True)
+        del build
+        log(f"phase 3e partitions {time.perf_counter() - t0:.2f} s")
+        term_rows, term_launches = termination_part(
+            index, batches, ckpt, budget, dev, launches)
+        e_launches = launches()
+        ok = True
+    finally:
+        if not ok:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    del ram_results
+    torch.cuda.empty_cache()
+    print_phase_3e(dc_rows, part_fig, part_rows, ram_part, term_rows)
+    log(f"phase 3e (device cache, partitions, termination) "
+        f"{time.perf_counter() - t0:.2f} s; {time.perf_counter() - t_all:.2f} "
+        f"s since start; launches {e_launches} (device cache {dc_launches}, "
+        f"partitions {part_launches}, termination {term_launches} of "
+        f"filtered_scan_tiled)")
 
     # ---- phase 3d: live updates on the disk tier ----
     t0 = time.perf_counter()
@@ -1563,6 +2087,7 @@ def main(argv=None):
         launches=(engine_launches["filtered_scan_tiled"]
                   + sharded_launches["filtered_scan_tiled"]
                   + disk_launches["filtered_scan_tiled"]
+                  + e_launches["filtered_scan_tiled"]
                   + live_launches["filtered_scan_tiled"]),
         max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms,

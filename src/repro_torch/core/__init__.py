@@ -15,6 +15,9 @@ tiers).
   add_vectors, tombstone, stale_counts,
   compact_stale, compact_cluster                     — online updates
   DeltaTier, compact_deltas, RepublishStats          — live hot/cold serving
+  PartitionCatalog, PartitionBuild, build_partitions,
+  choose_attrs, FilterTrafficRecorder                — filter-specialized
+                                                       sub-partitions
   make_sharded_search, ShardedSearchConfig           — the sharded search
                                                        (one shard)
   RangeOwnership                                     — cluster ownership map
@@ -71,6 +74,14 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.probes import dedup_rows, fetch_order, plan_probe_tiles
 from repro_torch.core.topk import masked_topk, merge_topk, merge_topk_many
+from repro_torch.core import partitions
+from repro_torch.core.partitions import (
+    FilterTrafficRecorder,
+    PartitionBuild,
+    PartitionCatalog,
+    build_partitions,
+    choose_attrs,
+)
 from repro_torch.core.update import (
     add_vectors,
     compact_cluster,
@@ -98,16 +109,19 @@ from repro_torch.core.storage import GenerationMismatchError
 __all__ = [
     "ATTR_MAX", "ATTR_MIN", "BlockSpec", "BuildStats", "ClusterCache",
     "ClusterSummaries", "DeltaOverflowError", "DeltaTier", "DiskIVFIndex",
-    "FilterBuilder", "FilterSpec", "GenerationMismatchError", "HybridSpec",
-    "IVFFlatIndex", "LocalBlockStore", "RangeOwnership", "RepublishStats",
+    "FilterBuilder", "FilterSpec", "FilterTrafficRecorder",
+    "GenerationMismatchError", "HybridSpec", "IVFFlatIndex",
+    "LocalBlockStore", "PartitionBuild", "PartitionCatalog",
+    "RangeOwnership", "RepublishStats",
     "ResidentBlockStore", "SearchEngine", "SearchPlan", "SearchResult",
     "ShardedSearchConfig", "TileWork", "add_vectors", "brute_force",
-    "build_from_assignments", "build_summaries", "can_match",
-    "centroid_scores", "compact_cluster", "compact_deltas", "compact_stale",
+    "build_from_assignments", "build_partitions", "build_summaries",
+    "can_match", "centroid_scores", "choose_attrs", "compact_cluster", "compact_deltas", "compact_stale",
     "dedup_rows", "default_n_clusters", "expected_passing", "fetch_order",
     "filter_mask", "from_builders", "index_from_arrays", "l2_normalize",
     "make_hybrid", "make_sharded_search", "masked_topk", "match_all",
-    "merge_topk", "merge_topk_many", "plan_probe_tiles", "quantize_index",
+    "merge_topk", "merge_topk_many", "partitions", "plan_probe_tiles",
+    "quantize_index",
     "recall_at_k", "resync_partitions", "scan_compile_count",
     "search_centroids", "search_fused_tiled", "search_reference",
     "selectivity", "stale_counts", "tombstone", "u_cap_buckets",

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.partitions import SUB_ALIGN
 from repro_torch.device import resolve_device
 
 Record = Dict[str, torch.Tensor]
@@ -297,18 +298,26 @@ class ResidentBlockStore(_AsyncStoreMixin):
         self._blocks += len(cids)
         out: Dict[int, Record] = {}
         index = self.index
+        # attached sub-partitions sit in the resident arrays at the parent's
+        # Vpad; their records are cut to the sub's own aligned height, so
+        # the assembler's batch height (and the scan) shrinks with them
+        cat = getattr(index, "partitions", None)
         for cid in cids:
             cid = int(cid)
+            rows = index.vpad
+            if cat is not None and cid >= cat.n_base:
+                n = max(int(cat.sub_counts[cid - cat.n_base]), 1)
+                rows = min(-(-n // SUB_ALIGN) * SUB_ALIGN, rows)
             rec: Record = {
-                "vectors": index.vectors[cid].cpu(),
-                "attrs": index.attrs[cid].cpu(),
-                "ids": index.ids[cid].cpu(),
+                "vectors": index.vectors[cid, :rows].cpu(),
+                "attrs": index.attrs[cid, :rows].cpu(),
+                "ids": index.ids[cid, :rows].cpu(),
                 "gen": torch.zeros((1,), dtype=torch.int64),
             }
             if self.spec.has_norms:
-                rec["norms"] = index.norms[cid].float().cpu()
+                rec["norms"] = index.norms[cid, :rows].float().cpu()
             if self.spec.quantized:
-                rec["scales"] = index.scales[cid].float().cpu()
+                rec["scales"] = index.scales[cid, :rows].float().cpu()
             out[cid] = rec
         return out
 
@@ -343,7 +352,8 @@ class LocalBlockStore(_AsyncStoreMixin):
     def open(cls, directory: str, *, capacity_records: Optional[int] = None,
              pin_fraction: float = 0.5, pin_refresh: int = 64,
              name: str = "local", device="cuda") -> "LocalBlockStore":
-        """Opens one view of a layout-2/3 checkpoint."""
+        """Opens one view of a layout-2/3/4 checkpoint (on layout 4 the
+        cache's id range covers the sub-partitions too)."""
         from repro_torch.core import storage
         from repro_torch.core.disk import ClusterCache, ShardReader
 
@@ -351,6 +361,8 @@ class LocalBlockStore(_AsyncStoreMixin):
         storage.check_complete(directory, man)
         reader = ShardReader(directory, man)
         n_total = man["n_clusters"]
+        if man.get("has_partitions"):
+            n_total += int(man["partitions"]["n_subs"])
         cap = (n_total if capacity_records is None
                else min(int(capacity_records), n_total))
         cache = ClusterCache(reader, capacity_records=max(cap, 1),

@@ -265,10 +265,6 @@ class DeltaTier:
         if quantize not in ("auto", "on"):
             raise ValueError(f"quantize must be 'auto'|'on', got "
                              f"{quantize!r}")
-        if getattr(index, "partitions", None) is not None:
-            raise NotImplementedError(
-                "a delta tier over a partitioned index is not ported yet "
-                "(ROADMAP A.6 sub-partition routing)")
         bspec = BlockSpec.from_index(index)
         self.spec = index.spec
         self.metric = index.spec.metric
@@ -279,8 +275,13 @@ class DeltaTier:
         self.quantize = quantize
         self.capacity = int(capacity)
         self.device = index.centroids.device
-        self.n_clusters = int(index.n_clusters)
-        self._centroids = index.centroids
+        # a partitioned RAM index carries sub centroids past the base ids;
+        # delta rows are assigned to base clusters (the membership mask and
+        # the republish key on base ids)
+        cat = getattr(index, "partitions", None)
+        self.n_clusters = (int(index.n_clusters) if cat is None
+                           else int(cat.n_base))
+        self._centroids = index.centroids[:self.n_clusters]
         self._store_dtype = (torch.int8 if self.quantized
                              else index.store_dtype)
         d, m, dev = bspec.dim, bspec.n_attrs, self.device
@@ -605,7 +606,9 @@ def compact_deltas(directory: str, tier: Optional[DeltaTier] = None, *,
     batches, which also commits the freeze taken here.
 
     ``include_stale`` also folds clusters whose only debt is tombstoned
-    slots under the count (the ``stale_counts`` debt).
+    slots under the count (the ``stale_counts`` debt).  On a layout-4
+    checkpoint every sub-partition of a touched cluster is rebuilt from the
+    folded record and its generation bumped (:func:`_republish_partitions`).
     """
     man = storage.load_manifest(directory)
     if man.get("layout", 1) < 3:
@@ -613,10 +616,6 @@ def compact_deltas(directory: str, tier: Optional[DeltaTier] = None, *,
             f"compact_deltas needs a generation-tagged (layout 3) "
             f"checkpoint, found layout {man.get('layout', 1)} at "
             f"{directory!r} — re-save with save_index(..., layout=3)")
-    if man.get("has_partitions"):
-        raise NotImplementedError(
-            "republishing a checkpoint with sub-partitions is not ported "
-            "yet (ROADMAP A.6 sub-partition routing)")
     paths = storage.check_complete(directory, man)
     gens = storage.load_gens(directory, man)
     counts = np.array(np.load(os.path.join(directory, "counts.npy")),
@@ -723,6 +722,10 @@ def compact_deltas(directory: str, tier: Optional[DeltaTier] = None, *,
                  if man.get("quantized", False) else None),
                 c)
 
+    part_build = (_republish_partitions(directory, man, parts, counts, gens,
+                                        touched, field_names)
+                  if man.get("has_partitions") else None)
+
     # rewrite only the shards that hold touched clusters, then the resident
     # files, each atomically, the manifest last
     stride = man["record_stride"]
@@ -758,6 +761,8 @@ def compact_deltas(directory: str, tier: Optional[DeltaTier] = None, *,
                 os.path.join(directory, fname),
                 lambda p, f=field: storage._np_save(
                     p, getattr(bounds, f).cpu().numpy()))
+    if part_build is not None:
+        storage.write_partition_region(directory, man, part_build, gens[k:])
     man["n_live"] = int(counts.sum())
 
     def _write_manifest(p):
@@ -775,3 +780,63 @@ def compact_deltas(directory: str, tier: Optional[DeltaTier] = None, *,
         gen_max=int(gens.max(initial=0)),
         trigger=trigger,
     )
+
+
+def _republish_partitions(directory: str, man: dict, parts, counts: np.ndarray,
+                          gens: np.ndarray, touched, field_names):
+    """The partition plane of a republish: each sub of a touched base
+    cluster is rebuilt from the folded record with the build's row rule
+    (``partitions.select_sub_rows``), its generation (past the base ids in
+    ``gens``, updated in place) bumped; the catalog's counts, intervals and
+    entry rows follow.  Sub capacities only grow.  Returns the
+    :class:`~repro_torch.core.partitions.PartitionBuild` to write."""
+    from repro_torch.core import partitions as partitions_lib
+
+    k, vpad = man["n_clusters"], man["vpad"]
+    kl = k // man["n_shards"]
+    dtypes = {f["name"]: f["dtype"] for f in man["fields"]}
+    cat = storage.load_partitions(directory, man)
+    records = storage.load_partition_records(directory, man)
+    vpads = np.asarray(storage.load_partition_vpads(directory),
+                       np.int64).copy()
+    parent = np.asarray(cat.parent, np.int64)
+    sub_counts = np.asarray(cat.sub_counts, np.int32).copy()
+    sub_amin = np.asarray(cat.sub_amin, np.int16).copy()
+    sub_amax = np.asarray(cat.sub_amax, np.int16).copy()
+    resubbed = np.nonzero(np.isin(parent, np.fromiter(
+        touched, np.int64, len(touched))))[0]
+    for p in resubbed:
+        p = int(p)
+        c = int(parent[p])
+        s, lc = divmod(c, kl)
+        part = parts[s]
+        rows = partitions_lib.select_sub_rows(
+            part["attrs"][lc], part["ids"][lc], int(counts[c]),
+            np.asarray(cat.sub_lo[p]), np.asarray(cat.sub_hi[p]))
+        n = int(rows.size)
+        vp = max(int(vpads[p]),
+                 min(partitions_lib._round_up(max(n, 1),
+                                              partitions_lib.SUB_ALIGN), vpad),
+                 n)
+        vpads[p] = vp
+        rec = {}
+        for name in field_names:
+            src = part[name][lc]
+            new = np.zeros((vp,) + src.shape[1:], src.dtype)
+            if name == "ids":
+                new[:] = -1
+            if n:
+                new[:n] = src[rows]
+            rec[name] = storage.to_tensor(new, dtypes[name])
+        records[p] = rec
+        sub_counts[p] = n
+        if n:
+            sub_amin[p] = part["attrs"][lc][rows].min(axis=0)
+            sub_amax[p] = part["attrs"][lc][rows].max(axis=0)
+        else:
+            sub_amin[p] = ATTR_MAX
+            sub_amax[p] = ATTR_MIN
+        gens[k + p] += 1
+    return partitions_lib.PartitionBuild(
+        catalog=cat.resynced(counts, sub_counts, sub_amin, sub_amax),
+        records=records, vpads=vpads.astype(np.int32))

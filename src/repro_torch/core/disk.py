@@ -1,12 +1,13 @@
 """Disk-resident index tier: the port of ``repro.core.disk``.
 
-:class:`DiskIVFIndex` serves a layout-2/3 checkpoint (``core/storage.py``)
+:class:`DiskIVFIndex` serves a layout-2/3/4 checkpoint (``core/storage.py``)
 with only the resident set in memory:
 
   * **Resident set**, on the index's device: centroids ``[K, D]``, counts
     ``[K]``, the attribute summaries and score bounds; on the host the
-    generation vector and the manifest's offset arithmetic.  Everything the
-    plan needs before it knows which lists to touch.
+    generation vector, the manifest's offset arithmetic and, on layout 4,
+    the partition catalog.  Everything the plan needs before it knows which
+    lists to touch.
   * **Paged set**: per-cluster records read from the shard files through
     :class:`ClusterCache`, a host LRU keyed by cluster id, capped so
     ``resident_bytes() <= resident_budget_bytes``; the most-probed clusters
@@ -41,21 +42,22 @@ from repro_torch.device import resolve_device
 
 
 class ShardReader:
-    """Reader of layout-2/3 shard files, one cluster record per read.
+    """Reader of layout-2/3/4 shard files, one cluster record per read.
 
     Thread-safe: a read copies the record out of the file (``pread``) into
     a fresh host buffer and returns per-field tensor views of it.  Every
     record carries a ``gen`` field, read from layout-3 records and 0 for
-    layout 2, so gen-keyed cache layers treat both alike.
+    layout 2, so gen-keyed cache layers treat both alike.  On layout 4, ids
+    ``>= n_base`` are sub-partitions, read from ``partitions.bin`` at their
+    own stride through the resident byte-offset table.
     """
 
     def __init__(self, directory: str, man: dict):
-        storage.check_layout(man)
-        if man["layout"] not in (2, 3):
+        if man["layout"] not in (2, 3, 4):
             raise ValueError(
-                "DiskIVFIndex requires a layout-v2/v3 checkpoint; re-save it "
-                "with storage.save_index(index, dir): v1 .npz shards are not "
-                "cluster-addressable")
+                "DiskIVFIndex requires a layout-v2/v3/v4 checkpoint; re-save "
+                "it with storage.save_index(index, dir): v1 .npz shards are "
+                "not cluster-addressable")
         self.directory = directory
         self._lock = threading.Lock()
         self._apply_manifest(man)
@@ -65,16 +67,30 @@ class ShardReader:
         self.paths = storage.shard_paths(self.directory, man)
         self.kl = man["n_clusters"] // man["n_shards"]
         self.stride: int = man["record_stride"]
-        self.fields = [
-            (f["name"], storage.torch_dtype(f["dtype"]), tuple(f["shape"]),
-             f["offset"], int(np.prod(f["shape"]))
-             * storage.np_dtype(f["dtype"]).itemsize)
-            for f in man["fields"]
-        ]
+        self.fields = self._field_table(man["fields"])
+        self.n_base = man["n_clusters"]
         # opened eagerly: a lazy open after a republish rename would read
         # the new file against the old counts and gens.  Files a reopen
         # replaces close when the last read racing it drops them.
         self._files = [open(p, "rb", buffering=0) for p in self.paths]
+        # layout 4: the sub-partition region, one (fields, stride) per sub
+        self._part_file = None
+        self._part_offsets: Optional[np.ndarray] = None
+        self._part_layouts: List[Tuple] = []
+        if man.get("has_partitions"):
+            self._part_offsets = np.asarray(np.load(os.path.join(
+                self.directory, storage.PARTITION_OFFSETS)), np.int64)
+            for vp in storage.load_partition_vpads(self.directory):
+                fields, stride = storage.partition_record_layout(man, int(vp))
+                self._part_layouts.append((self._field_table(fields), stride))
+            self._part_file = open(os.path.join(
+                self.directory, storage.PARTITION_DATA), "rb", buffering=0)
+
+    @staticmethod
+    def _field_table(fields):
+        return [(f["name"], storage.torch_dtype(f["dtype"]), tuple(f["shape"]),
+                 f["offset"], int(np.prod(f["shape"]))
+                 * storage.np_dtype(f["dtype"]).itemsize) for f in fields]
 
     def reopen(self, man: Optional[dict] = None):
         """Re-reads the manifest and reopens the shard files: the local half
@@ -88,23 +104,41 @@ class ShardReader:
     def read(self, cid: int) -> Dict[str, torch.Tensor]:
         """Reads cluster ``cid``'s record into one host buffer and returns
         per-field views into it."""
-        s, r = divmod(int(cid), self.kl)
+        cid = int(cid)
+        if cid >= self.n_base:
+            return self._read_partition(cid - self.n_base)
+        s, r = divmod(cid, self.kl)
         files, fields, stride = self._files, self.fields, self.stride
-        buf = np.empty(stride, np.uint8)
-        got = os.preadv(files[s].fileno(), [buf], r * stride)
-        if got != stride:
-            raise OSError(f"short read of cluster {cid}: {got} of {stride} "
-                          f"bytes from {self.paths[s]}")
-        raw = torch.from_numpy(buf)
-        rec = {name: raw[o:o + nb].view(dt).reshape(shape)
-               for name, dt, shape, o, nb in fields}
+        rec = self._pread(files[s], r * stride, stride, fields,
+                          f"cluster {cid} from {self.paths[s]}")
         if "gen" not in rec:  # layout 2: pre-generation records are gen 0
             rec["gen"] = torch.zeros((1,), dtype=torch.int64)
         return rec
 
+    def _read_partition(self, p: int) -> Dict[str, torch.Tensor]:
+        layouts, f = self._part_layouts, self._part_file
+        if f is None or p >= len(layouts):
+            raise ValueError(f"sub-partition {p} out of range for this "
+                             f"checkpoint ({len(layouts)} subs)")
+        fields, stride = layouts[p]
+        return self._pread(f, int(self._part_offsets[p]), stride, fields,
+                           f"sub-partition {p}")
+
+    @staticmethod
+    def _pread(f, offset: int, stride: int, fields, what: str):
+        buf = np.empty(stride, np.uint8)
+        got = os.preadv(f.fileno(), [buf], offset)
+        if got != stride:
+            raise OSError(f"short read of {what}: {got} of {stride} bytes")
+        raw = torch.from_numpy(buf)
+        return {name: raw[o:o + nb].view(dt).reshape(shape)
+                for name, dt, shape, o, nb in fields}
+
     def close(self):
         for f in self._files:
             f.close()
+        if self._part_file is not None:
+            self._part_file.close()
 
 
 @dataclasses.dataclass
@@ -370,20 +404,23 @@ def _nbytes(a) -> int:
     return int(a.nbytes)
 
 
-def _resident_overhead(centroids, counts, summaries, bounds=None) -> int:
+def _resident_overhead(centroids, counts, summaries, bounds=None,
+                       partitions=None) -> int:
     """Bytes of the always-resident set (everything except the cluster
     cache): the one formula the budget check in ``open`` and
     ``resident_bytes()`` share."""
     return _nbytes(centroids) + _nbytes(counts) + (
         summaries.nbytes() if summaries is not None else 0
-    ) + (bounds.nbytes() if bounds is not None else 0)
+    ) + (bounds.nbytes() if bounds is not None else 0) + (
+        partitions.nbytes() if partitions is not None else 0)
 
 
 class DiskIVFIndex:
-    """Disk-resident serving view of a layout-2/3 checkpoint.
+    """Disk-resident serving view of a layout-2/3/4 checkpoint.
 
-    Only centroids, counts, summaries, bounds and offset arithmetic stay in
-    memory (the first four on ``device``); flat lists page through
+    Only centroids, counts, summaries, bounds, the partition catalog and
+    offset arithmetic stay in memory (the first four on ``device``); flat
+    lists and sub-partition records page through
     :class:`ClusterCache` under ``resident_budget_bytes``.  Satisfies the
     ``.spec / .centroids / .counts`` contract of the plan and plugs into the
     engine through its ``blockstore``, so RAM and disk tiers share one
@@ -392,15 +429,18 @@ class DiskIVFIndex:
     ``gens`` holds the per-cluster generation vector the plan pins fetches
     to; :meth:`refresh` flips to a republished checkpoint between batches.
     ``delta`` is the RAM delta tier the engine folds into every batch
-    (attach a :class:`~repro_torch.core.delta.DeltaTier`); the device block
-    cache (``device_cache``) is not ported yet (ROADMAP A.6).
+    (attach a :class:`~repro_torch.core.delta.DeltaTier`), and
+    ``device_cache`` a :class:`~repro_torch.core.devicecache.
+    DeviceBlockCache` that engines built over this index pick up.
+    ``partitions`` is the layout-4 catalog (None before layout 4).
     """
 
     def __init__(self, directory: str, man: dict, spec: HybridSpec,
                  centroids: np.ndarray, counts: np.ndarray,
                  reader: ShardReader, cache: ClusterCache,
                  resident_budget_bytes: Optional[int],
-                 summaries=None, bounds=None, *, device="cuda"):
+                 summaries=None, bounds=None, partitions=None, *,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.directory = directory
         self.man = man
@@ -412,11 +452,12 @@ class DiskIVFIndex:
         self.resident_budget_bytes = resident_budget_bytes
         self.summaries = summaries
         self.bounds = bounds
+        self.partitions = partitions
         self.gens = storage.load_gens(directory, man)
         self.delta = None
         self.device_cache = None
         self._overhead = _resident_overhead(centroids, counts, summaries,
-                                            bounds)
+                                            bounds, partitions)
         self.blockstore = blockstore_lib.LocalBlockStore(
             reader, cache, blockstore_lib.BlockSpec.from_manifest(man),
             device=self.device)
@@ -439,8 +480,12 @@ class DiskIVFIndex:
         counts = np.load(os.path.join(directory, "counts.npy"))
         summaries = storage.load_summaries(directory, man, device=dev)
         bounds = storage.load_bounds(directory, man, device=dev)
-        overhead = _resident_overhead(centroids, counts, summaries, bounds)
-        n_total = man["n_clusters"]
+        partitions = storage.load_partitions(directory, man)
+        overhead = _resident_overhead(centroids, counts, summaries, bounds,
+                                      partitions)
+        # sub-partitions are cluster records past the base id space
+        n_total = man["n_clusters"] + (
+            partitions.n_subs if partitions is not None else 0)
         if resident_budget_bytes is None:
             cap = n_total
         else:
@@ -456,7 +501,8 @@ class DiskIVFIndex:
                              pin_refresh=pin_refresh)
         return cls(directory, man, storage.spec_from_manifest(man),
                    centroids, counts, reader, cache, resident_budget_bytes,
-                   summaries=summaries, bounds=bounds, device=dev)
+                   summaries=summaries, bounds=bounds, partitions=partitions,
+                   device=dev)
 
     # ---- IVFFlatIndex-compatible surface (what search paths touch) ----
     @property
@@ -482,7 +528,8 @@ class DiskIVFIndex:
     def refresh(self) -> bool:
         """Adopts a republished checkpoint between batches: re-reads the
         manifest and generation vector and, when the generations moved,
-        swaps in the new counts, summaries, bounds and gens and reopens the
+        swaps in the new counts, summaries, bounds, catalog and gens and
+        reopens the
         shard reader.  Cached records are not flushed: the next fetch
         carries the new expected gens, so exactly the rewritten clusters
         invalidate.  Then commits the attached delta tier's pending freeze
@@ -501,9 +548,11 @@ class DiskIVFIndex:
                                                     device=self.device)
             self.bounds = storage.load_bounds(self.directory, man,
                                               device=self.device)
+            self.partitions = storage.load_partitions(self.directory, man)
             self.gens = gens
             self._overhead = _resident_overhead(
-                self.centroids, self.counts, self.summaries, self.bounds)
+                self.centroids, self.counts, self.summaries, self.bounds,
+                self.partitions)
         if self.delta is not None:
             self.delta.commit()
         return changed
@@ -574,7 +623,9 @@ class DiskIVFIndex:
                q_block: int = 64, v_block: int = 256,
                u_cap: Optional[int] = None, prune: str = "auto", t_max=None,
                pipeline: str = "off", pipeline_depth: int = 2,
-               blockstore=None, operand_cache: str = "auto", **unported):
+               blockstore=None, operand_cache: str = "auto",
+               device_cache=None, termination: Optional[str] = None,
+               epsilon: float = 0.0, **unported):
         """Disk-tier filtered search with the RAM path's contract and ids.
         ``pipeline="on"`` scans tile *i* while tile *i+1*'s clusters page
         in, with the same results."""
@@ -584,7 +635,9 @@ class DiskIVFIndex:
             self, k=k, n_probes=n_probes, q_block=q_block, v_block=v_block,
             u_cap=u_cap, prune=prune, t_max=t_max, pipeline=pipeline,
             pipeline_depth=pipeline_depth, blockstore=blockstore,
-            operand_cache=operand_cache, device=self.device, **unported)
+            operand_cache=operand_cache, device_cache=device_cache,
+            termination=termination, epsilon=epsilon, device=self.device,
+            **unported)
         try:
             return eng.search(queries, fspec)
         finally:

@@ -4,19 +4,27 @@ The port of ``repro.core.engine``:
 
     plan   — :func:`plan_fused_tiled` over resident state: centroid top-T,
              filter-aware probe pruning (exact mode, or widened to refill
-             pruned probes from the geometric top-``t_max``), per-tile
-             probe dedup; with ``adaptive_u_cap`` the slot tables are then
-             cut to the smallest bucket covering the observed unique
-             counts.  With a delta tier, the batch's snapshot is taken
-             here and the planner sees its adjusted cluster counts.
+             pruned probes from the geometric top-``t_max``), the partition
+             remap (a routed query's probes swap base clusters for the
+             catalog entry's sub-partitions), per-tile probe dedup; with
+             ``adaptive_u_cap`` the slot tables are then cut to the
+             smallest bucket covering the observed unique counts.  With a
+             delta tier, the batch's snapshot is taken here and the planner
+             sees its adjusted cluster counts.  With ``termination``, each
+             tile's slots are reordered best-bound-first.
     fetch  — RAM tier: the resident ``[K, Vpad, ...]`` arrays (a no-op).
              Disk tier: the plan's fetch list pages through a
              :mod:`~repro_torch.core.blockstore` store into batch-local
              blocks with slot-local cluster ids, assembled in pinned host
              memory and copied to the card on a side stream; a per-batch
              *operand cache* pulls each cluster through the store once per
-             batch, however many tiles probe it.
-    scan   — the tiled filtered scan kernel over the slot tables.
+             batch, however many tiles probe it, and a cross-batch
+             *device cache* (:mod:`~repro_torch.core.devicecache`) keeps
+             hot clusters on the card and composes blocks there.
+    scan   — the tiled filtered scan kernel over the slot tables; with
+             ``termination``, per tile in slot segments, dropping the
+             (query, slot) pairs whose score bound cannot reach the running
+             top-k (:meth:`SearchEngine._scan_tile_terminated`).
     merge  — monoid top-k across each query's probes, the l2 constant
              fix-up and the scan accounting (:func:`_scan_merge_tiled`);
              then the delta fold: the RAM delta tier's exact scan merged in
@@ -32,9 +40,10 @@ Two executors share those stages and return the same results:
     side stream (``pipeline_depth`` tiles in flight).  ``submit`` /
     ``result`` extend the overlap across batches.
 
-The remaining knobs of the reference (device cache, partitions,
-termination) are not ported yet and raise ``NotImplementedError`` when
-set.
+The reference's ``backend`` knob has no counterpart: the port picks the
+kernel by the tensors' device.  The terminated executor's segmented-fetch
+mode serves only a sharded block store, which is not ported yet (ROADMAP
+A.8).
 """
 
 from __future__ import annotations
@@ -52,10 +61,14 @@ from repro_torch.core import probes as probes_lib
 from repro_torch.core import summaries as summaries_lib
 from repro_torch.core import topk as topk_lib
 from repro_torch.core.filters import FilterSpec
+from repro_torch.core.hybrid import ATTR_MAX, ATTR_MIN
 from repro_torch.core.ivf import round_up
 from repro_torch.core.search import SearchResult, centroid_scores
 from repro_torch.device import resolve_device
-from repro_torch.kernels.filtered_scan.filtered_scan import filtered_scan_tiled
+from repro_torch.kernels.filtered_scan.filtered_scan import (
+    filtered_scan_tiled,
+    fold_running_topk,
+)
 
 
 def plan_fused_tiled(centroids: torch.Tensor, counts: torch.Tensor,
@@ -63,7 +76,9 @@ def plan_fused_tiled(centroids: torch.Tensor, counts: torch.Tensor,
                      *, metric: str, n_probes: int, q_block: int, u_cap: int,
                      cast_dtype: torch.dtype,
                      summaries: Optional[summaries_lib.ClusterSummaries] = None,
-                     t_max: Optional[int] = None):
+                     t_max: Optional[int] = None,
+                     route_entry: Optional[torch.Tensor] = None,
+                     members: Optional[torch.Tensor] = None):
     """Plan stage: centroid probe + per-tile dedup over resident state.
 
     Returns ``(slot_cluster, slot_tile, slot_of_probe, probe_ok, n_unique,
@@ -80,6 +95,13 @@ def plan_fused_tiled(centroids: torch.Tensor, counts: torch.Tensor,
     top-``t_max``, ranked by (centroid score, expected passing rows), so a
     selective filter keeps ``n_probes`` productive probes.  Unfiltered
     queries prune nothing and plan as without ``t_max``.
+
+    ``route_entry [Q]`` (-1 = flat) with ``members [E, K_base]`` (-1 = scan
+    the parent) remaps routed queries' probes from base ids to the chosen
+    catalog entry's sub-partition ids, after the centroid top-k (sub
+    centroids are never scored) and before the per-tile dedup, so sub ids
+    flow into the slot tables and fetch lists.  ``geo_probes`` stays
+    base-id (the delta tier's membership is over base clusters).
     """
     scores = centroid_scores(centroids, counts, queries, metric=metric)
     q = queries.shape[0]
@@ -116,6 +138,13 @@ def plan_fused_tiled(centroids: torch.Tensor, counts: torch.Tensor,
             rank = torch.cumsum(ok.int(), dim=1) - 1
             probe_ids = cand.int()
             probe_valid = ok & (rank < n_probes)
+    if members is not None:
+        # partition remap: a routed query swaps each probed base cluster for
+        # the entry's sub-partition of it (member -1: keep the parent)
+        ent = torch.clamp(route_entry, min=0).long()
+        sub = members[ent[:, None], probe_ids.long()]  # [Q, W]
+        probe_ids = torch.where((route_entry[:, None] >= 0) & (sub >= 0),
+                                sub, probe_ids).int()
     probe_pad = probes_lib.pad_to_tiles(probe_ids, q_block)
     valid_pad = (None if probe_valid is None
                  else probes_lib.pad_to_tiles(probe_valid, q_block))
@@ -141,35 +170,46 @@ def _scan_merge_tiled(
     Dedup pad slots are skipped by the scan; the merge never reads one for
     a probe with ``probe_ok`` (a live probe points at a live slot).
     """
-    qpad = queries_pad.shape[0]
     svals, sids, snpass = filtered_scan_tiled(
         slot_cluster, slot_tile, n_unique, queries_pad, lo_pad, hi_pad,
         vectors, attrs, ids, norms, scales, metric=metric, k=k,
         q_block=q_block)
-
-    # per-probe candidate fragments, then the monoid merge across T probes;
-    # probes that overflowed u_cap or were pruned are masked out
-    sop = slot_of_probe.long()
-    row = (torch.arange(qpad, device=sop.device) % q_block)[:, None]
-    vals_qt = svals[sop, row]  # [Qpad, T, k]
-    ids_qt = sids[sop, row]
-    npass_qt = snpass[sop, row]  # [Qpad, T]
-    vals_qt = torch.where(probe_ok[..., None], vals_qt, topk_lib.NEG_INF)
-    ids_qt = torch.where(probe_ok[..., None], ids_qt, -1)
-    npass_qt = torch.where(probe_ok, npass_qt, 0)
-    vals, out_ids = topk_lib.merge_topk_many(vals_qt, ids_qt, k, axis=1)
-    vals, out_ids = vals[:q], out_ids[:q]
-
-    if metric == "l2":
-        q2 = torch.sum(queries.float() ** 2, -1)  # [Q]
-        vals = torch.where(vals > topk_lib.NEG_INF / 2, vals - q2[:, None], vals)
-
-    n_passed = npass_qt[:q].sum(-1).int()
     # a probe's slot scans exactly its cluster: live rows per probe through
     # the slot tables
-    live_per_row = (ids >= 0).sum(-1)  # [K]
-    live_per_slot = live_per_row[slot_cluster.long()]  # [S]
-    n_scanned = (live_per_slot[sop[:q]] * probe_ok[:q]).sum(-1).int()
+    live_per_slot = (ids >= 0).sum(-1)[slot_cluster.long()]  # [S]
+    return _merge_fragments(svals, sids, snpass, slot_of_probe, probe_ok,
+                            probe_ok, queries, live_per_slot, metric=metric,
+                            k=k, q=q, q_block=q_block)
+
+
+def _merge_fragments(svals, sids, snpass, slot_of_probe, pair_ok, scan_ok,
+                     queries, live_per_slot, *, metric: str, k: int, q: int,
+                     q_block: int) -> SearchResult:
+    """Merge stage: per-probe candidate fragments, then the monoid merge
+    across each query's probes, the l2 constant and the scan accounting.
+
+    ``pair_ok [Qpad, W]`` masks the fragments that enter the merge (probes
+    that overflowed u_cap or were pruned; in a bound-terminated tile also
+    the ε-dropped pairs, whose fragments may exist because another query
+    kept the segment, while provably dropped pairs of a scanned segment
+    stay in: their rows are strictly below the final kth).  ``scan_ok``
+    counts ``n_scanned`` over the slots that were scanned.  ``svals/sids
+    [S, QB, k]``, ``snpass [S, QB]`` hold filler where a slot was never
+    scanned."""
+    sop = slot_of_probe.long()
+    row = (torch.arange(sop.shape[0], device=sop.device) % q_block)[:, None]
+    vals_qt = torch.where(pair_ok[..., None], svals[sop, row],
+                          topk_lib.NEG_INF)  # [Qpad, W, k]
+    ids_qt = torch.where(pair_ok[..., None], sids[sop, row], -1)
+    npass_qt = torch.where(pair_ok, snpass[sop, row], 0)  # [Qpad, W]
+    vals, out_ids = topk_lib.merge_topk_many(vals_qt, ids_qt, k, axis=1)
+    vals, out_ids = vals[:q], out_ids[:q]
+    if metric == "l2":
+        q2 = torch.sum(queries.float() ** 2, -1)
+        vals = torch.where(vals > topk_lib.NEG_INF / 2,
+                           vals - q2[:q, None], vals)
+    n_passed = npass_qt[:q].sum(-1).int()
+    n_scanned = (live_per_slot[sop[:q]] * scan_ok[:q]).sum(-1).int()
     return SearchResult(vals, out_ids, n_scanned, n_passed)
 
 
@@ -280,6 +320,27 @@ class TileWork:
 
 
 @dataclasses.dataclass
+class TermState:
+    """Per-batch bound-driven termination state (host-side numpy), built by
+    :meth:`SearchEngine._prepare_termination` after the slot tables were
+    permuted best-bound-first: every array indexes ``(tile, query-row,
+    slot position)`` in scan order.  ``ub`` already carries the rounding
+    margin."""
+
+    epsilon: float      # ε-drop threshold (0 in termination="exact")
+    seg: int            # slot positions per segment (a multiple of 4)
+    n_seg: int          # segments per tile
+    cap: int            # true table width (seg · n_seg >= cap)
+    ub: np.ndarray      # [n_tiles, QB, cap_pad] f64 — score upper bound
+    lb: np.ndarray      # [n_tiles, QB, cap_pad] f64 — rough lower bound
+    mass: np.ndarray    # [n_tiles, QB, cap_pad] — expected passing rows
+    valid: np.ndarray   # [n_tiles, QB, cap_pad] bool — real (q, slot) pair
+    # [Qpad, W] bool, filled by the scan: the probes whose fragments entered
+    # each query's merge (the universe a bounded result is exact over)
+    kept: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
 class SearchPlan:
     """Everything the fetch/scan/merge stages need, produced by plan().
 
@@ -323,6 +384,10 @@ class SearchPlan:
     # the delta segment as this batch sees it (appends after plan() land
     # in the next batch)
     delta_snap: Any = None
+    # per-query catalog entry (-1 = flat); None without an active catalog
+    route: Optional[np.ndarray] = None  # [Q] int32
+    # bound-driven termination state (None when the knob is off)
+    term: Optional[TermState] = None
 
     def tile_work(self) -> List[TileWork]:
         """Materializes (and caches) the per-tile work items with their
@@ -376,6 +441,16 @@ class EngineStats:
     delta_skips: int = 0
     # of those, skipped by the per-attribute envelope alone
     delta_interval_skips: int = 0
+    # bound-driven termination: (query, slot) pairs dropped before their
+    # segment was scanned, and slot segments skipped whole
+    probes_terminated: int = 0
+    term_segments_skipped: int = 0
+    # partition plane: queries routed to a catalog entry, constrained
+    # queries no entry subsumes, and cold-scan rows split by route
+    partition_hits: int = 0
+    partition_fallbacks: int = 0
+    partition_rows_scanned: int = 0
+    flat_rows_scanned: int = 0
 
     @property
     def overlap_ratio(self) -> float:
@@ -405,10 +480,13 @@ def _flatten_metrics(out: Dict[str, Any], prefix: str, obj: Any) -> None:
 # Prometheus counters; every other numeric metric is a gauge.
 _PROM_COUNTERS = frozenset((
     "batches", "pipelined_batches", "tiles_scanned", "scan_compilations",
-    "blocks_fetched", "blocks_reused", "hits", "misses", "evictions",
-    "invalidations", "prefetched", "errors", "stalled_waits", "gets",
-    "blocks", "scan_compile_count", "delta_folds", "delta_skips",
-    "delta_interval_skips", "adds", "tombstoned", "commits",
+    "blocks_fetched", "blocks_reused", "hits", "misses", "puts",
+    "evictions", "invalidations", "prefetched", "errors", "stalled_waits",
+    "gets", "blocks", "scan_compile_count", "delta_folds", "delta_skips",
+    "delta_interval_skips", "adds", "tombstoned", "commits", "tile_hits",
+    "tile_puts", "probes_terminated", "term_segments_skipped",
+    "partition_hits", "partition_fallbacks", "partition_rows_scanned",
+    "flat_rows_scanned",
 ))
 
 
@@ -506,32 +584,19 @@ def scan_compile_count() -> int:
     return len(_SCAN_KEYS)
 
 
-# Reference knobs the port does not have yet: name → (default, ROADMAP item).
+# Reference knobs without a counterpart: name -> (default, why).
 _UNPORTED = {
-    "device_cache": (None, "A.6 device cache"),
-    "partitions": ("auto", "A.6 sub-partition routing"),
-    "termination": (None, "A.6 bound-driven termination"),
-    "epsilon": (0.0, "A.6 bound-driven termination"),
     "backend": (None, "the port picks the kernel by the tensors' device"),
 }
 
 
-def _reject_unported(index, knobs: dict):
+def _reject_unported(knobs: dict):
     for name, value in knobs.items():
         if name not in _UNPORTED:
             raise TypeError(f"SearchEngine got an unexpected keyword {name!r}")
-        default, item = _UNPORTED[name]
+        default, why = _UNPORTED[name]
         if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP {item})")
-    if getattr(index, "partitions", None) is not None:
-        raise NotImplementedError(
-            "an index with a partition catalog is not ported yet "
-            "(ROADMAP A.6 sub-partition routing)")
-    if getattr(index, "device_cache", None) is not None:
-        raise NotImplementedError(
-            "an index with a device_cache attached is not ported yet "
-            "(ROADMAP A.6 device cache)")
+            raise NotImplementedError(f"{name}={value!r} is not ported: {why}")
 
 
 class SearchEngine:
@@ -556,6 +621,20 @@ class SearchEngine:
       * ``operand_cache`` — per-batch reuse of fetched cluster records
         (store path only; ``"auto"``/``"on"``/``"off"``):
         ``blocks_reused`` counts slots served from it.
+      * ``device_cache`` — a :class:`~repro_torch.core.devicecache.
+        DeviceBlockCache`, or a byte budget to build one (default: the
+        index's ``device_cache`` attribute); store path only.  It keeps
+        clusters on the card across batches and subsumes the operand
+        cache.
+      * ``partitions`` — ``"auto"``: route through the index's partition
+        catalog when it has one; ``"on"``: demand one; ``"off"``: the flat
+        plan.
+      * ``termination`` — ``"exact"``: scan each tile's slots
+        best-bound-first in segments and drop the (query, slot) pairs whose
+        score bound is below the running kth (the same results, fewer slot
+        scans); ``"bounded"`` with ``epsilon``: also drop pairs whose
+        chance of holding a top-k row is at most ε under the bound model
+        (the exact top-k over the surviving probes).
 
     ``index`` needs the resident surface (``spec / centroids / counts /
     n_clusters / store_dtype / quantized / summaries``) plus one fetch
@@ -577,8 +656,20 @@ class SearchEngine:
                  adaptive_u_cap: Optional[bool] = None,
                  u_cap_bucket_set: Optional[Tuple[int, ...]] = None,
                  u_cap_ladder: str = "pow2", operand_cache: str = "auto",
-                 t_max=None, delta=None, device="cuda", **unported):
-        _reject_unported(index, unported)
+                 t_max=None, delta=None, device_cache=None,
+                 termination: Optional[str] = None, epsilon: float = 0.0,
+                 partitions: str = "auto", device="cuda", **unported):
+        _reject_unported(unported)
+        if termination not in (None, "exact", "bounded"):
+            raise ValueError(f"termination must be None|'exact'|'bounded', "
+                             f"got {termination!r}")
+        if not 0.0 <= float(epsilon) < 1.0:
+            raise ValueError(f"epsilon must be in [0, 1), got {epsilon!r}")
+        if epsilon > 0.0 and termination != "bounded":
+            raise ValueError("epsilon > 0 requires termination='bounded'")
+        if partitions not in ("auto", "on", "off"):
+            raise ValueError(f"partitions must be 'auto'|'on'|'off', got "
+                             f"{partitions!r}")
         if isinstance(t_max, str) and t_max != "auto":
             raise ValueError(f"t_max must be an int, 'auto' or None, got "
                              f"{t_max!r}")
@@ -611,6 +702,15 @@ class SearchEngine:
         self.u_cap_bucket_set = u_cap_bucket_set
         self.u_cap_ladder = u_cap_ladder
         self.operand_cache = operand_cache
+        self.partitions = partitions
+        self.termination = termination
+        self.epsilon = float(epsilon)
+        # filter-traffic recorder and the planner's base-width views and
+        # device member table, built on first use
+        self._traffic = None
+        self._base_memo = None
+        self._members_memo = None
+        self._bounds_cache = None  # (key, ClusterBounds) lazy-build memo
         self.backend = self.device.type
         # fetch source: an explicit gather_fn wins; otherwise an explicit or
         # index-provided store; otherwise the index's own gather; otherwise
@@ -628,6 +728,20 @@ class SearchEngine:
         if operand_cache == "on" and self._store is None:
             raise ValueError("operand_cache='on' needs a BlockStore fetch "
                              "path (disk tier or explicit blockstore=)")
+        # cross-batch device cache: an explicit instance or byte budget
+        # wins, else the index's attached one
+        dc = (device_cache if device_cache is not None
+              else getattr(index, "device_cache", None))
+        if dc is not None and self._store is None:
+            raise ValueError("device_cache needs a BlockStore fetch path "
+                             "(disk tier or explicit blockstore=)")
+        if isinstance(dc, (int, float)):
+            from repro_torch.core.devicecache import DeviceBlockCache
+
+            heat = getattr(getattr(index, "cache", None), "probe_heat", None)
+            dc = DeviceBlockCache(self._bspec, int(dc), heat_fn=heat,
+                                  device=self.device)
+        self._device_cache = dc
         # async pair available iff the source IS the index's own gather
         self._async_src = (
             index if (self._store is None and self._gather_fn is not None
@@ -660,6 +774,95 @@ class SearchEngine:
         return self._delta if self._delta is not None else getattr(
             self.index, "delta", None)
 
+    # ---- partition routing (plan side) ----
+    def _resolve_partitions(self):
+        """The catalog to route with (``"auto"``: the index's, if any;
+        ``"on"``: demanded; ``"off"``: None, the flat plan)."""
+        cat = getattr(self.index, "partitions", None)
+        if self.partitions == "off":
+            return None
+        if self.partitions == "on" and cat is None:
+            raise ValueError(
+                "partitions='on' but the index has no partition catalog — "
+                "save the checkpoint with layout 4 (save_index(partitions="
+                "build_partitions(...))) or use partitions='auto'")
+        return cat
+
+    def _n_base(self) -> int:
+        """The planner's cluster count: the base clusters of a partitioned
+        index (its sub rows are scan targets only)."""
+        cat = getattr(self.index, "partitions", None)
+        return cat.n_base if cat is not None else self.index.n_clusters
+
+    def _base_views(self, cat, summ):
+        """Base-width views of centroids, counts and summaries.  A RAM index
+        with attached subs carries them inline; planning over them would
+        probe duplicated sub centroids, so the planner slices to
+        ``[:n_base]``, memoized until the arrays are swapped."""
+        index = self.index
+        cents = index.centroids
+        nb = cat.n_base
+        if cents.shape[0] == nb:
+            return cents, index.counts, summ
+        memo = self._base_memo
+        if memo is None or memo[0] is not cents:
+            base_summ = None
+            if index.summaries is not None:
+                base_summ = dataclasses.replace(
+                    index.summaries, amin=index.summaries.amin[:nb],
+                    amax=index.summaries.amax[:nb],
+                    hist=index.summaries.hist[:nb])
+            memo = self._base_memo = (cents, cents[:nb], index.counts[:nb],
+                                      base_summ)
+        return memo[1], memo[2], (memo[3] if summ is not None else None)
+
+    def _members_device(self, cat):
+        """The catalog's ``[E, K_base]`` member table on the index's device,
+        memoized per catalog."""
+        memo = self._members_memo
+        if memo is None or memo[0] is not cat:
+            memo = self._members_memo = (cat, torch.from_numpy(
+                np.asarray(cat.members, np.int32)).to(
+                    self.index.centroids.device))
+        return memo[1]
+
+    def _route_partitions(self, cat, fspec: FilterSpec):
+        """Host-side narrowest-subsuming-entry routing and traffic
+        recording.  Returns ``(route, route_entry, members)``: the [Q] entry
+        per query (-1 = flat) and the plan's remap operands, None where no
+        query routes (the flat plan)."""
+        lo_np = probes_lib._host(fspec.lo)
+        hi_np = probes_lib._host(fspec.hi)
+        if self.partitions != "off":
+            if self._traffic is None:
+                from repro_torch.core.partitions import FilterTrafficRecorder
+
+                self._traffic = FilterTrafficRecorder(int(lo_np.shape[-1]))
+            self._traffic.observe(lo_np, hi_np)
+        if cat is None:
+            return None, None, None
+        route = cat.route(lo_np, hi_np)
+        hits = int(np.sum(route >= 0))
+        self.stats.partition_hits += hits
+        # fallbacks: queries that constrain some attribute but that no entry
+        # subsumes (an unfiltered query's layout is simply the flat one)
+        nonvoid = np.all(lo_np <= hi_np, axis=-1)  # [Q, T]
+        narrowed = np.any((lo_np > ATTR_MIN) | (hi_np < ATTR_MAX), axis=-1)
+        constrained = np.any(nonvoid & narrowed, axis=-1)
+        self.stats.partition_fallbacks += int(np.sum(constrained
+                                                     & (route < 0)))
+        if hits == 0:
+            return route, None, None
+        dev = self.index.centroids.device
+        return route, torch.from_numpy(route).to(dev), self._members_device(
+            cat)
+
+    @property
+    def traffic(self):
+        """The engine's filter-traffic recorder (the partition builder's
+        attribute-choice input); None until a batch was planned."""
+        return self._traffic
+
     # ---- plan ----
     def plan(self, queries, fspec: FilterSpec) -> SearchPlan:
         """Plans at the sound worst-case table width; with
@@ -674,10 +877,18 @@ class SearchEngine:
         q = queries.shape[0]
         qb = min(self.q_block, round_up(q, 8))
         summ = resolve_prune(index, self.prune)
-        kc = index.n_clusters
+        # probing geometry runs over the base clusters: sub ids enter only
+        # through the plan's remap, and a RAM index with attached subs is
+        # planned over its base rows even with routing off
+        cat = self._resolve_partitions()
+        cat_any = getattr(index, "partitions", None)
+        centroids, counts, kc = index.centroids, index.counts, index.n_clusters
+        if cat_any is not None:
+            kc = cat_any.n_base
+            centroids, counts, summ = self._base_views(cat_any, summ)
+        route, route_entry, members = self._route_partitions(cat, fspec)
         # the batch's view of the delta segment; the planner sees the counts
         # a rebuild would (centroid_scores masks empty clusters by count)
-        counts = index.counts
         tier = self._delta_tier()
         snap = tier.snapshot() if tier is not None else None
         if snap is not None:
@@ -687,15 +898,19 @@ class SearchEngine:
         t_max = resolve_t_max(self.t_max, summ, counts, lo, hi,
                               self.n_probes, kc)
         width = self.n_probes if t_max is None else t_max
-        full_cap = min(qb * width, kc)
+        # remapped probes draw from base and sub ids, so a tile's unique
+        # count can exceed the base cluster count
+        k_total = kc + (cat.n_subs if cat is not None else 0)
+        full_cap = min(qb * width, k_total)
         cap = full_cap if self.u_cap is None else self.u_cap
         cast_dtype = torch.float32 if index.quantized else index.store_dtype
         (slot_cluster, slot_tile, slot_of_probe, probe_ok, n_unique,
          queries_pad, lo_pad, hi_pad, n_pruned, geo_probes,
          geo_valid) = plan_fused_tiled(
-            index.centroids, counts, queries, lo, hi,
+            centroids, counts, queries, lo, hi,
             metric=index.spec.metric, n_probes=self.n_probes, q_block=qb,
-            u_cap=cap, cast_dtype=cast_dtype, summaries=summ, t_max=t_max)
+            u_cap=cap, cast_dtype=cast_dtype, summaries=summ, t_max=t_max,
+            route_entry=route_entry, members=members)
         plan = SearchPlan(
             q=q, q_block=qb, n_tiles=queries_pad.shape[0] // qb, u_cap=cap,
             width=width, slot_cluster=slot_cluster,
@@ -707,12 +922,17 @@ class SearchEngine:
             n_pruned=n_pruned, gens=self._plan_gens(),
             geo_probes=geo_probes if snap is not None else None,
             geo_valid=geo_valid if snap is not None else None,
-            delta_snap=snap,
+            delta_snap=snap, route=route,
         )
         if self.adaptive_u_cap:
             self._provision(plan)
-        if self.pipeline == "on" or self._gather_fn is not None:
+        if (self.pipeline == "on" or self._gather_fn is not None
+                or self.termination is not None):
             self._host_tables(plan)
+        if self.termination is not None:
+            # reorders the slot tables best-bound-first before any fetch
+            # list exists, so fetches follow the scan order
+            self._prepare_termination(plan, summ, counts)
         self.stats.last_u_cap = plan.u_cap
         self.stats.u_cap_hist[plan.u_cap] = (
             self.stats.u_cap_hist.get(plan.u_cap, 0) + 1)
@@ -758,6 +978,133 @@ class SearchEngine:
                               + torch.clamp(s, max=bucket - 1)).int()
         plan.u_cap = bucket
 
+    # ---- bound-driven termination (plan side) ----
+    def _resolve_bounds(self):
+        """The per-cluster score bounds: the index's own (the disk tier's
+        ``storage.load_bounds``), else built from the resident flat lists
+        and memoized until the arrays are swapped."""
+        index = self.index
+        b = getattr(index, "bounds", None)
+        if b is not None:
+            return b
+        vectors = getattr(index, "vectors", None)
+        if vectors is None:
+            raise ValueError(
+                "termination needs per-cluster score bounds, but the index "
+                "has neither a `bounds` attribute nor resident vectors to "
+                "build them from; re-save the checkpoint (save_index writes "
+                "bounds_radius.npy / bounds_slack.npy)")
+        scales = getattr(index, "scales", None)
+        cached = self._bounds_cache
+        if (cached is not None and cached[0] is vectors
+                and cached[1] is scales):
+            return cached[2]
+        b = summaries_lib.build_bounds(index.centroids, vectors, index.ids,
+                                       getattr(index, "norms", None), scales)
+        self._bounds_cache = (vectors, scales, b)
+        return b
+
+    def _prepare_termination(self, plan: SearchPlan, summ, counts):
+        """Builds the batch's :class:`TermState` and reorders each tile's
+        slots best-bound-first (host-side numpy, f64 where it matters).
+
+        Per (query, slot) pair the upper bound on any row's kernel-space
+        score comes from resident state only: the centroid product plus a
+        Cauchy-Schwarz ``‖q‖·radius`` term (dot), or ``‖q‖² − max(d −
+        radius, 0)²`` shifted by the cluster's norm slack (l2, before the
+        ``‖q‖²`` fix-up), over the cast queries the kernel scores, widened
+        by a dtype-aware rounding margin.  Routed slots hold sub ids: they
+        are bounded by their parent's row (a sub holds a subset of its
+        parent's rows under the same centroid).
+        """
+        index = self.index
+        qb, cap, n_tiles = plan.q_block, plan.u_cap, plan.n_tiles
+        qpad = qb * n_tiles
+        bounds = self._resolve_bounds()
+        sc = np.asarray(plan.slot_cluster).reshape(n_tiles, cap)
+        cat = self._resolve_partitions()
+        if cat is not None:
+            sc = cat.to_base(sc)
+
+        # which (tile, query row, slot) pairs are real probes
+        sop = np.asarray(plan.slot_of_probe)
+        pok = np.asarray(plan.probe_ok)
+        tt, ss = np.divmod(sop, cap)
+        qi = np.broadcast_to((np.arange(qpad, dtype=np.int32) % qb)[:, None],
+                             sop.shape)
+        valid = np.zeros((n_tiles, qb, cap), bool)
+        valid[tt[pok], qi[pok], ss[pok]] = True
+
+        qt = plan.queries_pad.float().cpu().numpy().reshape(n_tiles, qb, -1)
+        C = index.centroids.float().cpu().numpy()
+        csel = C[sc]  # [n_tiles, cap, D]
+        rsel = bounds.radius.float().cpu().numpy()[sc][:, None, :]
+        if index.spec.metric == "dot":
+            cs = np.einsum("tqd,tsd->tqs", qt, csel)
+            qn = np.linalg.norm(qt, axis=-1)[:, :, None]
+            ub = cs + qn * rsel
+            lb = cs - qn * rsel
+        else:  # l2: kernel space 2q·x − norms_row
+            qt64 = qt.astype(np.float64)
+            c64 = csel.astype(np.float64)
+            # ‖q − c‖ in f64: the expanded form cancels in f32 when q ≈ c,
+            # and an over-estimated d would break the upper bound
+            cs64 = np.einsum("tqd,tsd->tqs", qt64, c64)
+            q2 = np.sum(qt64 * qt64, axis=-1)[:, :, None]
+            c2 = np.sum(c64 * c64, axis=-1)[:, None, :]
+            d = np.sqrt(np.maximum(q2 - 2.0 * cs64 + c2, 0.0))
+            near = np.maximum(d - rsel, 0.0)
+            ssel = bounds.slack.float().cpu().numpy()[sc][:, None, :]
+            ub = q2 - near * near + ssel
+            lb = q2 - (d + rsel) ** 2
+        # rounding margin: the kernel accumulates in f32 from operands that
+        # may be 16-bit
+        itemsize = torch.tensor([], dtype=index.store_dtype).element_size()
+        tol = 1e-2 if (not index.quantized and itemsize == 2) else 1e-4
+        # f64 state: the ε model subtracts the running kth (NEG_INF while a
+        # query's list is not full), which overflows in f32
+        ub = ub.astype(np.float64) + (1e-3 + tol * np.abs(ub))
+        lb = lb.astype(np.float64)
+
+        # the ε model's mass: expected passing rows of the pair's cluster
+        # under the query's filter (live counts without summaries)
+        if summ is not None:
+            ep = summaries_lib.expected_passing(
+                summ, plan.lo_pad, plan.hi_pad, counts).cpu().numpy()
+            mass = np.take_along_axis(ep.reshape(n_tiles, qb, -1),
+                                      sc[:, None, :], axis=2)
+        else:
+            cnt = counts.float().cpu().numpy()[sc][:, None, :]
+            mass = np.broadcast_to(cnt, (n_tiles, qb, cap)).copy()
+
+        # best-bound-first: each tile's live slots by descending max-over-
+        # queries upper bound; probe pointers remapped, state co-permuted
+        slot_bound = np.where(valid, ub, -np.inf).max(axis=1)
+        plan.slot_cluster, plan.slot_of_probe, perm = probes_lib.bound_order(
+            plan.slot_cluster, plan.n_unique, plan.slot_of_probe, slot_bound,
+            cap)
+        pq = perm[:, None, :]
+        ub = np.take_along_axis(ub, pq, axis=2)
+        lb = np.take_along_axis(lb, pq, axis=2)
+        mass = np.take_along_axis(mass, pq, axis=2)
+        valid = np.take_along_axis(valid, pq, axis=2)
+
+        # about 4 segments a tile, widths a multiple of 4, so the segment
+        # shapes come from a bounded set
+        seg = max(4, ((-(-cap // 4) + 3) // 4) * 4)
+        n_seg = -(-cap // seg)
+        cap_pad = n_seg * seg
+        if cap_pad > cap:
+            padw = ((0, 0), (0, 0), (0, cap_pad - cap))
+            ub = np.pad(ub, padw, constant_values=-np.inf)
+            lb = np.pad(lb, padw, constant_values=-np.inf)
+            mass = np.pad(mass, padw, constant_values=0.0)
+            valid = np.pad(valid, padw, constant_values=False)
+        plan.term = TermState(
+            epsilon=self.epsilon if self.termination == "bounded" else 0.0,
+            seg=seg, n_seg=n_seg, cap=cap, ub=ub, lb=lb, mass=mass,
+            valid=valid, kept=np.zeros(np.shape(plan.probe_ok), bool))
+
     # ---- fetch ----
     @property
     def blockstore(self):
@@ -768,6 +1115,18 @@ class SearchEngine:
     @property
     def _use_operand_cache(self) -> bool:
         return self._store is not None and self.operand_cache != "off"
+
+    @property
+    def device_cache(self):
+        """The cross-batch device block cache (None when off)."""
+        return self._device_cache
+
+    def _note_device_hits(self, n: int):
+        """Tells a store that counts them how many blocks the device cache
+        served (fetches that never happened)."""
+        note = getattr(self._store, "note_device_hits", None)
+        if n > 0 and note is not None:
+            note(n)
 
     def _count_fetched(self, plan: Optional[SearchPlan], cids):
         """``blocks_fetched`` on the operand-cache path: each distinct
@@ -792,11 +1151,41 @@ class SearchEngine:
         stage); each fetched cluster carries its expected generation."""
         flat = np.asarray(slot_cluster).reshape(-1)
         uniq, local = blockstore_lib.first_need_unique(flat)
+        if self._device_cache is not None:
+            return self._device_gather(flat, uniq, local, gens, plan=plan)
         recs = self._store.get(uniq, gens=None if gens is None else gens[uniq])
         self.stats.blocks_fetched += len(recs)
         return blockstore_lib.assemble_blocks(
             flat, uniq, local, recs, self._bspec, as_device=True,
             device=self.device)
+
+    def _device_gather(self, flat, uniq, local, gens,
+                       plan: Optional[SearchPlan] = None):
+        """Device-cache-aware gather: resident clusters come straight from
+        the device cache (no read, no host assembly, no copy); only the
+        misses cross the store and the bus, once, and are admitted.  The
+        blocks are composed on the card."""
+        dc = self._device_cache
+        egens = None if gens is None else gens[uniq]
+        s = flat.shape[0]
+        tile = dc.get_tile(uniq, s, egens)
+        if tile is not None:  # an exact repeat: the composed blocks
+            self._note_device_hits(len(uniq))
+            self.stats.blocks_reused += len(uniq)
+            return dc.handoff(local, tile)
+        hits, missing = dc.get_many(uniq, egens)
+        self._note_device_hits(len(hits))
+        self.stats.blocks_reused += len(hits)
+        if missing:
+            marr = np.asarray(missing, np.int64)
+            recs = self._store.get(marr,
+                                   gens=None if gens is None else gens[marr])
+            self._count_fetched(plan, recs)
+            hits.update(dc.put_records(recs))
+        entries = [hits[int(c)] for c in uniq]
+        blocks = dc.compose(entries)
+        dc.put_tile(uniq, s, entries, blocks)
+        return dc.handoff(local, blocks)
 
     def _expected_gens(self, plan: SearchPlan, cids) -> Optional[np.ndarray]:
         """Expected generations for a fetch list, from the plan's vector."""
@@ -864,7 +1253,7 @@ class SearchEngine:
         t0 = time.perf_counter()
         from repro_torch.core import delta as delta_lib
 
-        q, kc = plan.q, self.index.n_clusters
+        q, kc = plan.q, self._n_base()
 
         def skipped(count_reach=True):
             self.stats.delta_skips += 1
@@ -954,13 +1343,177 @@ class SearchEngine:
         self._observe_stage("scan", time.perf_counter() - t0)
         return res
 
+    def _scan_tile_terminated(self, plan: SearchPlan, i: int, operands,
+                              block_rows: int) -> SearchResult:
+        """Bound-driven scan of one query tile: its slots in best-bound-first
+        segments, the running top-k folded on the card after each, and at
+        each boundary the remaining (query, slot) pairs dropped whose upper
+        bound is below the query's running kth (provably out: the kth only
+        rises) or, in ε mode at the first boundary, whose chance of holding
+        a top-k row is at most ε.  A segment no live pair needs is not
+        scanned.  Per-slot fragments do not depend on which slots share a
+        launch, so ``termination="exact"`` reproduces the untruncated scan.
+
+        ``operands`` are the tile's ``(slot rows, vectors, attrs, ids,
+        norms, scales)``; ``block_rows`` is the row count the reference's
+        operand blocks have (the scan-signature count).  The reference's
+        segmented-fetch mode (``operands=None``) serves a sharded block
+        store, not ported yet (ROADMAP A.8).
+        """
+        if operands is None:
+            raise NotImplementedError(
+                "the segmented-fetch terminated executor serves a sharded "
+                "block store, not ported yet (ROADMAP A.8 sharded ring)")
+        t_start = time.perf_counter()
+        term = plan.term
+        qb, cap, k = plan.q_block, plan.u_cap, self.k
+        seg, n_seg = term.seg, term.n_seg
+        cap_pad = n_seg * seg
+        metric = self.index.spec.metric
+        dev = self.device
+        if plan.queries_orig_pad is None:
+            plan.queries_orig_pad = probes_lib.pad_to_tiles(plan.queries, qb)
+        rows = slice(i * qb, (i + 1) * qb)
+        sop = np.asarray(plan.slot_of_probe[rows]) - i * cap
+        pok = np.asarray(plan.probe_ok[rows])
+        q_pad, lo_pad, hi_pad = (plan.queries_pad[rows], plan.lo_pad[rows],
+                                 plan.hi_pad[rows])
+        slot_rows, vectors, attrs, ids, norms, scales = operands
+        ids = self._mask_tombstones(plan, ids)
+        sc = probes_lib._host(slot_rows).reshape(-1).astype(np.int32)
+        # pad to the segmented width by repeating the last slot (a pad
+        # position holds no valid pair, so it is never scanned)
+        if cap_pad > cap:
+            sc = np.concatenate([sc, np.repeat(sc[-1:], cap_pad - cap)])
+        u = int(np.asarray(plan.n_unique)[i])
+        sc_dev = torch.from_numpy(sc).to(dev)
+        live_per_slot = (ids >= 0).sum(-1)[sc_dev.long()]  # [cap_pad]
+        zeros_tile = torch.zeros((seg,), dtype=torch.int32, device=dev)
+
+        alive = term.valid[i].copy()  # [qb, cap_pad]
+        eps_dropped = np.zeros((qb, cap_pad), bool)
+        scanned = np.zeros((n_seg,), bool)
+        run_vals = torch.full((qb, k), topk_lib.NEG_INF, dtype=torch.float32,
+                              device=dev)
+        run_ids = torch.full((qb, k), -1, dtype=torch.int32, device=dev)
+        frags: List[Optional[Tuple]] = []
+        for si in range(n_seg):
+            p0, p1 = si * seg, (si + 1) * seg
+            alive_seg = alive[:, p0:p1]
+            if not alive_seg.any():
+                self.stats.term_segments_skipped += 1
+                frags.append(None)
+            else:
+                scanned[si] = True
+                self._count_scan((
+                    "term", self.backend, metric, k, qb, self.v_block, seg,
+                    (block_rows,) + tuple(vectors.shape[1:]),
+                    str(vectors.dtype), str(q_pad.dtype),
+                    tuple(lo_pad.shape[1:]), norms is None, scales is None))
+                # the segment's dedup pads (positions >= u) are skipped
+                n_live = torch.tensor([min(max(u - p0, 0), seg)],
+                                      dtype=torch.int32, device=dev)
+                svals, sids, snpass = filtered_scan_tiled(
+                    sc_dev[p0:p1], zeros_tile, n_live, q_pad, lo_pad, hi_pad,
+                    vectors, attrs, ids, norms, scales, metric=metric, k=k,
+                    q_block=qb)
+                frags.append((svals, sids, snpass))
+                run_vals, run_ids = fold_running_topk(
+                    run_vals, run_ids, svals, sids,
+                    torch.from_numpy(alive_seg).to(dev), k=k)
+            if si + 1 >= n_seg:
+                break
+            # boundary: the remaining pairs' bounds against the running kth
+            # (one host sync per boundary)
+            kth = run_vals[:, k - 1].double().cpu().numpy()
+            kth_real = kth > topk_lib.NEG_INF / 2
+            rest = np.s_[:, p1:]
+            drop = (alive[rest] & kth_real[:, None]
+                    & (term.ub[i][rest] < kth[:, None]))
+            if si == 0 and term.epsilon > 0.0:
+                # the ε decision is made once, at the first boundary, from an
+                # ε-independent kth: a higher ε drops a superset of a lower
+                # ε's pairs, so recall is monotone in ε
+                ub_r, lb_r = term.ub[i][rest], term.lb[i][rest]
+                p_hit = np.clip((ub_r - kth[:, None])
+                                / np.maximum(ub_r - lb_r, 1e-12), 0.0, 1.0)
+                p_hit = np.where(kth_real[:, None], p_hit, 1.0)
+                p_any = 1.0 - np.power(
+                    1.0 - np.minimum(p_hit, 1.0 - 1e-12), term.mass[i][rest])
+                edrop = alive[rest] & (p_any <= term.epsilon)
+                eps_dropped[rest] |= edrop
+                drop = drop | edrop
+            self.stats.probes_terminated += int(drop.sum())
+            alive[rest] &= ~drop
+        # never-scanned segments contribute all-masked filler fragments
+        filler = None
+        for si in range(n_seg):
+            if frags[si] is None:
+                if filler is None:
+                    filler = (
+                        torch.full((seg, qb, k), topk_lib.NEG_INF,
+                                   dtype=torch.float32, device=dev),
+                        torch.full((seg, qb, k), -1, dtype=torch.int32,
+                                   device=dev),
+                        torch.zeros((seg, qb), dtype=torch.int32, device=dev))
+                frags[si] = filler
+        svals_all, sids_all, snpass_all = (
+            torch.cat([f[j] for f in frags]) for j in range(3))
+        # a probe's fragments enter the merge iff its segment was scanned
+        # and it was not ε-dropped
+        scanned_pos = np.repeat(scanned, seg)
+        qi = np.broadcast_to(np.arange(qb)[:, None], sop.shape)
+        scan_ok = pok & scanned_pos[sop]
+        pair_ok = scan_ok & ~eps_dropped[qi, sop]
+        term.kept[rows] = pair_ok
+        res = _merge_fragments(
+            svals_all, sids_all, snpass_all, self._dev(sop),
+            self._dev(pair_ok), self._dev(scan_ok),
+            plan.queries_orig_pad[rows], live_per_slot, metric=metric, k=k,
+            q=qb, q_block=qb)
+        self._observe_stage("scan", time.perf_counter() - t_start)
+        return res
+
+    def _execute_terminated_sync(self, plan: SearchPlan) -> SearchResult:
+        """Sync executor with termination: one whole-batch fetch, then per
+        tile the segmented scan (its decisions need the tile's running
+        kth)."""
+        operands = self.fetch(plan)
+        slot_rows = probes_lib._host(operands[0]).reshape(plan.n_tiles,
+                                                          plan.u_cap)
+        rows = (plan.n_tiles * plan.u_cap if self._gather_fn is not None
+                else operands[1].shape[0])
+        parts: List[SearchResult] = []
+        for i in range(plan.n_tiles):
+            parts.append(self._scan_tile_terminated(
+                plan, i, (slot_rows[i],) + tuple(operands[1:]), rows))
+            self.stats.tiles_scanned += 1
+        return self._merge_parts(plan, parts)
+
+    def _note_partition_rows(self, plan: SearchPlan, res: SearchResult):
+        """Splits the batch's cold-scan rows by route (partition or flat):
+        the partition plane's effectiveness gauge.  No host sync without
+        an active catalog."""
+        if plan.route is None:
+            return
+        ns = res.n_scanned.cpu().numpy()
+        hit = plan.route >= 0
+        self.stats.partition_rows_scanned += int(ns[hit].sum())
+        self.stats.flat_rows_scanned += int(ns[~hit].sum())
+
+    def _sync_batch(self, plan: SearchPlan) -> SearchResult:
+        if plan.term is not None:
+            return self._execute_terminated_sync(plan)
+        return self.scan_merge(plan, self.fetch(plan))
+
     # ---- executors ----
     def execute(self, plan: SearchPlan) -> SearchResult:
         self.stats.batches += 1
         if self.pipeline == "on":
             res = self._execute_pipelined(plan)
         else:
-            res = self.scan_merge(plan, self.fetch(plan))
+            res = self._sync_batch(plan)
+        self._note_partition_rows(plan, res)
         return self._fold_delta(plan, res)
 
     def submit(self, queries, fspec: FilterSpec) -> PendingSearch:
@@ -984,7 +1537,8 @@ class SearchEngine:
         elif self.pipeline == "on":
             res = self._execute_pipelined(plan)
         else:
-            res = self.scan_merge(plan, self.fetch(plan))
+            res = self._sync_batch(plan)
+        self._note_partition_rows(plan, res)
         return self._fold_delta(plan, res)
 
     def _tile_operands(self, plan: SearchPlan, i: int):
@@ -1006,8 +1560,12 @@ class SearchEngine:
     def _start_inflight(self, plan: SearchPlan, depth: int) -> Dict:
         """Prepares a pipelined batch (operand cache and per-tile novel
         fetch lists on the store path) and launches the first ``depth``
-        tile fetches."""
-        if self._use_operand_cache:
+        tile fetches.  The device cache subsumes the operand cache: the
+        per-tile novel lists still bound what crosses the store, and reuse
+        within and across batches rides the device entries."""
+        if self._device_cache is not None:
+            plan.tile_work()
+        elif self._use_operand_cache:
             plan.operands = {}
             plan.tile_work()
         return {i: self._submit(plan, i) for i in range(depth)}
@@ -1019,12 +1577,15 @@ class SearchEngine:
         off the scan thread.  With the operand cache, a cluster several
         tiles share crosses the store once per batch (``blocks_reused``)."""
         recs = self._store.wait(h_store)
-        if plan.operands is not None:
+        if self._device_cache is not None or plan.operands is not None:
             self._count_fetched(plan, recs)
         else:
             self.stats.blocks_fetched += len(recs)
         sc = plan.slot_cluster.reshape(plan.n_tiles, plan.u_cap)[i]
         uniq, local = blockstore_lib.first_need_unique(sc)
+        if self._device_cache is not None:
+            return self._assemble_tile_device(plan, uniq, local, recs,
+                                              sc.shape[0])
         if plan.operands is None:
             return blockstore_lib.assemble_blocks(
                 sc, uniq, local, recs, self._bspec, as_device=True,
@@ -1059,6 +1620,37 @@ class SearchEngine:
                 ops.pop(gkey(c), None)
         return out
 
+    def _assemble_tile_device(self, plan: SearchPlan, uniq, local, recs,
+                              s: int):
+        """Device-cache half of :meth:`_assemble_tile`: the tile's blocks are
+        composed on the card from resident entries plus this tile's
+        fetches, which cross to the card once and are admitted.  An entry
+        evicted between submit and assembly is fetched again inline, never
+        scanned stale."""
+        dc = self._device_cache
+        egens = self._expected_gens(plan, uniq)
+        tile = dc.get_tile(uniq, s, egens)
+        if tile is not None:  # an exact repeat: the composed blocks
+            self._note_device_hits(len(uniq))
+            self.stats.blocks_reused += len(uniq)
+            dc.put_records(recs)  # admit this tile's fetches regardless
+            return dc.handoff(local, tile)
+        hits, missing = dc.get_many(uniq, egens)
+        self._note_device_hits(len(hits))
+        self.stats.blocks_reused += len(hits)
+        entries = dict(hits)
+        entries.update(dc.put_records(recs))
+        gap = [c for c in missing if c not in entries]
+        if gap:
+            more = self._store.get(np.asarray(gap, np.int64),
+                                   gens=self._expected_gens(plan, gap))
+            self._count_fetched(plan, more)
+            entries.update(dc.put_records(more))
+        ordered = [entries[int(c)] for c in uniq]
+        blocks = dc.compose(ordered)
+        dc.put_tile(uniq, s, ordered, blocks)
+        return dc.handoff(local, blocks)
+
     def _submit(self, plan: SearchPlan, i: int):
         """Starts tile *i*'s fetch; returns (handle, t_submit, done_box).
         The handle yields tile *i*'s blocks for :func:`wait_blocks`."""
@@ -1066,7 +1658,13 @@ class SearchEngine:
         done = [None]  # completion timestamp, set by the done-callback
         sc = plan.slot_cluster.reshape(plan.n_tiles, plan.u_cap)[i]
         if self._store is not None:
-            if self._use_operand_cache:
+            if self._device_cache is not None:
+                # this tile's novel clusters that are not on the card (a
+                # peek: an entry evicted before assembly is fetched there)
+                novel = plan.tile_work()[i].fetch
+                fetch_ids = self._device_cache.filter_missing(
+                    novel, self._expected_gens(plan, novel))
+            elif self._use_operand_cache:
                 # only clusters no earlier tile of this batch needed
                 fetch_ids = plan.tile_work()[i].fetch
             else:
@@ -1108,13 +1706,13 @@ class SearchEngine:
         nothing to overlap with and takes the sync path (cross-batch
         overlap comes from :meth:`submit`/:meth:`result`)."""
         if plan.n_tiles < 2 and self._gather_fn is not None:
-            return self.scan_merge(plan, self.fetch(plan))
+            return self._sync_batch(plan)
         if self._gather_fn is None:
             self.stats.pipelined_batches += 1
             parts = []
             for i in range(plan.n_tiles):
-                parts.append(self._scan_tile(plan, i,
-                                             self._tile_operands(plan, i)))
+                parts.append(self._scan_one(plan, i,
+                                            self._tile_operands(plan, i)))
                 self.stats.tiles_scanned += 1
             return self._merge_parts(plan, parts)
         depth = min(self.pipeline_depth, plan.n_tiles)
@@ -1134,7 +1732,7 @@ class SearchEngine:
                 operands = self._wait(inflight.pop(i))
                 if i + depth < n:
                     inflight[i + depth] = self._submit(plan, i + depth)
-                parts.append(self._scan_tile(plan, i, operands))
+                parts.append(self._scan_one(plan, i, operands))
                 self.stats.tiles_scanned += 1
         except BaseException:
             for handle_rec in inflight.values():
@@ -1144,6 +1742,14 @@ class SearchEngine:
                     pass
             raise
         return self._merge_parts(plan, parts)
+
+    def _scan_one(self, plan: SearchPlan, i: int, operands) -> SearchResult:
+        """One tile of the pipelined executor, terminated or not."""
+        if plan.term is None:
+            return self._scan_tile(plan, i, operands)
+        rows = (plan.u_cap if self._gather_fn is not None
+                else operands[1].shape[0])
+        return self._scan_tile_terminated(plan, i, operands, rows)
 
     def _merge_parts(self, plan: SearchPlan,
                      parts: List[SearchResult]) -> SearchResult:
@@ -1161,20 +1767,29 @@ class SearchEngine:
         """Flips the engine to the latest published generation, strictly
         between batches: reopens the store's reader, reloads the index's
         resident state and commits any pending delta freeze (the index's
-        ``refresh`` does).  Gen-keyed caches need no flush.  Returns True
-        when a new generation was picked up."""
+        ``refresh`` does), then drops the device cache's entries of exactly
+        the rewritten clusters.  Gen-keyed host caches need no flush.
+        Returns True when a new generation was picked up."""
         if self._store is not None:
             store_refresh = getattr(self._store, "refresh", None)
             if store_refresh is not None:
                 store_refresh()
         idx_refresh = getattr(self.index, "refresh", None)
-        return bool(idx_refresh()) if idx_refresh is not None else False
+        changed = bool(idx_refresh()) if idx_refresh is not None else False
+        if self._device_cache is not None:
+            # the new generation vector names exactly the rewritten
+            # clusters: only their device entries drop
+            gens = self._plan_gens()
+            if gens is not None:
+                self._device_cache.invalidate_below(gens)
+        return changed
 
     # ---- observability ----
     def metrics(self) -> Dict[str, Any]:
-        """One flat dict of engine, store and cache counters under stable
-        dotted keys (``engine.batches``, ``store.hits``,
-        ``cache.invalidations``, ...), scalar values only."""
+        """One flat dict of engine, store, cache, device-cache, delta,
+        partition and filter-traffic counters under the reference's dotted
+        keys (``engine.batches``, ``store.hits``, ``device_cache.hits``,
+        ``partitions.subs``, ...), scalar values only."""
         out: Dict[str, Any] = {}
         eng = dataclasses.asdict(self.stats)
         eng["overlap_ratio"] = self.stats.overlap_ratio
@@ -1192,9 +1807,18 @@ class SearchEngine:
             c = dataclasses.asdict(cstats)
             c["hit_rate"] = cache.hit_rate
             _flatten_metrics(out, "cache", c)
+        if self._device_cache is not None:
+            _flatten_metrics(out, "device_cache", self._device_cache.stats())
         tier = self._delta_tier()
         if tier is not None:
             _flatten_metrics(out, "delta", tier.stats())
+        cat = getattr(self.index, "partitions", None)
+        if cat is not None:
+            _flatten_metrics(out, "partitions", dict(
+                entries=cat.n_entries, subs=cat.n_subs,
+                catalog_bytes=cat.nbytes()))
+        if self._traffic is not None:
+            _flatten_metrics(out, "filter_traffic", self._traffic.stats())
         return out
 
     def metrics_text(self) -> str:
@@ -1217,6 +1841,8 @@ def search_fused_tiled(index, queries, fspec: FilterSpec, *, k: int,
                        adaptive_u_cap: bool = False,
                        u_cap_ladder: str = "pow2",
                        operand_cache: str = "auto", t_max=None, delta=None,
+                       termination: Optional[str] = None,
+                       epsilon: float = 0.0, partitions: str = "auto",
                        device="cuda", **unported) -> SearchResult:
     """Query-tiled, probe-deduplicated fused search: a one-batch
     :class:`SearchEngine` (same contract as ``search_reference``)."""
@@ -1225,8 +1851,9 @@ def search_fused_tiled(index, queries, fspec: FilterSpec, *, k: int,
         u_cap=u_cap, gather_fn=gather_fn, blockstore=blockstore, prune=prune,
         pipeline=pipeline, pipeline_depth=pipeline_depth,
         adaptive_u_cap=adaptive_u_cap, u_cap_ladder=u_cap_ladder,
-        operand_cache=operand_cache, t_max=t_max, delta=delta, device=device,
-        **unported)
+        operand_cache=operand_cache, t_max=t_max, delta=delta,
+        termination=termination, epsilon=epsilon, partitions=partitions,
+        device=device, **unported)
     try:
         return eng.search(queries, fspec)
     finally:

@@ -1,7 +1,8 @@
 """Probe planning: query tiling and per-batch probe deduplication — the
 port of ``repro.core.probes`` (the RAM tier's part, and the disk tier's
 host-side fetch lists: :func:`fetch_order`, :func:`tile_fetch_lists`,
-:func:`tile_release_lists`).
+:func:`tile_release_lists`; and :func:`bound_order`, the bound-driven
+executor's best-bound-first slot permutation).
 
 Queries are grouped into tiles of ``q_block`` rows; per tile, the Q·T probe
 ids are sorted and deduplicated into a table of ``u_cap`` unique-cluster
@@ -182,3 +183,48 @@ def tile_release_lists(slot_cluster, n_unique, u_cap: int
     uniq = uniq[order]
     last_tile = flat_tile[last][order]
     return [uniq[last_tile == t] for t in range(n_tiles)]
+
+
+def bound_order(slot_cluster, n_unique, slot_of_probe, slot_bound,
+                u_cap: int):
+    """Permutes each tile's live slots best-bound-first (host-side).
+
+    The bound-driven executor scans the slots most likely to hold top-k
+    candidates first, so the running kth rises fast and later slots can be
+    dropped on a bound.  Each tile's live region ``[0, u)`` is reordered by
+    descending ``slot_bound`` (stable), the pad region repeats the *new*
+    last live slot, and every probe pointer is remapped through the
+    permutation.  Run it before any fetch list is built from the tables.
+
+    Args:
+      slot_cluster:  [n_tiles·u_cap] int32 (``plan_probe_tiles`` output).
+      n_unique:      [n_tiles] live-slot counts.
+      slot_of_probe: [Qpad, T] int32 flat slot pointers.
+      slot_bound:    [n_tiles, u_cap] per-slot priority.
+      u_cap:         per-tile slot capacity.
+
+    Returns ``(slot_cluster', slot_of_probe', perm)`` as host numpy arrays;
+    ``perm [n_tiles, u_cap]`` maps new slot position -> old position
+    (identity on pads), for co-permuting per-slot state.
+    """
+    sc = np.array(_host(slot_cluster).reshape(-1, u_cap), np.int32)
+    nu = _host(n_unique)
+    bound = _host(slot_bound)
+    n_tiles = sc.shape[0]
+    perm = np.broadcast_to(np.arange(u_cap, dtype=np.int32),
+                           (n_tiles, u_cap)).copy()
+    inv = perm.copy()
+    for t in range(n_tiles):
+        u = min(int(nu[t]), u_cap)
+        if u <= 1:
+            continue
+        order = np.argsort(-bound[t, :u], kind="stable").astype(np.int32)
+        perm[t, :u] = order
+        sc[t, :u] = sc[t, order]
+        sc[t, u:] = sc[t, u - 1]  # pads repeat the new last live slot
+        inv_t = np.empty(u, np.int32)
+        inv_t[order] = np.arange(u, dtype=np.int32)
+        inv[t, :u] = inv_t  # positions >= u keep identity (clipped pads)
+    t_idx, s = np.divmod(_host(slot_of_probe).astype(np.int32), u_cap)
+    sop = (t_idx * u_cap + inv[t_idx, s]).astype(np.int32)
+    return sc.reshape(-1), sop, perm

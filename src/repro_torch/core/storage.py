@@ -1,4 +1,4 @@
-"""Disk persistence: the port of ``repro.core.storage`` (layouts 1-3).
+"""Disk persistence: the port of ``repro.core.storage`` (layouts 1-4).
 
 The files are the reference's, byte for byte, so a checkpoint written by
 either package loads in the other:
@@ -9,17 +9,22 @@ either package loads in the other:
     <dir>/counts.npy               — [K]    int32 (always resident)
     <dir>/summaries_*.npy          — per-cluster attribute summaries
     <dir>/bounds_{radius,slack}.npy — per-cluster score bounds
-    <dir>/gens.npy                 — [K] int64 generations (layout 3)
+    <dir>/gens.npy                 — [K] int64 generations (layout 3;
+                                     [K + P] with P sub-partitions, layout 4)
     <dir>/shard_<i>_of_<n>.bin     — fixed-stride cluster records for a
                                      contiguous cluster range; cluster ``c``
                                      of shard ``s`` lives at byte
                                      ``(c - lo_s) · record_stride``
+    <dir>/partition_*.npy          — layout 4: the partition catalog, the
+                                     per-sub row capacities and byte offsets
+    <dir>/partitions.bin           — layout 4: the sub-partition records,
+                                     each at its own stride
 
 A record packs ``(vectors [Vpad, D], attrs [Vpad, M], ids [Vpad],
 norms [Vpad]?, scales [Vpad]?, gen [1]?)`` at 64-byte-aligned offsets, its
 stride rounded up to 512 bytes.  Layout 2 has no ``gen``; layout 1 is one
-``.npz`` of stacked arrays per shard.  Layout 4 (filter-specialized
-sub-partitions) is not ported yet (ROADMAP A.6).
+``.npz`` of stacked arrays per shard.  Layout 4 is layout 3 plus the
+filter-specialized sub-partitions (``core/partitions.py``).
 
 numpy has no bfloat16, so bf16 fields travel as their raw 16-bit words:
 written from ``tensor.view(torch.int16)`` and read back with
@@ -69,6 +74,23 @@ BOUNDS_FILES = dict(
     radius="bounds_radius.npy",
     slack="bounds_slack.npy",
 )
+# Layout 4: the resident catalog arrays (one .npy per PartitionCatalog
+# field) and the variable-stride record region addressed by byte offsets.
+PARTITION_FILES = dict(
+    pred_lo="partition_pred_lo.npy",
+    pred_hi="partition_pred_hi.npy",
+    members="partition_members.npy",
+    entry_rows="partition_entry_rows.npy",
+    parent="partition_parent.npy",
+    sub_lo="partition_sub_lo.npy",
+    sub_hi="partition_sub_hi.npy",
+    sub_counts="partition_sub_counts.npy",
+    sub_amin="partition_sub_amin.npy",
+    sub_amax="partition_sub_amax.npy",
+)
+PARTITION_VPADS = "partition_vpads.npy"      # [P] int32 per-sub row capacity
+PARTITION_OFFSETS = "partition_offsets.npy"  # [P+1] int64 byte offsets
+PARTITION_DATA = "partitions.bin"
 _FIELD_ALIGN = 64     # per-field offset alignment inside a record
 _RECORD_ALIGN = 512   # record stride alignment (mmap-friendly)
 # Bytes of records assembled on the host per write: the writer copies the
@@ -248,6 +270,59 @@ def _write_records(path: str, fields: List[dict], stride: int,
             f.write(memoryview(buf).cast("B"))
 
 
+def partition_record_layout(man: dict, vpad: int) -> Tuple[List[dict], int]:
+    """The field table and stride of one sub-partition record (layout 4):
+    the base records' field order at the sub's own row capacity."""
+    return record_layout(
+        vpad=int(vpad), dim=man["dim"], n_attrs=man["n_attrs"],
+        store_dtype=man["store_dtype"], has_norms=man["has_norms"],
+        quantized=man["quantized"], with_gen=True)
+
+
+def write_partition_region(directory: str, man: dict, build,
+                           sub_gens: np.ndarray) -> None:
+    """Writes the layout-4 partition plane: the variable-stride record
+    region (``partitions.bin`` and its byte offsets), the per-sub
+    capacities and the resident catalog files.  ``save_index`` and
+    ``compact_deltas`` share it, so a republish writes the build's
+    format."""
+    cat = build.catalog
+    p = build.n_subs
+    sub_gens = np.asarray(sub_gens, np.int64)
+    offsets = np.zeros(p + 1, np.int64)
+
+    def _bin_save(path):
+        with open(path, "wb") as f:
+            off = 0
+            for j, rec in enumerate(build.records):
+                fields, stride = partition_record_layout(
+                    man, int(build.vpads[j]))
+                buf = np.zeros(stride, np.uint8)
+                for fld in fields:
+                    if fld["name"] == "gen":
+                        raw = np.asarray([sub_gens[j]], np.int64)
+                    else:
+                        raw = host_words(rec[fld["name"]])
+                    raw = raw.reshape(-1).view(np.uint8)
+                    o = fld["offset"]
+                    buf[o:o + raw.size] = raw
+                f.write(buf.tobytes())
+                offsets[j] = off
+                off += stride
+            offsets[p] = off
+
+    _atomic_save(os.path.join(directory, PARTITION_DATA), _bin_save)
+    _atomic_save(os.path.join(directory, PARTITION_OFFSETS),
+                 lambda path: _np_save(path, offsets))
+    _atomic_save(os.path.join(directory, PARTITION_VPADS),
+                 lambda path: _np_save(path, np.asarray(build.vpads,
+                                                         np.int32)))
+    for field, fname in PARTITION_FILES.items():
+        _atomic_save(os.path.join(directory, fname),
+                     lambda path, f=field: _np_save(
+                         path, np.asarray(getattr(cat, f))))
+
+
 def save_index(index: IVFFlatIndex, directory: str, *, n_shards: int = 1,
                version: int = 0, layout: int = 3,
                gens: Optional[np.ndarray] = None,
@@ -257,30 +332,41 @@ def save_index(index: IVFFlatIndex, directory: str, *, n_shards: int = 1,
     ``layout=3`` (default) writes the fixed-stride record format with
     per-cluster generation stamps (``gens``, default all-zero) plus the
     resident ``gens.npy``; ``layout=2`` is the same record format without
-    generations; ``layout=1`` writes one ``.npz`` per shard.  The index may
-    live on the card: the records are copied to the host a slice of
+    generations; ``layout=1`` writes one ``.npz`` per shard.  ``layout=4``
+    also writes the sub-partitions of ``partitions`` (a
+    :class:`~repro_torch.core.partitions.PartitionBuild` of this index);
+    its ``gens`` may cover the base clusters (``[K]``: each sub inherits
+    its parent's generation) or every id (``[K + n_subs]``).  The index
+    may live on the card: the records are copied to the host a slice of
     clusters at a time.
     """
-    if layout == 4 or partitions is not None:
-        raise NotImplementedError(
-            "layout 4 (sub-partitions) is not ported yet (ROADMAP A.6 "
-            "sub-partition routing)")
     k = index.n_clusters
     if k % n_shards:
         raise ValueError(f"K={k} not divisible by n_shards={n_shards}; pad_k first")
-    if layout not in (1, 2, 3):
+    if layout not in (1, 2, 3, 4):
         raise ValueError(f"unknown layout {layout}")
+    if layout == 4 and partitions is None:
+        raise ValueError("layout=4 needs partitions= (a PartitionBuild)")
+    if layout != 4 and partitions is not None:
+        raise ValueError("partitions= needs layout=4")
+    n_subs = partitions.n_subs if partitions is not None else 0
     if gens is None:
-        gens = np.zeros(k, np.int64)
+        gens = np.zeros(k + n_subs, np.int64)
     gens = np.asarray(gens, np.int64)
-    if gens.shape != (k,):
-        raise GenerationMismatchError(f"gens shape {gens.shape} != {(k,)} clusters")
+    if layout == 4 and gens.shape == (k,):
+        # a base-only vector: sub-partitions inherit their parent's gen
+        sub = gens[np.asarray(partitions.catalog.parent, np.int64)]
+        gens = np.concatenate([gens, sub])
+    expect = (k + n_subs,) if layout == 4 else (k,)
+    if gens.shape != expect:
+        raise GenerationMismatchError(
+            f"gens shape {gens.shape} != {expect} clusters")
     os.makedirs(directory, exist_ok=True)
     kl = k // n_shards
     manifest = _base_manifest(index, n_shards=n_shards, version=version)
     arrays = _index_arrays(index)
     if layout >= 3:
-        arrays["gen"] = torch.from_numpy(gens[:, None])
+        arrays["gen"] = torch.from_numpy(gens[:k, None])
 
     _atomic_save(os.path.join(directory, "centroids.npy"),
                  lambda p: _np_save(p, host_words(index.centroids.float())))
@@ -335,6 +421,11 @@ def save_index(index: IVFFlatIndex, directory: str, *, n_shards: int = 1,
             )
         manifest.update(layout=layout, layout_minor=1, record_stride=stride,
                         fields=fields)
+        if layout == 4:
+            write_partition_region(directory, manifest, partitions, gens[k:])
+            manifest["has_partitions"] = True
+            manifest["partitions"] = dict(
+                n_subs=n_subs, n_entries=partitions.catalog.n_entries)
 
     def _write_manifest(p):
         with open(p, "w") as f:
@@ -352,14 +443,6 @@ def load_manifest(directory: str) -> dict:
     man.setdefault("has_bounds", False)
     man.setdefault("has_partitions", False)
     return man
-
-
-def check_layout(man: dict):
-    """Raises for a layout the port does not read yet."""
-    if man["layout"] >= 4 or man.get("has_partitions"):
-        raise NotImplementedError(
-            "layout 4 checkpoints (sub-partitions) are not ported yet "
-            "(ROADMAP A.6 sub-partition routing)")
 
 
 def load_summaries(directory: str, man: dict, *, device="cuda"
@@ -389,10 +472,13 @@ def load_bounds(directory: str, man: dict, *, device="cuda"
 
 
 def load_gens(directory: str, man: dict) -> np.ndarray:
-    """Resident per-cluster generation vector ``[K] int64``: zeros before
-    layout 3; on layout 3 the file must exist and match the manifest's
-    cluster count."""
+    """Resident per-cluster generation vector ``[K] int64`` (``[K + P]`` on
+    layout 4: the sub-partitions' generations follow the base ones): zeros
+    before layout 3; from layout 3 the file must exist and match the
+    manifest's cluster count."""
     k = man["n_clusters"]
+    if man.get("layout", 1) >= 4:
+        k += int(man.get("partitions", {}).get("n_subs", 0))
     if man.get("layout", 1) < 3:
         return np.zeros(k, np.int64)
     path = os.path.join(directory, GENS_FILE)
@@ -407,6 +493,48 @@ def load_gens(directory: str, man: dict) -> np.ndarray:
     return gens
 
 
+def load_partitions(directory: str, man: dict):
+    """The resident partition catalog, or None before layout 4 (every
+    query then takes the flat path)."""
+    if not man.get("has_partitions"):
+        return None
+    from repro_torch.core.partitions import PartitionCatalog
+
+    return PartitionCatalog(n_base=man["n_clusters"], **{
+        f: np.load(os.path.join(directory, fname))
+        for f, fname in PARTITION_FILES.items()})
+
+
+def load_partition_vpads(directory: str) -> np.ndarray:
+    return np.asarray(np.load(os.path.join(directory, PARTITION_VPADS)),
+                      np.int32)
+
+
+def load_partition_records(directory: str, man: dict
+                           ) -> List[Dict[str, torch.Tensor]]:
+    """Every sub-partition record of the variable-stride region, as CPU
+    tensors (offline use: the RAM load and the republish; serving reads
+    single records through ``ShardReader.read``)."""
+    vpads = load_partition_vpads(directory)
+    offsets = np.asarray(np.load(os.path.join(directory, PARTITION_OFFSETS)),
+                         np.int64)
+    raw = np.fromfile(os.path.join(directory, PARTITION_DATA), np.uint8)
+    out = []
+    for j, vp in enumerate(vpads):
+        fields, stride = partition_record_layout(man, int(vp))
+        chunk = raw[offsets[j]:offsets[j] + stride]
+        rec = {}
+        for fld in fields:
+            dt = np_dtype(fld["dtype"])
+            nb = int(np.prod(fld["shape"])) * dt.itemsize
+            o = fld["offset"]
+            rec[fld["name"]] = to_tensor(
+                chunk[o:o + nb].view(dt).reshape(tuple(fld["shape"])),
+                fld["dtype"])
+        out.append(rec)
+    return out
+
+
 def shard_paths(directory: str, man: dict) -> List[str]:
     ext = "bin" if man["layout"] >= 2 else "npz"
     n = man["n_shards"]
@@ -415,9 +543,8 @@ def shard_paths(directory: str, man: dict) -> List[str]:
 
 
 def check_complete(directory: str, man: dict) -> List[str]:
-    """The shard paths, once every file the manifest names exists (and, on
-    layout 3, the generation vector agrees with it)."""
-    check_layout(man)
+    """The shard paths, once every file the manifest names exists (and,
+    from layout 3, the generation vector agrees with it)."""
     paths = shard_paths(directory, man)
     required = list(paths)
     if man.get("has_summaries"):
@@ -426,6 +553,10 @@ def check_complete(directory: str, man: dict) -> List[str]:
         required += [os.path.join(directory, f) for f in BOUNDS_FILES.values()]
     if man.get("layout", 1) >= 3:
         required.append(os.path.join(directory, GENS_FILE))
+    if man.get("has_partitions"):
+        required += [os.path.join(directory, f)
+                     for f in (*PARTITION_FILES.values(), PARTITION_VPADS,
+                               PARTITION_OFFSETS, PARTITION_DATA)]
     missing = [p for p in required if not os.path.exists(p)]
     if missing:
         raise FileNotFoundError(f"incomplete checkpoint, missing: {missing}")
@@ -522,7 +653,9 @@ def _load_v2(directory: str, man: dict, paths: List[str], dev
 def load_index(directory: str, *, target_shards: Optional[int] = None,
                device="cuda") -> IVFFlatIndex:
     """Restores an index onto ``device``; ``target_shards`` pads K for a new
-    shard count.  Reads layouts 2-3 (fixed-stride records) and 1 (npz).
+    shard count.  Reads layouts 2-4 (fixed-stride records) and 1 (npz); a
+    layout-4 index comes back with its sub-partitions attached
+    (``partitions.attach``), so the RAM engine routes as the disk tier does.
 
     Every file is verified to exist before anything loads.  For an index
     larger than memory, open it with
@@ -533,6 +666,19 @@ def load_index(directory: str, *, target_shards: Optional[int] = None,
     paths = check_complete(directory, man)
     index = (_load_v2(directory, man, paths, dev) if man["layout"] >= 2
              else _load_v1(directory, man, paths, dev))
+    if man.get("has_partitions"):
+        from repro_torch.core import partitions as partitions_lib
+
+        if target_shards and index.n_clusters % target_shards:
+            raise ValueError(
+                "target_shards re-padding is unsupported for a partitioned "
+                "(layout 4) checkpoint: re-save the base index first")
+        build = partitions_lib.PartitionBuild(
+            catalog=load_partitions(directory, man),
+            records=[{f: t for f, t in rec.items() if f != "gen"}
+                     for rec in load_partition_records(directory, man)],
+            vpads=load_partition_vpads(directory))
+        return partitions_lib.attach(index, build)
     if target_shards and index.n_clusters % target_shards:
         k_new = ((index.n_clusters + target_shards - 1) // target_shards
                  ) * target_shards

@@ -135,14 +135,62 @@ def compact_stale(index: IVFFlatIndex, threshold: int = 1
 
 
 def resync_partitions(index) -> IVFFlatIndex:
-    """Rebuilds an attached index's sub-partition rows from their parents.
-    An index without a partition catalog is returned as it is."""
+    """Rebuilds an attached RAM index's sub-partition rows from their parents.
+
+    The update functions mutate base cluster rows only; the attached sub
+    copies go stale until this pass re-selects each sub's rows with the
+    build's rule (``partitions.select_sub_rows``), refreshes the catalog's
+    per-sub counts and intervals, and recomputes the entry-row estimates
+    the router ranks by.  Returns the resynced index (an index without
+    sub-partitions is returned as it is).
+    """
+    import numpy as np
+
     cat = getattr(index, "partitions", None)
     if cat is None or cat.n_subs == 0:
         return index
-    raise NotImplementedError(
-        "sub-partitions are not ported yet (ROADMAP A.6 sub-partition "
-        "routing)")
+    from repro_torch.core import partitions as partitions_lib
+
+    k = cat.n_base
+    attrs_h = index.attrs.cpu().numpy()
+    ids_h = index.ids.cpu().numpy()
+    counts_h = index.counts.cpu().numpy()
+    vectors, attrs, ids = (index.vectors.clone(), index.attrs.clone(),
+                           index.ids.clone())
+    counts = index.counts.clone()
+    norms = None if index.norms is None else index.norms.clone()
+    scales = None if index.scales is None else index.scales.clone()
+    sub_counts = np.asarray(cat.sub_counts, np.int32).copy()
+    sub_amin = np.asarray(cat.sub_amin, np.int16).copy()
+    sub_amax = np.asarray(cat.sub_amax, np.int16).copy()
+    dev = vectors.device
+    for p in range(cat.n_subs):
+        c = int(cat.parent[p])
+        rows = partitions_lib.select_sub_rows(
+            attrs_h[c], ids_h[c], int(counts_h[c]),
+            np.asarray(cat.sub_lo[p]), np.asarray(cat.sub_hi[p]))
+        n = int(rows.size)
+        g = k + p
+        rows_t = torch.from_numpy(rows.astype(np.int64)).to(dev)
+        for arr, fill in ((vectors, 0), (attrs, 0), (ids, -1), (norms, 0),
+                          (scales, 0)):
+            if arr is None:
+                continue
+            arr[g] = fill
+            if n:
+                arr[g, :n] = arr[c, rows_t]
+        counts[g] = n
+        sub_counts[p] = n
+        if n:
+            sub_amin[p] = attrs_h[c, rows].min(axis=0)
+            sub_amax[p] = attrs_h[c, rows].max(axis=0)
+        else:
+            sub_amin[p] = summaries_lib.ATTR_MAX
+            sub_amax[p] = summaries_lib.ATTR_MIN
+    out = dataclasses.replace(index, vectors=vectors, attrs=attrs, ids=ids,
+                              counts=counts, norms=norms, scales=scales)
+    out.partitions = cat.resynced(counts_h, sub_counts, sub_amin, sub_amax)
+    return out
 
 
 def compact_cluster(index: IVFFlatIndex, cluster: int) -> IVFFlatIndex:

@@ -4,7 +4,10 @@ CUDA kernels ``csrc/filtered_scan_tiled.cu`` and ``csrc/filtered_scan.cu``.
 The port of ``repro.kernels.filtered_scan.filtered_scan``'s two kernels:
 :func:`filtered_scan_tiled` (query tiles against deduplicated probe slots,
 with a streaming top-k) and :func:`filtered_scan` (one query against one
-cluster per slot, emitting the masked ``[P, Vpad]`` scores).  The path is
+cluster per slot, emitting the masked ``[P, Vpad]`` scores), plus
+:func:`fold_running_topk`, the bound-driven executor's fold of a scanned
+slot segment into the per-query running top-k (plain torch ops, as the
+reference's is plain XLA).  The path is
 chosen by the tensors' device alone: CPU tensors take the plain PyTorch
 versions in :mod:`~repro_torch.kernels.filtered_scan.ref`, CUDA tensors
 launch the kernel or raise.
@@ -17,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.topk import NEG_INF, top_k
 from repro_torch.kernels import build
 from repro_torch.kernels.filtered_scan.ref import (
     filtered_scan_ref,
@@ -150,8 +154,10 @@ def filtered_scan_tiled(
       norms / scales [K, Vpad] f32 — l2 / SQ8 row constants
 
     Returns vals [S, QB, k] f32 (NEG_INF pads), ids [S, QB, k] int32 (-1
-    pads), npass [S, QB] int32; pad slots hold (NEG_INF, -1, 0).  Any k in
-    ``[1, Vpad]``.
+    pads), npass [S, QB] int32; pad slots hold (NEG_INF, -1, 0).  Any
+    k >= 1: where k exceeds the block's height (a routed tile of short
+    sub-partition records) the list past Vpad holds (NEG_INF, -1), as the
+    reference kernel's running fold leaves it.
     """
     global LAUNCHES
     _check_metric(metric, norms, scales)
@@ -168,8 +174,9 @@ def filtered_scan_tiled(
     dev = vectors.device
     s = slot_cluster.shape[0]
     kc, vpad, _ = vectors.shape
-    if not 1 <= k <= vpad:  # the plain version's top_k refuses k > Vpad
-        raise ValueError(f"k={k} must lie in [1, Vpad={vpad}]")
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
+    k_out, k = k, min(k, vpad)  # the kernel selects at most Vpad rows
     f, m = lo.shape[1], lo.shape[2]
     quantized = scales is not None
     i32 = torch.int32
@@ -214,7 +221,39 @@ def filtered_scan_tiled(
     if err != 0:
         raise RuntimeError(f"filtered_scan_tiled launch failed: cudaError {err}")
     LAUNCHES += 1
+    if k_out > k:
+        vals, out_ids = _pad_lists(vals, out_ids, k_out)
     return vals, out_ids, npass
+
+
+def _pad_lists(vals, ids, k):
+    """Widens [..., k'] lists to k entries of (NEG_INF, -1)."""
+    shape = tuple(vals.shape[:-1]) + (k - vals.shape[-1],)
+    return (torch.cat([vals, vals.new_full(shape, NEG_INF)], -1),
+            torch.cat([ids, ids.new_full(shape, -1)], -1))
+
+
+def fold_running_topk(run_vals: torch.Tensor, run_ids: torch.Tensor,
+                      svals: torch.Tensor, sids: torch.Tensor,
+                      alive: torch.Tensor, *, k: int):
+    """Folds one scanned slot segment into the per-query running top-k.
+
+    ``run_vals/run_ids [QB, k]`` the running lists, ``svals/sids [S, QB,
+    k]`` the segment's per-slot fragments, ``alive [QB, S]`` bool the
+    (query, slot) pairs still scheduled: dropped pairs are masked, so the
+    running kth reflects only the surviving probes.  One selection over
+    ``[QB, k + S·k]`` with the earliest position winning ties (the
+    reference's ``lax.top_k`` order).  Stays on the tensors' device: only
+    the kth column crosses to the host at a segment boundary.
+    """
+    qb = svals.shape[1]
+    live = alive.T[:, :, None]  # [S, QB, 1]
+    vals = torch.where(live, svals, NEG_INF).movedim(0, 1).reshape(qb, -1)
+    ids = torch.where(live, sids, -1).movedim(0, 1).reshape(qb, -1)
+    vals = torch.cat([run_vals, vals], dim=1)
+    ids = torch.cat([run_ids, ids], dim=1)
+    new_vals, idx = top_k(vals, k)
+    return new_vals, torch.gather(ids, 1, idx)
 
 
 def filtered_scan(

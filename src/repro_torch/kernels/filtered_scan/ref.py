@@ -108,7 +108,8 @@ def filtered_scan_tiled_ref(
 ):
     """Returns (vals [S, QB, k] f32, ids [S, QB, k] int32, npass [S, QB]
     int32); pad slots hold (NEG_INF, -1, 0).  A slot whose cluster lies
-    outside ``[0, K)`` is a pad too, as in the kernel.
+    outside ``[0, K)`` is a pad too, as in the kernel.  Lists longer than
+    the block's Vpad rows end in (NEG_INF, -1).
 
     Works ``chunk`` live slots at a time, so it never holds more than one
     chunk's ``[chunk, Vpad, D]`` gather.
@@ -116,6 +117,7 @@ def filtered_scan_tiled_ref(
     s = slot_cluster.shape[0]
     d = queries.shape[-1]
     dev = queries.device
+    kk = min(k, vectors.shape[1])
     qt = queries.reshape(-1, q_block, d)
     lot = lo.reshape(-1, q_block, *lo.shape[1:]).int()
     hit = hi.reshape(-1, q_block, *hi.shape[1:]).int()
@@ -140,9 +142,9 @@ def filtered_scan_tiled_ref(
         fmask = _dnf_mask(attrs[sc].int()[:, None], lot[st], hit[st])
         mask = fmask & (ids[sc] >= 0)[:, None, :]
         scores = torch.where(mask, scores, NEG_INF)
-        vals, idx = top_k(scores, k)  # earliest row wins ties
+        vals, idx = top_k(scores, kk)  # earliest row wins ties
         row_ids = torch.gather(ids[sc][:, None, :].expand(scores.shape), -1, idx)
-        out_v[sl] = vals
-        out_i[sl] = torch.where(vals > NEG_INF / 2, row_ids, -1).int()
+        out_v[sl, :, :kk] = vals
+        out_i[sl, :, :kk] = torch.where(vals > NEG_INF / 2, row_ids, -1).int()
         out_n[sl] = mask.sum(-1).int()
     return out_v, out_i, out_n

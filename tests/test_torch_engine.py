@@ -232,19 +232,49 @@ def test_port_runs_without_jax_or_repro():
     assert out.stdout.strip() == "OK"
 
 
+@pytest.mark.parametrize("knob,value", [("backend", "xla")])
+def test_engine_raises_on_unported_knob(knob, value):
+    """``backend`` has no counterpart (the tensors' device picks the
+    kernel); the default is accepted and an unknown keyword is refused."""
+    _, ti, _, _ = _indexes("dot-f32")
+    with pytest.raises(NotImplementedError, match="backend"):
+        teng.SearchEngine(ti, k=5, n_probes=2, device="cpu", **{knob: value})
+    teng.SearchEngine(ti, k=5, n_probes=2, device="cpu", backend=None)
+    with pytest.raises(TypeError):
+        teng.SearchEngine(ti, k=5, n_probes=2, device="cpu", no_such_knob=1)
+
+
 @pytest.mark.parametrize("knob,value", [
     ("epsilon", 0.1), ("termination", "bounded"), ("device_cache", object()),
     ("partitions", "off"), ("device_cache", 64), ("termination", "exact"),
-    ("device_cache", True), ("partitions", "on"), ("backend", "xla"),
+    ("device_cache", True), ("partitions", "on"),
 ])
-def test_engine_raises_on_unported_knob(knob, value):
-    _, ti, _, _ = _indexes("dot-f32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.SearchEngine(ti, k=5, n_probes=2, device="cpu", **{knob: value})
-    teng.SearchEngine(ti, k=5, n_probes=2, device="cpu", pipeline="off",
-                      partitions="auto")  # the defaults are accepted
-    with pytest.raises(TypeError):
-        teng.SearchEngine(ti, k=5, n_probes=2, device="cpu", no_such_knob=1)
+def test_engine_takes_the_a6_knobs(knob, value):
+    """The device cache, partition and termination knobs on a RAM index:
+    the port's engine gives the JAX engine's result on a window-filtered
+    batch, or raises the same exception type (a device cache needs a
+    store, ``partitions="on"`` a catalog, ε a bounded termination)."""
+    ji, ti, _, _ = _indexes("dot-f32")
+    qs, lo, hi = _queries(40, "window", seed=5)
+    kw = dict(k=10, n_probes=3, q_block=16, **{knob: value})
+
+    def run(make, search):
+        try:
+            return make().search(*search), None
+        except Exception as e:  # the same type on both sides
+            return None, type(e)
+
+    want, want_err = run(
+        lambda: jeng.SearchEngine(ji, backend="xla", **kw),
+        (jnp.asarray(qs), jf.FilterSpec(lo=jnp.asarray(lo),
+                                        hi=jnp.asarray(hi))))
+    got, got_err = run(
+        lambda: teng.SearchEngine(ti, device="cpu", **kw),
+        (torch.from_numpy(qs), tf.FilterSpec(lo=torch.from_numpy(lo),
+                                             hi=torch.from_numpy(hi))))
+    assert got_err is want_err
+    if want is not None:
+        _assert_same(want, got)
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -319,9 +349,6 @@ UNPORTED_CORE = {
     # A.1 index build and data
     "build_ivf", "concat_hybrid", "split_hybrid", "encode_numeric_attr",
     "encode_categorical_attr",
-    # A.6 sub-partitions
-    "partitions", "FilterTrafficRecorder", "PartitionBuild",
-    "PartitionCatalog", "build_partitions", "choose_attrs",
     # A.8 sharded ring
     "faults", "health", "transport", "BlockStoreServer", "CircuitBreaker",
     "FaultRule", "FaultSchedule", "FaultyBlockStore", "FaultyTransport",

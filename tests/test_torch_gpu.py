@@ -234,7 +234,9 @@ ANY_K_VPAD = 300
 def test_kernel_any_k(cuda, variant, k):
     """Every k up to Vpad: the register lists (1, 2, 4 or 8 slots a lane,
     both bodies) and, past 256, the sort body; equal scores go to the
-    earlier row, as in the plain version."""
+    earlier row, as in the plain version.  Past Vpad (a routed tile of
+    short records) the list ends in (NEG_INF, -1), as the plain
+    version's."""
     args, kw = _case(variant, 1, cuda, seed=k, q_block=40, vpad=ANY_K_VPAD,
                      d=64, k=k)
     before = tfs.LAUNCHES
@@ -245,8 +247,12 @@ def test_kernel_any_k(cuda, variant, k):
         _assert_close(got, *_plain_with_next(args, kw))
     else:
         _assert_close(got, filtered_scan_tiled_ref(*args, **kw))
+    long_kw = {**kw, "k": ANY_K_VPAD + 5}
+    longer = tfs.filtered_scan_tiled(*args, **long_kw)
+    _assert_close(longer, filtered_scan_tiled_ref(*args, **long_kw))
+    assert (longer[1][:, :, ANY_K_VPAD:] == -1).all()
     with pytest.raises(ValueError):
-        tfs.filtered_scan_tiled(*args, **{**kw, "k": ANY_K_VPAD + 1})
+        tfs.filtered_scan_tiled(*args, **{**kw, "k": 0})
 
 
 def _index(variant, dev):
@@ -736,3 +742,212 @@ def test_assemble_blocks_pinned_copy(cuda):
     for h, g in zip(host, got):
         assert g.device.type == "cuda"
         assert torch.equal(h.to(cuda), g)
+
+
+# ---- the device cache, sub-partitions and termination on the card ----
+
+
+def _one_tile(args, s_take=None):
+    """A case's operands as one query tile: every slot serves tile 0."""
+    (sc, _, _, queries, lo, hi, *rest) = args
+    qb = queries.shape[0] // 3
+    sc = sc if s_take is None else sc[:s_take]
+    return (sc.contiguous(), torch.zeros_like(sc), None, queries[:qb],
+            lo[:qb], hi[:qb], *rest), qb
+
+
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("variant", ["dot-bf16", "dot-f32", "l2-f32",
+                                     "sq8", "dot-f32q-bf16v"])
+def test_tiled_kernel_segments_bitwise(cuda, variant, k):
+    """Per-slot outputs do not depend on which slots share a launch: the
+    scans of a slot table's segments, concatenated, equal the whole-table
+    scan bit for bit, and so does a shuffled table's (the terminated
+    executor's exactness rests on this)."""
+    args, kw = _case(variant, 2, cuda, seed=3, u_cap=12, vpad=200)
+    args, qb = _one_tile(args)
+    kw.update(k=k, q_block=qb)
+    whole = tfs.filtered_scan_tiled(*args, **kw)
+    sc = args[0]
+    for seg in (4, 5):
+        parts = [tfs.filtered_scan_tiled(
+            sc[p:p + seg].contiguous(), torch.zeros_like(sc[p:p + seg]),
+            *args[2:], **kw) for p in range(0, sc.shape[0], seg)]
+        for j in range(3):
+            assert torch.equal(torch.cat([x[j] for x in parts]), whole[j])
+    perm = torch.randperm(sc.shape[0], generator=torch.Generator().manual_seed(1))
+    shuf = tfs.filtered_scan_tiled(sc[perm.to(cuda)].contiguous(),
+                                   *args[1:], **kw)
+    for j in range(3):
+        assert torch.equal(shuf[j], whole[j][perm.to(cuda)])
+
+
+@pytest.mark.parametrize("k", [10, 100, 200])
+@pytest.mark.parametrize("variant", ["dot-bf16", "l2-f32", "sq8",
+                                     "dot-f32q-bf16v"])
+def test_tiled_kernel_short_blocks_bitwise(cuda, variant, k):
+    """A row's score depends neither on its position nor on its block's
+    height: the live rows of 384-row clusters moved, in order, into a
+    128-row block scan to the same lists bit for bit (routed against flat);
+    a list longer than the short block ends in (NEG_INF, -1), as the plain
+    version's."""
+    args, kw = _case(variant, 1, cuda, seed=5, vpad=384, u_cap=6)
+    args, qb = _one_tile(args)
+    kw.update(k=k, q_block=qb)
+    (sc, st, _, q, lo, hi, vec, attrs, ids, norms, scales) = args
+    rng = np.random.default_rng(2)
+    kc = vec.shape[0]
+    keep = np.zeros((kc, 384), bool)
+    for c in range(kc):  # up to 128 rows spread over the tall cluster
+        keep[c, np.sort(rng.choice(384, int(rng.integers(20, 129)),
+                                   replace=False))] = True
+    keep_t = torch.from_numpy(keep).to(cuda)
+    flat_ids = torch.where(keep_t, ids, -1)
+    short = [torch.zeros((kc, 128) + tuple(a.shape[2:]), dtype=a.dtype,
+                         device=cuda) for a in (vec, attrs)]
+    s_ids = torch.full((kc, 128), -1, dtype=torch.int32, device=cuda)
+    s_aux = [None if a is None else torch.zeros((kc, 128), device=cuda)
+             for a in (norms, scales)]
+    for c in range(kc):
+        rows = torch.from_numpy(np.nonzero(keep[c])[0]).to(cuda)
+        n = rows.shape[0]
+        short[0][c, :n], short[1][c, :n] = vec[c, rows], attrs[c, rows]
+        s_ids[c, :n] = ids[c, rows]
+        for dst, src in zip(s_aux, (norms, scales)):
+            if src is not None:
+                dst[c, :n] = src[c, rows]
+    tall = tfs.filtered_scan_tiled(sc, st, None, q, lo, hi, vec, attrs,
+                                   flat_ids, norms, scales, **kw)
+    got = tfs.filtered_scan_tiled(sc, st, None, q, lo, hi, short[0],
+                                  short[1], s_ids, *s_aux, **kw)
+    for j in range(3):
+        assert torch.equal(got[j], tall[j]), j
+    want = filtered_scan_tiled_ref(*(a.cpu() if a is not None else None for a in
+                                     (sc, st, None, q, lo, hi, short[0],
+                                      short[1], s_ids, *s_aux)), **kw)
+    _assert_close(got, want)
+    if k > 128:
+        assert (got[1][:, :, 128:] == -1).all()
+
+
+def _cache_records(spec, rng, rows_of):
+    out = {}
+    for c, rows in rows_of.items():
+        rec = {"vectors": torch.from_numpy(rng.standard_normal(
+                   (rows, spec.dim)).astype(np.float32)).to(spec.store_dtype),
+               "attrs": torch.from_numpy(rng.integers(
+                   0, 9, (rows, spec.n_attrs)).astype(np.int16)),
+               "ids": torch.arange(rows, dtype=torch.int32) + 1000 * c,
+               "gen": torch.zeros(1, dtype=torch.int64)}
+        if spec.has_norms:
+            rec["norms"] = (rec["vectors"].float() ** 2).sum(-1)
+        out[c] = rec
+    return out
+
+
+def test_device_cache_compose_matches_host_assembly(cuda):
+    """Blocks stacked on the card from cache entries (records copied on the
+    cache's side stream, short records padded) equal the host assembly of
+    the same records at the entry height, field for field, and scan bit
+    for bit like it."""
+    from repro_torch.core.devicecache import DeviceBlockCache
+
+    rng = np.random.default_rng(8)
+    spec = tbs.BlockSpec(vpad=256, dim=64, n_attrs=3, has_norms=True,
+                         quantized=False, store_dtype=torch.bfloat16)
+    recs = _cache_records(spec, rng, {3: 256, 8: 128, 1: 256, 6: 200})
+    cache = DeviceBlockCache(spec, 16 * 2**20, device=cuda)
+    flat = np.array([8, 3, 3, 6, 1, 8], np.int32)
+    uniq, local = tbs.first_need_unique(flat)
+    entries = cache.put_records(recs)
+    blocks = cache.handoff(local, cache.compose([entries[int(c)]
+                                                 for c in uniq]))
+    assert isinstance(blocks, tbs.DeviceBlocks)
+    got = tbs.wait_blocks(blocks)
+    host = tbs.assemble_blocks(flat, uniq, local, recs, spec)
+    for h, g in zip(host, got):
+        assert (h is None) == (g is None)
+        if h is not None:
+            assert torch.equal(h.to(cuda), g)
+    qs = torch.randn(16, 64, device=cuda).bfloat16()
+    lo = torch.full((16, 1, 3), -32768, dtype=torch.int16, device=cuda)
+    hi = torch.full((16, 1, 3), 32767, dtype=torch.int16, device=cuda)
+    hi[:, 0, 1] = 5
+    st = torch.zeros(6, dtype=torch.int32, device=cuda)
+    kw = dict(metric="l2", k=10, q_block=16)
+    a = tfs.filtered_scan_tiled(got[0], st, None, qs, lo, hi, *got[1:5], **kw)
+    b = tfs.filtered_scan_tiled(host[0].to(cuda), st, None, qs, lo, hi,
+                                *(x.to(cuda) for x in host[1:5]), **kw)
+    for j in range(3):
+        assert torch.equal(a[j], b[j])
+
+
+@pytest.mark.parametrize("pipeline", ["off", "on"])
+@pytest.mark.parametrize("variant", ["dot-bf16", "l2-f32", "sq8"])
+def test_device_cache_on_card_matches_cpu(cuda, tmp_path, variant, pipeline):
+    """The disk tier with a device cache on the card, cold and warm, against
+    the disk tier without one: the same results as on the CPU, and the
+    card's own runs with and without the cache equal bit for bit."""
+    tstorage.save_index(_index(variant, "cpu"), str(tmp_path), n_shards=2)
+    qs, fspec = _window_batch(37, 4, width=800)
+    kw = dict(k=10, n_probes=4, q_block=16, pipeline=pipeline)
+    budget = _disk_budget(tmp_path, 5)
+    with tdisk.DiskIVFIndex.open(str(tmp_path), device="cpu",
+                                 resident_budget_bytes=budget) as cd:
+        cr = cd.search(qs, fspec, **kw)
+    with tdisk.DiskIVFIndex.open(str(tmp_path),
+                                 resident_budget_bytes=budget) as gd:
+        plain = gd.search(qs.to(cuda), fspec.to(cuda), **kw)
+        eng = teng.SearchEngine(gd, device_cache=6 * gd.man["record_stride"],
+                                **kw)
+        for _ in range(3):
+            gr = eng.search(qs.to(cuda), fspec.to(cuda))
+            for f in ("ids", "scores", "n_scanned", "n_passed"):
+                assert torch.equal(getattr(gr, f), getattr(plain, f)), f
+        st = eng.device_cache.stats()
+        assert st["hits"] > 0 and st["evictions"] > 0
+        eng.close()
+    _assert_topk_close((gr.scores, gr.ids), (cr.scores, cr.ids),
+                       ties_by_id=False)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "on"])
+@pytest.mark.parametrize("variant", ["dot-bf16", "l2-f32", "sq8"])
+def test_routed_and_terminated_on_card(cuda, tmp_path, variant, pipeline):
+    """On the card, over a layout-4 checkpoint: the routed search equals the
+    flat one bit for bit (short sub blocks), ``termination="exact"`` equals
+    the untruncated search bit for bit, and a device cache changes
+    nothing; each against the CPU by the near-tie rule."""
+    from repro_torch.core import partitions as tpart
+
+    index = _index(variant, "cpu")
+    build = tpart.build_partitions(index, attrs=[1])
+    tstorage.save_index(index, str(tmp_path), n_shards=2, layout=4,
+                        partitions=build)
+    qs, fspec = _window_batch(37, 6, width=1500)
+    fspec.lo[:, 0, 1] = fspec.hi[:, 0, 1] = 3  # attr1 == 3: routed
+    kw = dict(k=10, n_probes=4, q_block=16, pipeline=pipeline)
+    out = {}
+    for side, dev in (("cpu", "cpu"), ("card", cuda)):
+        with tdisk.DiskIVFIndex.open(str(tmp_path), device=dev) as d:
+            runs = {}
+            for name, extra in (("flat", dict(partitions="off")),
+                                ("routed", {}),
+                                ("term", dict(termination="exact")),
+                                ("cached", dict(device_cache=2**24))):
+                eng = teng.SearchEngine(d, device=dev, **kw, **extra)
+                runs[name] = eng.search(qs.to(dev), fspec.to(dev))
+                if name != "flat":
+                    assert eng.stats.partition_hits == 37
+                eng.close()
+            out[side] = runs
+    card = out["card"]
+    for name in ("routed", "term", "cached"):
+        for f in ("ids", "scores"):
+            assert torch.equal(getattr(card[name], f),
+                               getattr(card["flat"], f)), (name, f)
+    assert (card["routed"].n_scanned <= card["flat"].n_scanned).all()
+    for name, cr in out["cpu"].items():
+        _assert_topk_close((card[name].scores, card[name].ids),
+                           (cr.scores, cr.ids), ties_by_id=False)
+        assert torch.equal(cr.n_scanned, card[name].n_scanned.cpu()), name

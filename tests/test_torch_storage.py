@@ -239,22 +239,3 @@ def test_broken_checkpoints_raise_as_in_reference(tmp_path, how):
             js.load_gens(d, man)
         with pytest.raises(ts.GenerationMismatchError):
             ts.load_gens(d, man)
-
-
-def test_layout4_raises_not_implemented(tmp_path):
-    _, ti = _indexes("dot-f32")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ts.save_index(ti, str(tmp_path / "a"), layout=4)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ts.save_index(ti, str(tmp_path / "a"), partitions=object())
-    d = tmp_path / "v4"
-    ts.save_index(ti, str(d), n_shards=2)
-    man = json.loads((d / ts.MANIFEST).read_text())
-    man.update(layout=4, has_partitions=True)
-    (d / ts.MANIFEST).write_text(json.dumps(man))
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ts.load_index(str(d), device="cpu")
-    from repro_torch.core.disk import DiskIVFIndex
-
-    with pytest.raises(NotImplementedError, match="A.6"):
-        DiskIVFIndex.open(str(d), device="cpu")

@@ -241,17 +241,33 @@ def test_tombstone_stale_and_compaction_match_reference(variant):
                                   tup.stale_counts(ti).numpy())
 
 
-def test_resync_partitions():
-    """An index without sub-partitions passes through; one with them names
-    the queue item that ports them."""
-    _, ti = _indexes("dot-f32")
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_resync_partitions(variant):
+    """Sub-partitions attached from one reference build: after the same
+    tombstones and adds in a parent, the port's resync rebuilds the sub
+    rows and the catalog exactly as the reference's; an index without
+    sub-partitions passes through."""
+    from repro.core import partitions as jpart
+    from repro_torch.core import partitions as tpart
+
+    ji, ti = _indexes(variant, vpad=160)
     assert tup.resync_partitions(ti) is ti
-
-    class Catalog:
-        n_subs = 2
-
-    class Partitioned:
-        partitions = Catalog()
-
-    with pytest.raises(NotImplementedError, match="A.6 sub-partition"):
-        tup.resync_partitions(Partitioned())
+    jb = jpart.build_partitions(ji, attrs=[0], base_windows=4, max_depth=2)
+    tb = tpart.build_from_arrays(
+        {f: getattr(jb.catalog, f) for f in tpart.CATALOG_FIELDS},
+        jb.catalog.n_base, jb.records, jb.vpads)
+    ja, ta = jpart.attach(ji, jb), tpart.attach(ti, tb)
+    parent = int(tb.catalog.parent[0])
+    jo = jup.tombstone(ja, jnp.full(6, parent), jnp.arange(6))
+    to = tup.tombstone(ta, torch.full((6,), parent), torch.arange(6))
+    _, core, attrs, _ = _data(seed=4, n=12)
+    jo, _ = jup.add_vectors(jo, jnp.asarray(core), jnp.asarray(attrs),
+                            jnp.arange(N, N + 12))
+    to, _ = tup.add_vectors(to, core, attrs, torch.arange(N, N + 12))
+    jo.partitions, to.partitions = ja.partitions, ta.partitions
+    jo, to = jup.resync_partitions(jo), tup.resync_partitions(to)
+    for f in tpart.CATALOG_FIELDS:
+        np.testing.assert_array_equal(getattr(jo.partitions, f),
+                                      getattr(to.partitions, f), err_msg=f)
+    assert (to.partitions.sub_counts != tb.catalog.sub_counts).any()
+    _assert_same_index(jo, to, norms_rtol=1e-6)
