@@ -60,6 +60,20 @@ Phases:
      the three mixes untruncated, ``"exact"`` (ids and scores equal bit
      for bit) and ``"bounded"`` (equal to an exact top-k over the probes
      its merge kept), and one disk batch with ``"exact"``;
+  3f. (run between 3e and 3d, on 3c's checkpoint) serving and the index
+     build: the launcher (``repro_torch.launch.serve.main``) ``--load``-ing
+     the checkpoint on the RAM tier and on the disk tier with an 8 GiB
+     device cache and a 256 MiB delta tier, 10 full batches of 256 each,
+     every response held against a RAM engine; a ``SearchServer`` over
+     ``make_fused_search_fn`` fed phase 3's batches of each mix as
+     requests, every response held against phase 3's engine; the build's
+     k-means at full size on the topic mixture (``minibatch_kmeans``, 100
+     steps of 4096, and ``assign``, timed; 65,536 sampled assignments held
+     against an f64 argmax), the lists' lengths and what the scatter would
+     allocate (``build_ivf`` itself where that fits); and the launcher's
+     own build path at the largest N whose index the card holds (capped for
+     the host's numpy data), with the tiled kernel's f32 x f32 time on its
+     index;
   4. each kernel on one full-size batch: held against its plain version,
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
      for centroid_topk); filtered_scan_tiled on both of its full-size
@@ -212,25 +226,26 @@ def sass_counts(lib):
 
 
 def tiled_bound(slot_cluster, live, queries, lo, n_unique, qb, vpad,
-                k=K_TOP):
+                k=K_TOP, v_bytes=2, peak="bf16"):
     """filtered_scan_tiled's least time on the card for these operands:
     (bound_ms, byte_ms, op_ms, n_live, n_clusters).  Bytes: the distinct
-    clusters' rows (bf16 vectors, int16 attributes, int32 ids) read once,
-    the queries, bounds and slot tables, and the outputs; operations:
-    2·QB·Vpad·D per live slot at the bf16 tensor-core peak."""
+    clusters' rows (vectors of ``v_bytes`` a value, int16 attributes,
+    int32 ids) read once, the queries, bounds and slot tables, and the
+    outputs; operations: 2·QB·Vpad·D per live slot at the ``peak`` rate
+    (bf16 vectors: the bf16 tensor cores; f32: f32 FMA)."""
     import torch
 
     n_live = int(live.sum())
     n_clusters = int(torch.unique(slot_cluster[live]).numel())
     s = slot_cluster.shape[0]
     m = lo.shape[2]
-    row_bytes = DIM * 2 + m * 2 + 4
+    row_bytes = DIM * v_bytes + m * 2 + 4
     nbytes = (n_clusters * vpad * row_bytes
               + queries.numel() * queries.element_size() + 2 * lo.numel() * 2
               + 2 * s * 4 + (0 if n_unique is None else n_unique.numel() * 4)
               + s * qb * (k * 8 + 4))
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = 2 * qb * vpad * DIM * n_live / PEAK_OPS["bf16"] * 1e3
+    op_ms = 2 * qb * vpad * DIM * n_live / PEAK_OPS[peak] * 1e3
     return max(byte_ms, op_ms), byte_ms, op_ms, n_live, n_clusters
 
 
@@ -438,12 +453,12 @@ def time_variants(fs_mod, tables):
         build._LIBS[fs_mod.PER_PROBE_SOURCE] = shipped
 
 
-def make_index(n, dev, gen):
+def make_data(n, dev, gen):
     """The topic-mixture dataset of benchmarks/bench_search.py::build_sweep
-    at full width, generated on the card in chunks, and its index."""
+    at full width, generated on the card in chunks: (core bf16 [n, D],
+    attrs int16 [n, M], topic [n], centers [K, D])."""
     import torch
 
-    from repro_torch.core import HybridSpec, build_from_assignments
     from repro_torch.core.ivf import default_n_clusters
 
     kc = default_n_clusters(n)
@@ -463,6 +478,17 @@ def make_index(n, dev, gen):
         ts = t * band + torch.randint(0, max(band, 1), t.shape, generator=gen,
                                       device=dev)
         attrs[r0:r0 + step, 0] = ts.to(torch.int16)
+    return core, attrs, topic, centers
+
+
+def make_index(n, dev, gen):
+    """:func:`make_data`'s dataset and its index, built from the topics as
+    assignments."""
+    import torch
+
+    from repro_torch.core import HybridSpec, build_from_assignments
+
+    core, attrs, topic, centers = make_data(n, dev, gen)
     spec = HybridSpec(dim=DIM, n_attrs=M_ATTRS, core_dtype=torch.bfloat16)
     index, stats = build_from_assignments(spec, centers, core, attrs, topic,
                                           device=dev)
@@ -597,6 +623,15 @@ def exact_oracle(index, queries, fspec, chunk=256):
         part = (r.scores, r.ids)
         best = part if best is None else merge_topk(best, part, K_TOP)
     return best
+
+
+def host_available():
+    """The host's MemAvailable, bytes (/proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
 
 
 def meminfo():
@@ -1725,6 +1760,426 @@ def print_phase_3e(dc_rows, part_fig, part_rows, ram, term_rows):
         f"{term_rows['disk', 'exact']['dropped']}; equal")
 
 
+# ---- phase 3f: serving and the index build at full size ----
+
+SERVE_REQUESTS = 10 * Q  # the launcher's --requests: 10 full batches
+SERVE_WAIT_S = 0.05  # the gated server's max_wait_s: every batch fills
+KM_STEPS, KM_BATCH = 100, 4096  # build_ivf's minibatch defaults
+ASSIGN_CHUNK = 65536  # build_ivf's assign_chunk default
+N_SAMPLE = 65536  # rows whose assignment is held against an f64 argmax
+# f32 may pick the other centroid where the f64 top-two gap is below this:
+# a score 2 x·c - ||c||² of unit-norm rows and centroids (||c|| <= 1) over
+# D = 768 f32 products is off by at most 3·D·2^-24 = 1.4e-4
+ASSIGN_GAP = 2e-4
+BUILD_PROBE_N = 250_000  # the launcher's k-means run here to reckon its lists
+LAUNCH_CLUSTERS, LAUNCH_STEPS = 128, 40  # the launcher's --clusters, steps
+LAUNCH_ROW_BYTES = DIM * 4 + M_ATTRS * 2 + 4  # f32 vector, attributes, id
+LAUNCH_BATCH = 32  # the launcher's --batch default
+LAUNCH_REQUESTS = 10 * LAUNCH_BATCH  # 10 full batches
+# synthetic_embeddings' host peak a row: the f64 draw beside its f32 copy
+# and the gathered centre rows, plus an int64 attribute column
+HOST_ROW_BYTES = DIM * (8 + 4 + 4) + M_ATTRS * 2 + 8
+
+
+def run_launcher(argv):
+    """``repro_torch.launch.serve.main(argv)`` in this process; its lines
+    are logged but the per-key metrics dump (main returns the metrics).
+    Returns (main's result, seconds)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = serve.main(argv)
+    finally:
+        for line in buf.getvalue().splitlines():
+            if not line.startswith("  "):
+                log(f"  launcher: {line}")
+    return out, time.perf_counter() - t0
+
+
+def responses_vs_engine(name, resps, queries, engine, lo=None, hi=None):
+    """Server responses for ``queries`` (numpy [R, D]; filter rows ``lo`` /
+    ``hi`` numpy [R, F, M], or match_all) against ``engine`` on the same
+    queries in batches of Q, by the near-tie rule.  Returns max |err|."""
+    import torch
+
+    from repro_torch.core import FilterSpec, match_all
+
+    dev = engine.device
+    want_s, want_i = [], []
+    for r0 in range(0, len(queries), Q):
+        q = torch.from_numpy(queries[r0:r0 + Q]).to(dev)
+        f = (match_all(q.shape[0], engine.index.spec.n_attrs, device=dev)
+             if lo is None else
+             FilterSpec(lo=torch.from_numpy(lo[r0:r0 + Q]).to(dev),
+                        hi=torch.from_numpy(hi[r0:r0 + Q]).to(dev)))
+        res = engine.search(q, f)
+        want_s.append(res.scores.cpu())
+        want_i.append(res.ids.cpu())
+    got_s = torch.from_numpy(np.stack([r.scores for r in resps]))
+    got_i = torch.from_numpy(np.stack([r.ids for r in resps]))
+    return check_topk(name, got_s, got_i, torch.cat(want_s),
+                      torch.cat(want_i))
+
+
+def latency_fig(out, n_tiled, err, secs):
+    """One launcher or server run's figures."""
+    lat = np.asarray([r.latency_s for r in out["responses"]]) * 1e3
+    st = out["stats"]
+    return dict(qps=out["qps"], p50=float(np.percentile(lat, 50)),
+                p99=float(np.percentile(lat, 99)), batches=st["batches"],
+                fill=st["requests"] / st["batches"], wall=out["wall_s"],
+                engine_ms=st["total_latency_s"] / st["batches"] * 1e3,
+                wall_ms=out["wall_s"] / st["batches"] * 1e3,
+                launches=n_tiled, err=err, secs=secs,
+                metrics=out.get("metrics"))
+
+
+def serve_part(d_index, index, engine, batches, ckpt, launches,
+               reset_launches):
+    """Phase 3f (a) and (b): the launcher ``--load``-ing phase 3c's
+    checkpoint on both tiers, each response held against a RAM engine over
+    the checkpoint's index; then a ``SearchServer`` over
+    ``make_fused_search_fn(index)`` fed phase 3's batches of each mix as
+    requests (hot_window's filter rows through ``fspec_row``), each
+    response held against phase 3's engine.  Launch counts are read right
+    after each run, before its checks.  Returns the figures."""
+    import torch
+
+    from repro_torch.core import SearchEngine
+    from repro_torch.core.serving import SearchServer, make_fused_search_fn
+
+    fig = {}
+    ram_engine = SearchEngine(d_index, k=K_TOP, n_probes=N_PROBES,
+                              q_block=64, prune="auto")
+    for tier, extra in (("ram", []), ("disk", [
+            "--device-cache-mb", str(DEVICE_CACHE_MB),
+            "--delta-budget-mb", str(DELTA_BUDGET_MB)])):
+        torch.cuda.synchronize()
+        reset_launches()
+        out, secs = run_launcher(
+            ["--load", str(ckpt), "--tier", tier, "--k", str(K_TOP),
+             "--probes", str(N_PROBES), "--batch", str(Q), "--requests",
+             str(SERVE_REQUESTS)] + extra)
+        n_tiled = launches()["filtered_scan_tiled"]
+        st = out["stats"]
+        if not n_tiled or st["requests"] != SERVE_REQUESTS or st[
+                "batches"] < SERVE_REQUESTS // Q:
+            raise AssertionError(f"launcher {tier}: {st}, {n_tiled} "
+                                 "filtered_scan_tiled launches")
+        err = responses_vs_engine(f"launcher {tier}", out["responses"],
+                                  out["queries"], ram_engine)
+        fig["launcher", tier] = latency_fig(out, n_tiled, err, secs)
+        del out
+        torch.cuda.empty_cache()
+    ram_engine.close()
+
+    fn = make_fused_search_fn(index, k=K_TOP, n_probes=N_PROBES, q_block=64,
+                              prune="auto")
+    for mix, blist in batches.items():
+        qs = np.concatenate([q.cpu().numpy() for q, _ in blist])
+        lo = np.concatenate([f.lo.cpu().numpy() for _, f in blist])
+        hi = np.concatenate([f.hi.cpu().numpy() for _, f in blist])
+        server = SearchServer(fn, batch_size=Q, dim=DIM, n_attrs=M_ATTRS,
+                              n_terms=lo.shape[1], n_shards=1,
+                              max_wait_s=SERVE_WAIT_S)
+        torch.cuda.synchronize()
+        reset_launches()
+        server.start()
+        try:
+            t0 = time.perf_counter()
+            futs = [server.submit(qs[i], (lo[i], hi[i]))
+                    for i in range(len(qs))]
+            resps = [f.get(timeout=300) for f in futs]
+            wall = time.perf_counter() - t0
+        finally:
+            server.stop()
+        n_tiled = launches()["filtered_scan_tiled"]
+        if not n_tiled:
+            raise AssertionError(f"server {mix}: no filtered_scan_tiled launch")
+        err = responses_vs_engine(f"server {mix}", resps, qs, engine, lo, hi)
+        out = dict(responses=resps, qps=len(qs) / wall, wall_s=wall,
+                   stats=dict(server.stats))
+        fig["server", mix] = latency_fig(out, n_tiled, err, wall)
+    fn.close()
+    return fig
+
+
+def inertia(x, centroids):
+    """Sum over rows of the squared distance to the nearest centroid, in
+    chunks of ASSIGN_CHUNK rows (f32 scores, an f64 sum)."""
+    import torch
+
+    from repro_torch.core import kmeans as km
+
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for r0 in range(0, x.shape[0], ASSIGN_CHUNK):
+        xb = x[r0:r0 + ASSIGN_CHUNK].float()
+        s = km.pairwise_neg_dist2(xb, centroids)
+        total += (torch.sum(xb * xb, -1) - s.amax(-1)).double().sum()
+    return float(total)
+
+
+def check_assignments(core, centroids, assignments, gen):
+    """N_SAMPLE rows' assignments against an f64 argmax on the CPU over the
+    card's centroids: equal except where the f64 top-two gap is under
+    ASSIGN_GAP.  Returns (rows that differ, smallest gap of the sample)."""
+    import torch
+
+    idx = torch.randint(0, core.shape[0], (N_SAMPLE,), generator=gen,
+                        device=core.device)
+    c = centroids.double().cpu()
+    c2 = (c * c).sum(-1)
+    xs = core[idx].double().cpu()
+    got = assignments[idx].long().cpu()
+    n_diff, min_gap = 0, float("inf")
+    for r0 in range(0, N_SAMPLE, 16384):
+        s = 2.0 * xs[r0:r0 + 16384] @ c.T - c2[None, :]
+        top2 = torch.topk(s, 2, dim=-1)
+        gap = top2.values[:, 0] - top2.values[:, 1]
+        diff = got[r0:r0 + 16384] != top2.indices[:, 0]
+        if bool((diff & (gap >= ASSIGN_GAP)).any()):
+            raise AssertionError(
+                "assign differs from the f64 argmax at a top-two gap of "
+                f"{float(gap[diff].max()):.3e} >= {ASSIGN_GAP}")
+        n_diff += int(diff.sum())
+        min_gap = min(min_gap, float(gap.min()))
+    return n_diff, min_gap
+
+
+def build_part(args, dev, launches, reset_launches):
+    """Phase 3f (c): the build's k-means at full size on phase 3's topic
+    mixture (generated anew on the card as make_data does): the port's
+    ``minibatch_kmeans`` (KM_STEPS x KM_BATCH) and ``assign`` (chunks of
+    ASSIGN_CHUNK), each timed with CUDA events, the assignments of
+    N_SAMPLE rows held against an f64 argmax, the inertia before and
+    after, the list lengths and what ``build_from_assignments`` would
+    allocate; ``build_ivf`` whole where that fits beside phase 3's index.
+    Then the launcher's own build path (``--n N --dim 768 --n-attrs 10``)
+    at the largest N whose index the card holds (reckoned from the
+    launcher's k-means lists at BUILD_PROBE_N rows, scaled) and whose
+    data the host's MemAvailable holds, its responses held against a RAM
+    engine, and the tiled kernel's f32 x f32 time on its index.  Draws
+    from its own generator, so the phases after it see ``gen`` as before.
+    Returns the figures."""
+    import torch
+
+    from repro_torch.core import HybridSpec, SearchEngine, build_ivf
+    from repro_torch.core import kmeans as km
+    from repro_torch.core import match_all
+    from repro_torch.core.ivf import default_n_clusters, round_up
+    from repro_torch.data import synthetic_embeddings
+    from repro_torch.kernels.filtered_scan import filtered_scan as fs_mod
+    from repro_torch.kernels.filtered_scan.ref import (
+        filtered_scan_tiled_ref, live_slots)
+
+    fig = {}
+    bgen = torch.Generator(dev).manual_seed(args.seed + 1)
+    core, attrs, _, _ = make_data(args.n, dev, bgen)
+    n, kc = core.shape[0], default_n_clusters(core.shape[0])
+    st0 = km.init_from_sample(torch.Generator(dev).manual_seed(args.seed),
+                              core, kc)  # minibatch_kmeans' first draw
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    st = km.minibatch_kmeans(torch.Generator(dev).manual_seed(args.seed),
+                             core, n_clusters=kc, n_steps=KM_STEPS,
+                             batch_size=KM_BATCH)
+    ev[1].record()
+    a = km.assign(core, st.centroids, chunk=ASSIGN_CHUNK)
+    ev[2].record()
+    ev[2].synchronize()
+    fig.update(n=n, kc=kc, t_minibatch=ev[0].elapsed_time(ev[1]),
+               t_assign=ev[1].elapsed_time(ev[2]),
+               assign_op_ms=2 * n * kc * DIM / PEAK_OPS["f32"] * 1e3,
+               assign_byte_ms=(n * DIM * 2 + kc * DIM * 4 + n * 4)
+               / HBM_BYTES_PER_S * 1e3)
+    fig["n_diff"], fig["min_gap"] = check_assignments(core, st.centroids, a,
+                                                      bgen)
+    fig["inertia0"] = inertia(core, st0.centroids)
+    fig["inertia1"] = inertia(core, st.centroids)
+    if not fig["inertia1"] < fig["inertia0"]:
+        raise AssertionError("minibatch_kmeans did not lower the inertia")
+    counts = torch.bincount(a.long(), minlength=kc)
+    vpad = max(round_up(int(counts.max()), 128), 128)
+    row_bytes = DIM * 2 + M_ATTRS * 2 + 4  # bf16 vector, attributes, id
+    fig.update(max_len=int(counts.max()), mean_len=float(counts.float().mean()),
+               p99_len=float(torch.quantile(counts.float(), 0.99)),
+               empty=int((counts == 0).sum()), vpad=vpad,
+               alloc=kc * vpad * row_bytes)
+    free, _ = torch.cuda.mem_get_info()
+    free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    fig["free"] = free
+    if fig["alloc"] * 1.1 + (2 << 30) <= free:
+        spec = HybridSpec(dim=DIM, n_attrs=M_ATTRS, core_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        bi, bstats = build_ivf(torch.Generator(dev).manual_seed(args.seed),
+                               spec, core, attrs, n_clusters=kc, device=dev)
+        torch.cuda.synchronize()
+        fig["build_ivf"] = dict(secs=time.perf_counter() - t0,
+                                vpad=bstats.vpad, gib=bi.nbytes() / 2**30,
+                                dropped=bstats.n_dropped)
+        del bi
+    else:
+        fig["build_ivf_cut"] = (
+            f"build_ivf at N={n} would allocate {fig['alloc'] / 1e9:.1f} GB "
+            f"of lists (Vpad {vpad}) beside {free / 1e9:.1f} GB free")
+    del core, attrs, a, st, st0
+    torch.cuda.empty_cache()
+
+    # the launcher's own build: reckon its longest list from its k-means
+    x0 = torch.from_numpy(synthetic_embeddings(0, BUILD_PROBE_N, DIM)).to(dev)
+    lst = km.minibatch_kmeans(torch.Generator(dev).manual_seed(0), x0,
+                              n_clusters=LAUNCH_CLUSTERS,
+                              n_steps=LAUNCH_STEPS,
+                              batch_size=min(KM_BATCH, BUILD_PROBE_N))
+    c0 = torch.bincount(km.assign(x0, lst.centroids, chunk=ASSIGN_CHUNK
+                                  ).long(), minlength=LAUNCH_CLUSTERS)
+    share = int(c0.max()) / BUILD_PROBE_N  # the longest list's share
+    del x0, lst
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+
+    def need(nn):  # lists (longest list's share + 25%), the data, slack
+        vp = max(round_up(int(share * nn * 1.25) + 1, 128), 128)
+        return LAUNCH_CLUSTERS * vp * LAUNCH_ROW_BYTES + nn * DIM * 4 + (4 << 30)
+
+    n_fit = 100_000
+    while need(n_fit + 100_000) <= 0.9 * free:
+        n_fit += 100_000
+    avail = host_available()
+    n_host = int(0.85 * avail / HOST_ROW_BYTES) // 100_000 * 100_000
+    n_run = min(n_fit, n_host)
+    fig.update(share=share, n_fit=n_fit, n_host=n_host, host_avail=avail,
+               n_run=n_run, reckoned=need(n_run))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, secs = run_launcher(["--n", str(n_run), "--dim", str(DIM),
+                              "--n-attrs", str(M_ATTRS),
+                              "--batch", str(LAUNCH_BATCH),
+                              "--requests", str(LAUNCH_REQUESTS)])
+    n_tiled = launches()["filtered_scan_tiled"]
+    lidx = out["index"]
+    fig["launcher"] = latency_fig(out, n_tiled, 0.0, secs)
+    fig["launcher"].update(
+        vpad=lidx.vpad, gib=lidx.nbytes() / 2**30,
+        peak=torch.cuda.max_memory_allocated() / 2**30,
+        max_len=int(lidx.counts.max()))
+    if not n_tiled:
+        raise AssertionError("launcher build path: no filtered_scan_tiled "
+                             "launch")
+    # each query is a unit row of the index: q·q = 1 where its list is
+    # among its probes (the lists come from l2 k-means, the probes from dot
+    # scores against centroids of unequal norms, so not always)
+    top = np.asarray([r.scores[0] for r in out["responses"]])
+    fig["launcher"]["self_share"] = float(np.mean(np.abs(top - 1.0) < 1e-5))
+    eng = SearchEngine(lidx, k=K_TOP, n_probes=N_PROBES, q_block=64,
+                       prune="auto")
+    fig["launcher"]["err"] = responses_vs_engine(
+        "launcher build path", out["responses"], out["queries"], eng)
+    # the tiled kernel on this index: f32 queries x f32 vectors
+    qb = LAUNCH_BATCH  # the launcher's q_block
+    q = torch.from_numpy(out["queries"]).to(dev)
+    eng32 = SearchEngine(lidx, k=K_TOP, n_probes=N_PROBES, q_block=qb,
+                         prune="auto")
+    plan = eng32.plan(q, match_all(q.shape[0], M_ATTRS, device=dev))
+    ka = (plan.slot_cluster, plan.slot_tile, plan.n_unique, plan.queries_pad,
+          plan.lo_pad, plan.hi_pad, lidx.vectors, lidx.attrs, lidx.ids,
+          None, None)
+    kw = dict(metric="dot", k=K_TOP, q_block=plan.q_block)
+    body = fs_mod.tiled_body(DIM, M_ATTRS, 1, "dot", torch.float32,
+                             torch.float32)
+    f_err = check_scan("launcher index f32 x f32",
+                       fs_mod.filtered_scan_tiled(*ka, **kw),
+                       *plain_scan(ka, kw))
+    f_ms = ms(lambda: fs_mod.filtered_scan_tiled(*ka, **kw), 10)
+    f_plain = ms(lambda: filtered_scan_tiled_ref(*ka, **kw), 3)
+    f_bound, f_byte, f_op, f_live, f_cl = tiled_bound(
+        plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
+        plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
+        lidx.vpad, v_bytes=4, peak="f32")
+    fig["f32"] = dict(ms=f_ms, plain_ms=f_plain, bound_ms=f_bound,
+                      bound_by="bytes" if f_byte >= f_op else "operations",
+                      max_abs_err=f_err, body=body, live_slots=f_live,
+                      clusters=f_cl, vpad=lidx.vpad, q_block=qb,
+                      byte_ms=f_byte, op_ms=f_op)
+    eng.close()
+    eng32.close()
+    del out, lidx, eng, eng32, plan, ka
+    torch.cuda.empty_cache()
+    return fig
+
+
+def print_phase_3f(sfig, bfig):
+    """Phase 3f's figures."""
+    for key, r in sfig.items():
+        log(f"{key[0]} {key[1]}: {r['batches']} batches (mean fill "
+            f"{r['fill']:.1f} of {Q}), QPS {r['qps']:.1f}, latency p50 "
+            f"{r['p50']:.3f} ms p99 {r['p99']:.3f} ms; a batch: engine "
+            f"(queries' H2D, search, D2H) {r['engine_ms']:.3f} ms of "
+            f"{r['wall_ms']:.3f} ms wall; {r['launches']} filtered_scan_tiled launches; max "
+            f"|err| vs the RAM engine {r['err']:.3e}")
+        if r["metrics"] is not None:
+            log(f"{key[0]} {key[1]} metrics: "
+                + json.dumps(r["metrics"], sort_keys=True))
+    b = bfig
+    log(f"k-means at N={b['n']} x {DIM} bf16, K={b['kc']}: minibatch_kmeans "
+        f"({KM_STEPS} x {KM_BATCH}) {b['t_minibatch']:.3f} ms; assign "
+        f"(chunks of {ASSIGN_CHUNK}) {b['t_assign']:.3f} ms against a bound "
+        f"of {max(b['assign_op_ms'], b['assign_byte_ms']):.3f} ms (f32 ops "
+        f"{b['assign_op_ms']:.3f} ms, bytes {b['assign_byte_ms']:.3f} ms), "
+        f"{2 * b['n'] * b['kc'] * DIM / b['t_assign'] / 1e9:.1f} TFLOP/s; "
+        f"inertia {b['inertia0']:.1f} before, {b['inertia1']:.1f} after; "
+        f"{N_SAMPLE} sampled assignments equal the f64 argmax but "
+        f"{b['n_diff']} (all at a top-two gap < {ASSIGN_GAP}; smallest gap "
+        f"{b['min_gap']:.3e})")
+    log(f"k-means lists: max {b['max_len']}, mean {b['mean_len']:.1f}, p99 "
+        f"{b['p99_len']:.1f}, empty {b['empty']} (max / mean "
+        f"{b['max_len'] / b['mean_len']:.2f}); build_from_assignments would "
+        f"take Vpad {b['vpad']} and allocate {b['alloc'] / 1e9:.2f} GB of "
+        f"lists ({b['vpad'] * b['kc'] / b['n']:.2f} slots a row); "
+        f"{b['free'] / 1e9:.2f} GB free")
+    if "build_ivf" in b:
+        r = b["build_ivf"]
+        log(f"build_ivf at N={b['n']}: {r['secs']:.2f} s, Vpad {r['vpad']}, "
+            f"{r['gib']:.2f} GiB, dropped {r['dropped']}")
+    else:
+        log(f"phase 3f cut: {b['build_ivf_cut']}")
+    log(f"launcher build reckoned: the longest of {LAUNCH_CLUSTERS} lists "
+        f"holds {b['share']:.4f} of the rows at N={BUILD_PROBE_N}; the card "
+        f"holds N={b['n_fit']}; the host's MemAvailable "
+        f"{b['host_avail'] / 2**30:.2f} GiB holds N={b['n_host']} at "
+        f"{HOST_ROW_BYTES} B a row; run at N={b['n_run']} (reckoned "
+        f"{b['reckoned'] / 1e9:.2f} GB on the card)")
+    if b["n_run"] < b["n_fit"]:
+        log(f"phase 3f cut: the launcher's build path at N={b['n_run']}, not "
+            f"{b['n_fit']}: the host's MemAvailable holds its numpy data "
+            f"only to N={b['n_host']}")
+    r = b["launcher"]
+    log(f"launcher build path N={b['n_run']}: {r['secs']:.2f} s with data "
+        f"and build; index Vpad {r['vpad']} (max list {r['max_len']}), "
+        f"{r['gib']:.2f} GiB, peak {r['peak']:.2f} GiB; {r['batches']} "
+        f"batches, QPS {r['qps']:.1f}, p50 {r['p50']:.3f} ms, p99 "
+        f"{r['p99']:.3f} ms; {r['launches']} filtered_scan_tiled launches; "
+        f"{r['self_share']:.4f} of the queries found their own row first; "
+        f"max |err| vs the RAM engine {r['err']:.3e}")
+    f = b["f32"]
+    log(f"filtered_scan_tiled on the launcher's index, f32 queries x f32 "
+        f"vectors ({f['body']} body), q_block {f['q_block']}, Vpad "
+        f"{f['vpad']}: {f['live_slots']} live slots over {f['clusters']} "
+        f"clusters; kernel {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, "
+        f"bound {f['bound_ms']:.3f} ms (bytes {f['byte_ms']:.3f} ms, f32 FMA "
+        f"ops {f['op_ms']:.3f} ms), kernel / bound "
+        f"{f['ms'] / f['bound_ms']:.2f}; max |err| {f['max_abs_err']:.3e}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2025,6 +2480,24 @@ def main(argv=None):
         f"partitions {part_launches}, termination {term_launches} of "
         f"filtered_scan_tiled)")
 
+    # ---- phase 3f: serving and the index build (before 3d republishes
+    # the checkpoint) ----
+    t0 = time.perf_counter()
+    try:
+        serve_fig = serve_part(d_index, index, engine, batches, ckpt,
+                               launches, reset_launches)
+        log(f"phase 3f serving {time.perf_counter() - t0:.2f} s")
+        build_fig = build_part(args, dev, launches, reset_launches)
+    except BaseException:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        raise
+    f_launches = (sum(r["launches"] for r in serve_fig.values())
+                  + build_fig["launcher"]["launches"])
+    print_phase_3f(serve_fig, build_fig)
+    log(f"phase 3f (serving, build) {time.perf_counter() - t0:.2f} s; "
+        f"{time.perf_counter() - t_all:.2f} s since start; {f_launches} "
+        "launches of filtered_scan_tiled")
+
     # ---- phase 3d: live updates on the disk tier ----
     t0 = time.perf_counter()
     try:
@@ -2088,6 +2561,7 @@ def main(argv=None):
                   + sharded_launches["filtered_scan_tiled"]
                   + disk_launches["filtered_scan_tiled"]
                   + e_launches["filtered_scan_tiled"]
+                  + f_launches
                   + live_launches["filtered_scan_tiled"]),
         max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms,
@@ -2096,6 +2570,8 @@ def main(argv=None):
         wide=dict(k=K_WIDE, ms=w_ms, plain_ms=w_plain, bound_ms=w_bound,
                   bound_by="bytes" if w_byte >= w_op else "operations",
                   max_abs_err=w_err),
+        f32={k: build_fig["f32"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "vpad")},
     )]
 
     # the sharded tiled backend's own operands: f32 queries against the

@@ -1,10 +1,13 @@
 """The port's hybrid IVF-Flat filtered similarity search (RAM and disk
 tiers).
 
-  HybridSpec, make_hybrid, l2_normalize              — hybrid vector layout
+  HybridSpec, make_hybrid, l2_normalize,
+  concat_hybrid, split_hybrid, encode_numeric_attr,
+  encode_categorical_attr                            — hybrid vector layout
   FilterBuilder, FilterSpec, match_all, filter_mask,
   selectivity                                        — DNF filters
-  build_from_assignments, index_from_arrays          — index construction
+  build_ivf, build_from_assignments,
+  index_from_arrays                                  — index construction
   ClusterSummaries, build_summaries, can_match,
   expected_passing                                   — filter-aware pruning
   search_reference, brute_force, recall_at_k         — reference paths
@@ -30,8 +33,12 @@ from repro_torch.core.hybrid import (
     ATTR_MAX,
     ATTR_MIN,
     HybridSpec,
+    concat_hybrid,
+    encode_categorical_attr,
+    encode_numeric_attr,
     l2_normalize,
     make_hybrid,
+    split_hybrid,
 )
 from repro_torch.core.filters import (
     FilterBuilder,
@@ -45,6 +52,7 @@ from repro_torch.core.ivf import (
     BuildStats,
     IVFFlatIndex,
     build_from_assignments,
+    build_ivf,
     default_n_clusters,
     index_from_arrays,
     quantize_index,
@@ -115,15 +123,17 @@ __all__ = [
     "RangeOwnership", "RepublishStats",
     "ResidentBlockStore", "SearchEngine", "SearchPlan", "SearchResult",
     "ShardedSearchConfig", "TileWork", "add_vectors", "brute_force",
-    "build_from_assignments", "build_partitions", "build_summaries",
-    "can_match", "centroid_scores", "choose_attrs", "compact_cluster", "compact_deltas", "compact_stale",
-    "dedup_rows", "default_n_clusters", "expected_passing", "fetch_order",
+    "build_from_assignments", "build_ivf", "build_partitions",
+    "build_summaries", "can_match", "centroid_scores", "choose_attrs",
+    "compact_cluster", "compact_deltas", "compact_stale", "concat_hybrid",
+    "dedup_rows", "default_n_clusters", "encode_categorical_attr",
+    "encode_numeric_attr", "expected_passing", "fetch_order",
     "filter_mask", "from_builders", "index_from_arrays", "l2_normalize",
     "make_hybrid", "make_sharded_search", "masked_topk", "match_all",
     "merge_topk", "merge_topk_many", "partitions", "plan_probe_tiles",
     "quantize_index",
     "recall_at_k", "resync_partitions", "scan_compile_count",
     "search_centroids", "search_fused_tiled", "search_reference",
-    "selectivity", "stale_counts", "tombstone", "u_cap_buckets",
-    "validity_mask",
+    "selectivity", "split_hybrid", "stale_counts", "tombstone",
+    "u_cap_buckets", "validity_mask",
 ]

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -69,6 +70,55 @@ def make_hybrid(spec: HybridSpec, core, attrs, *, device="cuda"
             f"core and attrs disagree on N: {core.shape[0]} vs {attrs.shape[0]}"
         )
     return core.to(spec.core_dtype), attrs.to(spec.attr_dtype)
+
+
+def concat_hybrid(spec: HybridSpec, core, attrs, *, device="cuda"
+                  ) -> torch.Tensor:
+    """Literal ``[x || a]`` concatenation (paper §4.1), for interop/debug.
+
+    Returns a float tensor [N, D+M]; the attribute half is cast to the core
+    dtype exactly as the paper stores it (float16 in §5.1).
+    """
+    core, attrs = make_hybrid(spec, core, attrs, device=device)
+    return torch.cat([core, attrs.to(spec.core_dtype)], dim=-1)
+
+
+def split_hybrid(spec: HybridSpec, hybrid: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`concat_hybrid`, on the tensor's device."""
+    if hybrid.shape[-1] != spec.hybrid_dim:
+        raise ValueError(f"hybrid must have trailing dim {spec.hybrid_dim}, "
+                         f"got {tuple(hybrid.shape)}")
+    core = hybrid[..., :spec.dim].to(spec.core_dtype)
+    attrs = torch.round(hybrid[..., spec.dim:].float()).to(spec.attr_dtype)
+    return core, attrs
+
+
+def encode_numeric_attr(values: np.ndarray, lo: float, hi: float
+                        ) -> np.ndarray:
+    """Adaptive-binning helper (paper §3.4): rescale a numeric column into
+    int16.
+
+    Linearly maps [lo, hi] onto [ATTR_MIN, ATTR_MAX]; out-of-range values
+    are clipped.  The same (lo, hi) must be used to encode query ranges.
+    """
+    if hi <= lo:
+        raise ValueError(f"need hi > lo, got [{lo}, {hi}]")
+    x = (np.asarray(values, dtype=np.float64) - lo) / (hi - lo)
+    x = np.clip(x, 0.0, 1.0)
+    return np.round(x * (ATTR_MAX - ATTR_MIN) + ATTR_MIN).astype(np.int16)
+
+
+def encode_categorical_attr(values: np.ndarray, vocabulary: dict
+                            ) -> np.ndarray:
+    """Dictionary-encode a categorical column into int16 codes; a value
+    outside ``vocabulary`` raises ``KeyError``."""
+    if len(vocabulary) > (ATTR_MAX - ATTR_MIN + 1):
+        raise ValueError("categorical vocabulary exceeds int16 code space")
+    out = np.empty(len(values), dtype=np.int16)
+    for i, v in enumerate(values):
+        out[i] = vocabulary[v] + ATTR_MIN
+    return out
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

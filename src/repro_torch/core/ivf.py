@@ -12,9 +12,11 @@ Storage layout (the reference's, unchanged):
   scales    : [K, Vpad]     f32   — SQ8 per-row scale
   counts    : [K]           int32 — live-slot high-water mark per list
 
-Indexes are built from given assignments (the reference's k-means streams
-cannot be reproduced in torch); ``index_from_arrays`` carries a reference
-index's state across as numpy arrays.
+``build_ivf`` runs the whole build (k-means, assignment, scatter) from a
+``torch.Generator``; its random streams are not the reference's, so tests
+hold it against ``build_from_assignments`` over its own centroids.
+``index_from_arrays`` carries a reference index's state across as numpy
+arrays.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import kmeans as kmeans_lib
 from repro_torch.core import summaries as summaries_lib
 from repro_torch.core.hybrid import HybridSpec, make_hybrid
 from repro_torch.core.summaries import ClusterSummaries
@@ -194,6 +197,51 @@ def build_from_assignments(
         kmeans_steps=0,
     )
     return index, stats
+
+
+def build_ivf(
+    gen: torch.Generator,
+    spec: HybridSpec,
+    core,
+    attrs,
+    *,
+    n_clusters: Optional[int] = None,
+    vpad: Optional[int] = None,
+    kmeans_mode: str = "minibatch",
+    kmeans_steps: int = 100,
+    kmeans_batch: int = 4096,
+    assign_chunk: int = 65536,
+    ids=None,
+    with_summaries: bool = True,
+    summary_bins: int = summaries_lib.DEFAULT_N_BINS,
+    device="cuda",
+) -> Tuple[IVFFlatIndex, BuildStats]:
+    """End-to-end index build (paper §4.2): centroids → assign → scatter.
+
+    ``kmeans_mode``: ``"minibatch"`` (the paper's scalable path) or
+    ``"lloyd"`` (its quality path); anything else raises.  ``gen`` draws
+    the k-means init and batches and lives on ``device``.  K-means and the
+    assignment read ``core`` as given (each batch and chunk cast to f32);
+    the lists store it in ``spec.core_dtype``.
+    """
+    dev = resolve_device(device)
+    core = torch.as_tensor(core, device=dev)
+    n = core.shape[0]
+    k = n_clusters or default_n_clusters(n)
+    if kmeans_mode == "minibatch":
+        state = kmeans_lib.minibatch_kmeans(
+            gen, core, n_clusters=k, n_steps=kmeans_steps,
+            batch_size=min(kmeans_batch, n))
+    elif kmeans_mode == "lloyd":
+        state, _ = kmeans_lib.kmeans_lloyd(gen, core, n_clusters=k,
+                                           n_iters=kmeans_steps)
+    else:
+        raise ValueError(f"unknown kmeans_mode {kmeans_mode!r}")
+    assignments = kmeans_lib.assign(core, state.centroids, chunk=assign_chunk)
+    index, stats = build_from_assignments(
+        spec, state.centroids, core, attrs, assignments, vpad=vpad, ids=ids,
+        with_summaries=with_summaries, summary_bins=summary_bins, device=dev)
+    return index, dataclasses.replace(stats, kmeans_steps=kmeans_steps)
 
 
 def _to_tensor(arr: np.ndarray, dev: torch.device) -> torch.Tensor:

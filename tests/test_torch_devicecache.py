@@ -9,7 +9,8 @@ puts, evictions, invalidations, tile hits) match the reference's on the
 same traffic.  The unit cases are the reference's: the byte budget,
 eviction by heat, a budget below one entry, stale generations, precise
 invalidation, the pure-peek ``filter_missing`` and the tile memo.  The
-sharded store waits for ROADMAP A.8 and the serving function for A.7.
+sharded store waits for ROADMAP A.8; the serving function's cases are in
+``test_torch_serving.py``.
 """
 
 import numpy as np

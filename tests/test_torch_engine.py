@@ -218,6 +218,14 @@ def test_port_runs_without_jax_or_repro():
                                       k=5, n_probes=4, q_block=8,
                                       pipeline=pipeline)
                     assert (res.ids[:, 0].numpy() == np.arange(10)).all()
+        # the launcher: synthetic data, build_ivf, the server
+        import contextlib, io
+        from repro_torch.launch import serve
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = serve.main(["--device", "cpu", "--n", "800", "--dim", "8",
+                              "--clusters", "4", "--probes", "3",
+                              "--requests", "16", "--batch", "8"])
+        assert len(out["responses"]) == 16
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "repro"
                or m.startswith("repro.") or m == "ml_dtypes"
@@ -346,9 +354,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 # Public names of repro.core the port does not have yet, by ROADMAP item.
 UNPORTED_CORE = {
-    # A.1 index build and data
-    "build_ivf", "concat_hybrid", "split_hybrid", "encode_numeric_attr",
-    "encode_categorical_attr",
     # A.8 sharded ring
     "faults", "health", "transport", "BlockStoreServer", "CircuitBreaker",
     "FaultRule", "FaultSchedule", "FaultyBlockStore", "FaultyTransport",

@@ -951,3 +951,146 @@ def test_routed_and_terminated_on_card(cuda, tmp_path, variant, pipeline):
         _assert_topk_close((card[name].scores, card[name].ids),
                            (cr.scores, cr.ids), ties_by_id=False)
         assert torch.equal(cr.n_scanned, card[name].n_scanned.cpu()), name
+
+
+# ---- the index build and the serving entry point on the card ----
+
+
+def _kmeans_data(seed=0, n=3000, d=32, kc=12):
+    """Unit-norm rows around ``kc`` topics and a start of the topic
+    centres moved a little: every row's top-two centroid gap is wide."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((kc, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=-1, keepdims=True)
+    x = centers[rng.integers(0, kc, n)] + 0.15 * rng.standard_normal(
+        (n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    c0 = centers + 0.1 * rng.standard_normal(centers.shape).astype(np.float32)
+    return x.astype(np.float32), c0.astype(np.float32)
+
+
+def _near_tie_free(x, c, gap=1e-4):
+    """[N] bool: rows whose f64 top-two centroid score gap exceeds ``gap``
+    (there f32 sums in any order pick the same centroid)."""
+    x, c = np.asarray(x, np.float64), np.asarray(c, np.float64)
+    s = 2 * x @ c.T - (c * c).sum(-1)[None, :]
+    top2 = np.sort(s, -1)[:, -2:]
+    return top2[:, 1] - top2[:, 0] > gap
+
+
+def test_kmeans_steps_on_card_match_cpu(cuda):
+    """lloyd_step (in chunks) and minibatch_step on the card against the
+    plain CPU path from the same state on the same batches: counts exact on
+    rows clear of near-ties, centroids and inertia at rtol 1e-5."""
+    from repro_torch.core import kmeans as tkm
+
+    x, c0 = _kmeans_data()
+    assert _near_tie_free(x, c0).all()
+    xt = torch.from_numpy(x)
+    ga = tkm.assign(xt.to(cuda), torch.from_numpy(c0).to(cuda), chunk=700)
+    ok = _near_tie_free(x, c0)
+    np.testing.assert_array_equal(
+        ga.cpu().numpy()[ok], tkm.assign(xt, torch.from_numpy(c0)).numpy()[ok])
+    states = {}
+    for dev in ("cpu", cuda):
+        st = tkm.KMeansState(torch.from_numpy(c0).to(dev),
+                             torch.zeros(c0.shape[0], device=dev))
+        st, inertia = tkm.lloyd_step(st, xt.to(dev), chunk=1024)
+        rng = np.random.default_rng(3)
+        for _ in range(5):
+            idx = torch.from_numpy(rng.integers(0, x.shape[0], 256)).to(dev)
+            st = tkm.minibatch_step(st, xt.to(dev)[idx])
+        states[str(dev)] = (st, float(inertia))
+    (cs, ci), (gs, gi) = states["cpu"], states[str(cuda)]
+    np.testing.assert_array_equal(gs.counts.cpu().numpy(), cs.counts.numpy())
+    np.testing.assert_allclose(gs.centroids.cpu().numpy(),
+                               cs.centroids.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(gi, ci, rtol=1e-5)
+    assert gs.step == cs.step == 6
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_build_ivf_on_card_matches_cpu(cuda, metric):
+    """build_ivf on the card (its own k-means stream) against the plain CPU
+    path on the card's centroids: the same lists, row for row."""
+    from repro_torch.core import kmeans as tkm
+
+    x, _ = _kmeans_data(seed=1)
+    attrs = np.random.default_rng(1).integers(0, 9, (x.shape[0], 3)).astype(
+        np.int16)
+    spec = thy.HybridSpec(dim=32, n_attrs=3, core_dtype=torch.bfloat16,
+                          metric=metric)
+    gi, gstats = tivf.build_ivf(torch.Generator(cuda).manual_seed(0), spec,
+                                x, attrs, n_clusters=12, kmeans_steps=20,
+                                kmeans_batch=512, assign_chunk=1000,
+                                device=cuda)
+    assert gi.vectors.device.type == cuda.type and gstats.kmeans_steps == 20
+    cent = gi.centroids.cpu()
+    assert _near_tie_free(x, cent.numpy()).all()
+    ci, cstats = tivf.build_from_assignments(
+        spec, cent, x, attrs, tkm.assign(torch.from_numpy(x), cent),
+        device="cpu")
+    for f in ("vectors", "attrs", "ids", "counts"):
+        assert torch.equal(getattr(gi, f).cpu(), getattr(ci, f)), f
+    if metric == "l2":
+        np.testing.assert_allclose(gi.norms.cpu().numpy(), ci.norms.numpy(),
+                                   rtol=1e-6)
+    assert gstats.vpad == cstats.vpad and gstats.n_dropped == 0
+
+
+def test_search_server_on_card_matches_engine(cuda):
+    """A SearchServer over a card make_fused_search_fn: 40 requests with
+    window filters (batches of 16, the tail padded) equal the engine's
+    result for the same batch."""
+    from repro_torch.core import serving as tsrv
+
+    index = _index("dot-bf16", cuda)
+    qs, fspec = _window_batch(40, 8)
+    fn = tsrv.make_fused_search_fn(index, k=10, n_probes=4, q_block=16,
+                                   device=cuda)
+    want = teng.SearchEngine(index, k=10, n_probes=4, q_block=16,
+                             device=cuda).search(qs.to(cuda),
+                                                 fspec.to(cuda))
+    server = tsrv.SearchServer(fn, batch_size=16, dim=32, n_attrs=3,
+                               n_terms=1, n_shards=1, max_wait_s=0.05,
+                               device=cuda)
+    lo, hi = fspec.lo.numpy(), fspec.hi.numpy()
+    futs = [server.submit(qs[i].numpy(), (lo[i], hi[i])) for i in range(40)]
+    before = tfs.LAUNCHES
+    server.start()
+    try:
+        resps = [f.get(timeout=120) for f in futs]
+    finally:
+        server.stop()
+        fn.close()
+    assert tfs.LAUNCHES > before
+    assert server.stats["batches"] == 3
+    got = (torch.from_numpy(np.stack([r.scores for r in resps])),
+           torch.from_numpy(np.stack([r.ids for r in resps])))
+    _assert_topk_close(got, (want.scores, want.ids), ties_by_id=False)
+
+
+def test_launcher_on_card(cuda, tmp_path):
+    """python -m repro_torch.launch.serve at a small size on the card: the
+    build path on the RAM tier, then the disk tier with a device cache and
+    a delta tier over the saved checkpoint."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    small = ["--n", "4000", "--dim", "32", "--clusters", "8", "--requests",
+             "48", "--batch", "16", "--n-attrs", "4"]
+    before = tfs.LAUNCHES
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = serve.main(small + ["--save", str(tmp_path / "ck")])
+        assert out["index"].vectors.device.type == cuda.type
+        assert all(abs(r.scores[0] - 1.0) < 1e-5 for r in out["responses"])
+        disk = serve.main(["--load", str(tmp_path / "ck"), "--tier", "disk",
+                           "--device-cache-mb", "16", "--delta-budget-mb",
+                           "1", "--compact-every", "16", "--requests", "32",
+                           "--batch", "8"])
+    assert tfs.LAUNCHES > before
+    assert out["stats"]["requests"] == 48 and disk["stats"]["requests"] == 32
+    assert disk["metrics"]["device_cache.puts"] > 0
+    assert disk["delta"]["commits"] >= 1
