@@ -74,6 +74,28 @@ Phases:
      own build path at the largest N whose index the card holds (capped for
      the host's numpy data), with the tiled kernel's f32 x f32 time on its
      index;
+  3g. (run between 3f and 3d, on 3c's checkpoint) the sharded ring: a
+     loopback ``open_sharded`` ring of 3 peers, each caching a third of
+     3c's budget, the disk index's own store as the fallback, through both
+     executors on the three mixes (1 warm-up + 2 batches each), printing
+     the batch time, remote blocks, L1 hits and misses and blocks per
+     node; the same over the socket wire, sync on hot and hot_window,
+     pipelined on hot_window (uniform once, sync, while the phase is under
+     RING_SOCKET_UNIFORM_S old), with the
+     bytes on the wire a batch and their rate beside the fetch's own read
+     and assembly rates; chaos: one peer killed and one browned out through
+     ``faults.inject``, every batch equal, failovers counted and the
+     engine's degraded batches, then the peers back and the circuits closed
+     by ``probe_peers``, the next batch served remotely, and the kill
+     without a fallback raising a ``TransportError``; ``termination=
+     "exact"`` through the segmented-fetch executor on uniform and
+     hot_window, equal to the untruncated ring batch bit for bit; an 8 GiB
+     device cache over the ring (warm batches count ``device_hits``); the
+     launcher with ``--cache-shards 3 --cache-transport socket
+     --device-cache-mb 8192``, every response held against a RAM engine.
+     Inside 3d, a loopback ring opened before ``compact_deltas`` serves
+     one hot batch before and after ``refresh``, each equal to the
+     rebuild, the second with L1 invalidations and no stale answer;
   4. each kernel on one full-size batch: held against its plain version,
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
      for centroid_topk); filtered_scan_tiled on both of its full-size
@@ -809,7 +831,7 @@ def disk_phase(index, batches, ram_results, dev, *, reset_launches,
             shutil.rmtree(ckpt, ignore_errors=True)
 
 
-def fetch_breakdown(disk, plan, bb, rate, dev):
+def fetch_breakdown(disk, plan, bb, rate, dev, label="sync uniform batch"):
     """The sync fetch of one planned batch split into its host steps, run
     twice (the second is printed): every distinct record read from the
     shard files past the cache (``ShardReader.read``), the blocks assembled
@@ -836,7 +858,7 @@ def fetch_breakdown(disk, plan, bb, rate, dev):
         del blocks, recs
     rec_gb = len(uniq) * disk.reader.stride / 1e9
     blk_gb = len(uniq) * bb / 1e9
-    log(f"disk tier fetch steps, sync uniform batch ({len(uniq)} distinct "
+    log(f"disk tier fetch steps, {label} ({len(uniq)} distinct "
         f"clusters): read {rec_gb:.3f} GB of records {(t1 - t0) * 1e3:.3f} ms "
         f"({rec_gb / (t1 - t0):.2f} GB/s); assemble {blk_gb:.3f} GB in pinned "
         f"memory and enqueue the copies {(t2 - t1) * 1e3:.3f} ms "
@@ -1042,8 +1064,8 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
     import torch
 
     from repro_torch.core import (
-        DeltaTier, DiskIVFIndex, SearchEngine, compact_deltas, recall_at_k,
-        storage)
+        DeltaTier, DiskIVFIndex, SearchEngine, compact_deltas, open_sharded,
+        recall_at_k, storage)
     from repro_torch.core import delta as delta_lib
     from repro_torch.core import engine as engine_lib
     from repro_torch.core import kmeans
@@ -1123,7 +1145,8 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
         log(f"rebuild: {n_kept} live base rows + {n_add} adds, K={kc} "
             f"Vpad={rebuilt.vpad}, {rebuilt.nbytes() / 2**30:.2f} GiB, in "
             f"{time.perf_counter() - t0:.2f} s; card memory "
-            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; host memory: "
+            f"{meminfo()}")
         del core_new, attrs_new
         torch.cuda.empty_cache()
         ref_eng = SearchEngine(rebuilt, k=K_TOP, n_probes=N_PROBES,
@@ -1151,6 +1174,16 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
         engines["dc"] = SearchEngine(disk, k=K_TOP, n_probes=N_PROBES,
                                      q_block=64, prune="auto", pipeline="off",
                                      device_cache=dc)
+        # phase 3g (g): a loopback ring over the checkpoint across the
+        # republish; its refresh reopens the peers, and its L1 drops exactly
+        # the superseded records it is asked for again
+        ring = open_sharded(str(ckpt), n_nodes=RING_NODES,
+                            capacity_records=max(
+                                disk.cache.capacity_records // RING_NODES, 1),
+                            fallback=disk.blockstore)
+        engines["ring"] = SearchEngine(disk, blockstore=ring, k=K_TOP,
+                                       n_probes=N_PROBES, q_block=64,
+                                       prune="auto", pipeline="off")
 
         rows = {}
         reset_launches()
@@ -1195,6 +1228,29 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
                         raise AssertionError(f"live {stage} {pipeline} {mix}: "
                                              "not every batch launched "
                                              "filtered_scan_tiled")
+            if stage == "after":
+                engines["ring"].refresh()
+            before = launches()["filtered_scan_tiled"]
+            s0 = ring.stats()
+            t0 = time.perf_counter()
+            got = engines["ring"].search(*batches["hot"][-1])
+            torch.cuda.synchronize()
+            ring_ms = (time.perf_counter() - t0) * 1e3
+            err = same_as_rebuild(f"live {stage} ring hot", got,
+                                  wants["hot"][-1])
+            s1 = ring.stats()
+            if launches()["filtered_scan_tiled"] == before:
+                raise AssertionError(f"live {stage} ring: no launch")
+            rows[stage, "ring"] = dict(
+                batch=ring_ms, err=err,
+                l1_invalidations=s1["l1_invalidations"]
+                - s0["l1_invalidations"],
+                stale=s1["stale_answers"], remote=s1["remote_blocks"]
+                - s0["remote_blocks"], l1_hits=s1["l1_hits"] - s0["l1_hits"])
+            if stage == "after" and (rows[stage, "ring"]["l1_invalidations"]
+                                     == 0 or s1["stale_answers"]):
+                raise AssertionError(f"live ring after the republish: "
+                                     f"{rows[stage, 'ring']}")
             rows[stage, "dc", "hot"] = serve_live(
                 engines["dc"], "hot", batches["hot"], wants["hot"])
             rows[stage, "dc", "hot"]["hit_rate"] = dc.hit_rate()
@@ -1281,6 +1337,8 @@ def live_phase(index, centers, ckpt, dev, gen, *, reset_launches, launches):
     finally:
         for eng in engines.values():
             eng.close()
+        if "ring" in engines:
+            ring.close()
         disk.close()
 
 
@@ -1300,6 +1358,12 @@ def print_live(fig):
                     f"{r['err']:.3e}")
         log(f"live {stage} the republish, k={K_WIDE} uniform batch (sync): "
             f"{rows[stage, 'wide']:.3f} ms")
+        r = rows[stage, "ring"]
+        log(f"live {stage} the republish, loopback ring (sync, phase 3g "
+            f"(g)) hot: batch {r['batch']:.3f} ms; L1 invalidations "
+            f"{r['l1_invalidations']}, L1 hits {r['l1_hits']}, remote blocks "
+            f"{r['remote']}, stale answers {r['stale']}; max |err| vs the "
+            f"rebuild {r['err']:.3e}")
         r = rows[stage, "dc", "hot"]
         log(f"live {stage} the republish, device cache (sync) hot: batch "
             f"{r['batch']:.3f} ms (median of {LIVE_BATCHES}); cache hit rate "
@@ -2180,6 +2244,484 @@ def print_phase_3f(sfig, bfig):
         f"{f['ms'] / f['bound_ms']:.2f}; max |err| {f['max_abs_err']:.3e}")
 
 
+# ---- phase 3g: the sharded ring ----
+
+RING_NODES = 3
+RING_WARMUP, RING_BATCHES = 1, 2  # per (transport, executor, mix) in 3g
+RING_REQUESTS = 5 * Q  # the ring launcher's --requests
+RING_SOCKET_UNIFORM_S = 100.0  # socket runs uniform once if 3g is younger
+CHAOS_LATENCY_S = 0.2  # the browned-out peer's added latency a fetch
+CHAOS_BREAKER = dict(failure_threshold=1, cooldown_s=1.0,
+                     half_open_successes=1, brownout_latency_s=0.1,
+                     latency_alpha=1.0)
+
+
+def ring_delta(s1, s0):
+    """The ring counters one batch moved (two ``stats()`` snapshots)."""
+    out = {k: s1[k] - s0[k] for k in (
+        "remote_blocks", "l1_hits", "l1_misses", "failovers",
+        "redirected_blocks", "fallback_blocks", "device_hits",
+        "fetches_skipped", "stale_answers")}
+    out["node_blocks"] = {n: s1["per_node"][n]["blocks_served"]
+                          - s0["per_node"].get(n, {}).get("blocks_served", 0)
+                          for n in s1["per_node"]}
+    out["wire_blocks"] = sum(s1["per_node"][n].get("blocks", 0)
+                             - s0["per_node"].get(n, {}).get("blocks", 0)
+                             for n in s1["per_node"]
+                             if s1["per_node"][n].get("kind") == "socket")
+    return out
+
+
+def ring_batches(name, eng, store, blist, wants, *, warmup=RING_WARMUP,
+                 split=True):
+    """``blist`` through ``eng`` (over the ring ``store``), each batch held
+    against the RAM engine's ``wants``.  With ``split``, a sync engine's
+    fetch stage is timed apart (CUDA events around plan, fetch and
+    scan+merge, as phase 3c times it); else each batch is one
+    ``execute``.  Returns the timed batches' rows and the last result."""
+    import torch
+
+    split = split and eng.pipeline == "off"
+    rows, res = [], None
+    for i, ((queries, fspec), want) in enumerate(zip(blist, wants)):
+        s0 = store.stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        plan = eng.plan(queries, fspec)
+        ev[1].record()
+        if split:
+            operands = eng.fetch(plan)
+            ev[2].record()
+            res = eng.scan_merge(plan, operands)
+            eng.stats.batches += 1
+        else:
+            res = eng.execute(plan)
+            ev[2].record()
+        ev[3].record()
+        ev[3].synchronize()
+        err = same_result(f"{name} batch {i}", res, want)
+        if i < warmup:
+            continue
+        row = ring_delta(store.stats(), s0)
+        row.update(batch=ev[0].elapsed_time(ev[3]), err=err,
+                   fetch=ev[1].elapsed_time(ev[2]) if split else None,
+                   plan_obj=plan)
+        rows.append(row)
+    return rows, res
+
+
+def ring_row(rows):
+    """Medians of the timed batches (the per-node counts summed)."""
+    out = {k: statistics.median(r[k] for r in rows)
+           for k in ("batch", "err", "remote_blocks", "l1_hits", "l1_misses",
+                     "wire_blocks")}
+    if rows[0]["fetch"] is not None:
+        out["fetch"] = statistics.median(r["fetch"] for r in rows)
+    out["node_blocks"] = {n: sum(r["node_blocks"][n] for r in rows)
+                          / len(rows) for n in rows[0]["node_blocks"]}
+    out["n"] = len(rows)
+    return out
+
+
+def trim_host_memory():
+    """Hands the C heap's free pages back to the OS (glibc
+    ``malloc_trim``): the ring's fetch and server threads leave GBs of
+    freed record buffers in their malloc arenas, which the machine's memory
+    limit counts until they are trimmed.  Returns MemAvailable after, GiB."""
+    import ctypes
+    import gc
+
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    return host_available() / 2**30
+
+
+class RingRun:
+    """Phase 3g's shared state: the disk index over 3c's checkpoint (its
+    store is every ring's fallback), the RAM engine's results for each
+    batch, the figures and the tiled launches of each part."""
+
+    def __init__(self, d_index, ckpt, budget, batches, dev, launches,
+                 reset_launches):
+        from repro_torch.core import DiskIVFIndex, SearchEngine
+
+        self.ckpt, self.batches, self.dev = ckpt, batches, dev
+        self.launches, self.reset_launches = launches, reset_launches
+        self.ram = SearchEngine(d_index, k=K_TOP, n_probes=N_PROBES,
+                                q_block=64, prune="auto")
+        self.wants = {mix: [self.ram.search(q, f) for q, f in blist]
+                      for mix, blist in batches.items()}
+        self.disk = DiskIVFIndex.open(str(ckpt), resident_budget_bytes=budget)
+        self.cap = max(self.disk.cache.capacity_records // RING_NODES, 1)
+        self.fig, self.n_launch = {}, {}
+        self.t0 = time.perf_counter()
+
+    def ring(self, transport, **extra):
+        from repro_torch.core import open_sharded
+
+        extra.setdefault("fallback", self.disk.blockstore)
+        return open_sharded(str(self.ckpt), n_nodes=RING_NODES,
+                            transport=transport, capacity_records=self.cap,
+                            timeout_s=120.0, **extra)
+
+    def engine(self, store, pipeline="off", **extra):
+        from repro_torch.core import SearchEngine
+
+        return SearchEngine(self.disk, blockstore=store, pipeline=pipeline,
+                            k=K_TOP, n_probes=N_PROBES, q_block=64,
+                            prune="auto", **extra)
+
+    def part(self, name, fn, *args):
+        """Runs one part with the launch counts set to 0 just before and
+        read just after (each part must launch the tiled kernel), or the
+        count ``fn`` returns, read before its checks; the part's rings are
+        gone when it returns, and the heap is trimmed."""
+        import torch
+
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        self.reset_launches()
+        n = fn(self, *args)
+        torch.cuda.synchronize()
+        self.n_launch[name] = (self.launches()["filtered_scan_tiled"]
+                               if n is None else n)
+        if not self.n_launch[name]:
+            raise AssertionError(f"ring {name}: no filtered_scan_tiled launch")
+        self.fig[name + "_s"] = time.perf_counter() - t0
+        self.fig[name + "_mem"] = trim_host_memory()
+        log(f"ring ({name}) {self.fig[name + '_s']:.2f} s; host memory after "
+            f"(trimmed): {meminfo()}")
+
+    def close(self):
+        self.disk.close()
+        self.ram.close()
+
+
+def ring_loopback_part(run):
+    """(a) a loopback ring, both executors, the three mixes; then on the
+    same ring (d) termination "exact" through the segmented fetch on
+    uniform and hot_window, equal to the untruncated ring batch bit for
+    bit, and (e) an 8 GiB device cache on hot."""
+    import torch
+
+    from repro_torch.core.devicecache import DeviceBlockCache
+
+    n_run = RING_WARMUP + RING_BATCHES
+    ring = run.ring("loopback")
+    base = {}
+    try:
+        for pipeline in ("off", "on"):
+            eng = run.engine(ring, pipeline)
+            try:
+                for mix, blist in run.batches.items():
+                    rows, res = ring_batches(
+                        f"ring loopback pipeline={pipeline} {mix}", eng, ring,
+                        blist[:n_run], run.wants[mix])
+                    run.fig["a", pipeline, mix] = ring_row(rows)
+                    if pipeline == "off":
+                        base[mix] = (blist[n_run - 1], res)
+            finally:
+                eng.close()
+        n_a = run.launches()["filtered_scan_tiled"]
+        t0 = time.perf_counter()
+        eng = run.engine(ring, termination="exact")
+        try:
+            for mix in ("uniform", "hot_window"):
+                (queries, fspec), want = base[mix]
+                s0 = ring.stats()
+                l0 = run.launches()["filtered_scan_tiled"]
+                st0 = (eng.stats.probes_terminated,
+                       eng.stats.term_segments_skipped)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                plan = eng.plan(queries, fspec)
+                res = eng.execute(plan)
+                torch.cuda.synchronize()
+                batch_ms = (time.perf_counter() - t1) * 1e3
+                if not (torch.equal(res.ids, want.ids)
+                        and torch.equal(res.scores, want.scores)):
+                    raise AssertionError(f"ring termination=exact {mix}: "
+                                         "differs from the untruncated ring "
+                                         "batch")
+                for c in ("n_scanned", "n_passed"):
+                    if bool((getattr(res, c) > getattr(want, c)).any()):
+                        raise AssertionError(f"ring termination {mix}: {c}")
+                d = ring_delta(ring.stats(), s0)
+                run.fig["d", mix] = dict(
+                    batch=batch_ms, skipped=d["fetches_skipped"],
+                    remote=d["remote_blocks"],
+                    dropped=eng.stats.probes_terminated - st0[0],
+                    seg_skipped=eng.stats.term_segments_skipped - st0[1],
+                    launches=run.launches()["filtered_scan_tiled"] - l0,
+                    syncs=plan.n_tiles * (plan.term.n_seg - 1),
+                    segments=plan.n_tiles * plan.term.n_seg)
+        finally:
+            eng.close()
+        n_d = run.launches()["filtered_scan_tiled"] - n_a
+        run.fig["d_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dc = DeviceBlockCache(run.disk.blockstore.spec, DEVICE_CACHE_MB << 20,
+                              heat_fn=run.disk.cache.probe_heat,
+                              device=run.dev)
+        eng = run.engine(ring, device_cache=dc)
+        try:
+            rows, _ = ring_batches("ring device cache hot", eng, ring,
+                                   run.batches["hot"][:n_run],
+                                   run.wants["hot"])
+        finally:
+            eng.close()
+        if not all(r["device_hits"] > 0 for r in rows):
+            raise AssertionError("ring device cache: a warm batch had no "
+                                 "device hits")
+        run.fig["e"] = dict(ring_row(rows), device_hits=statistics.median(
+            r["device_hits"] for r in rows), hit_rate=dc.hit_rate())
+        run.fig["e_s"] = time.perf_counter() - t0
+        n_e = run.launches()["filtered_scan_tiled"] - n_a - n_d
+        if not (n_d and n_e):
+            raise AssertionError(f"ring (d) {n_d} / (e) {n_e} launches")
+        run.n_launch["d"], run.n_launch["e"] = n_d, n_e
+    finally:
+        ring.close()
+
+
+def ring_socket_part(run, rate):
+    """(b) the same over the socket wire: the sync executor on hot and
+    hot_window, the pipelined one on hot_window (cut: a hot batch moves
+    ~4.9 GB over the wire, ~13 s, and the sync executor already gives its
+    rate); uniform once, sync, while the phase is under
+    RING_SOCKET_UNIFORM_S old.  The fetch's own read and assembly rates on
+    the last sync batch's plan are logged beside the wire's."""
+    from repro_torch.core.transport import _encode_records
+
+    n_run = RING_WARMUP + RING_BATCHES
+    ring = run.ring("socket")
+    try:
+        run.fig["wire_record"] = len(_encode_records(
+            run.disk.blockstore.get([0])))
+        log("phase 3g cut: the pipelined executor over the socket ring runs "
+            "hot_window only (a hot batch moves ~4.9 GB over the wire)")
+        for pipeline, mixes in (("off", ("hot", "hot_window")),
+                                ("on", ("hot_window",))):
+            eng = run.engine(ring, pipeline)
+            try:
+                for mix in mixes:
+                    rows, _ = ring_batches(
+                        f"ring socket pipeline={pipeline} {mix}", eng, ring,
+                        run.batches[mix][:n_run], run.wants[mix])
+                    run.fig["b", pipeline, mix] = ring_row(rows)
+                if pipeline == "on":
+                    continue
+                fetch_breakdown(run.disk, rows[-1]["plan_obj"],
+                                block_bytes(run.disk.man), rate, run.dev,
+                                label="ring phase, sync hot_window batch")
+                age = time.perf_counter() - run.t0
+                if age < RING_SOCKET_UNIFORM_S:
+                    rows, _ = ring_batches(
+                        "ring socket pipeline=off uniform", eng, ring,
+                        run.batches["uniform"][:1], run.wants["uniform"],
+                        warmup=0)
+                    run.fig["b", "off", "uniform"] = ring_row(rows)
+                else:
+                    log(f"phase 3g cut: socket uniform not run (phase 3g "
+                        f"already {age:.1f} s old)")
+            finally:
+                eng.close()
+    finally:
+        ring.close()
+
+
+def ring_chaos_part(run):
+    """(c) peer 1 killed and peer 2 browned out through ``faults.inject``
+    on uniform: every batch equal, failovers counted, the engine's batches
+    degraded; then both peers back, the circuits closed by
+    ``probe_peers`` and the next batch served by them; then the kill
+    without a fallback, which must raise a ``TransportError``."""
+    from repro_torch.core import TransportError, faults
+    from repro_torch.core.health import CLOSED
+
+    blist, wants = run.batches["uniform"], run.wants["uniform"]
+    ring = run.ring("loopback", breaker_kwargs=CHAOS_BREAKER)
+    try:
+        faults.inject(ring, 1, faults.kill_peer())
+        faults.inject(ring, 2, faults.brownout_peer(CHAOS_LATENCY_S))
+        eng = run.engine(ring)
+        try:
+            rows, _ = ring_batches("ring chaos uniform", eng, ring, blist[:2],
+                                   wants, warmup=0, split=False)
+            s = ring.stats()
+            degraded = eng.stats.degraded_batches
+            if s["failovers"] + s["redirected_blocks"] == 0 or not degraded:
+                raise AssertionError(f"ring chaos: no failover ({s})")
+            chaos = dict(ring_row(rows), failovers=s["failovers"],
+                         redirected=s["redirected_blocks"],
+                         fallback=s["fallback_blocks"],
+                         health=dict(s["health"]), degraded=degraded,
+                         injected={n: ring.transports[n].stats()["injected"]
+                                   for n in (1, 2)})
+            for n in (1, 2):  # the peers come back
+                ring.transports[n] = ring.transports[n].inner
+            t1 = time.perf_counter()
+            while (any(ring.health.state(n) != CLOSED for n in (1, 2))
+                   and time.perf_counter() - t1 < 30.0):
+                ring.probe_peers()
+                time.sleep(0.1)
+            if ring.degraded:
+                raise AssertionError("ring chaos: the circuits did not close "
+                                     "after recovery")
+            chaos["recovery_s"] = time.perf_counter() - t1
+            rows, _ = ring_batches("ring chaos recovered uniform", eng, ring,
+                                   blist[2:3], wants[2:], warmup=0,
+                                   split=False)
+            nb = rows[0]["node_blocks"]
+            if not (nb[1] > 0 and nb[2] > 0):
+                raise AssertionError(f"ring chaos: not served remotely after "
+                                     f"recovery ({nb})")
+            chaos["recovered"] = ring_row(rows)
+        finally:
+            eng.close()
+    finally:
+        ring.close()
+    ring = run.ring("loopback", fallback=None)
+    try:
+        faults.inject(ring, 1, faults.kill_peer())
+        eng = run.engine(ring)
+        try:
+            eng.search(*blist[0])
+        except TransportError as e:
+            chaos["no_fallback"] = f"{type(e).__name__}: {e}"
+        else:
+            raise AssertionError("ring without a fallback: a killed peer "
+                                 "raised no TransportError")
+        finally:
+            eng.close()
+    finally:
+        ring.close()
+    run.fig["c"] = chaos
+
+
+def ring_launcher_part(run):
+    """(f) the launcher over a socket ring with an 8 GiB device cache,
+    every response held against the RAM engine."""
+    out, secs = run_launcher(
+        ["--load", str(run.ckpt), "--tier", "disk", "--k", str(K_TOP),
+         "--probes", str(N_PROBES), "--batch", str(Q), "--requests",
+         str(RING_REQUESTS), "--cache-shards", str(RING_NODES),
+         "--cache-transport", "socket", "--device-cache-mb",
+         str(DEVICE_CACHE_MB)])
+    n_tiled = run.launches()["filtered_scan_tiled"]
+    st = out["stats"]
+    if not n_tiled or st["requests"] != RING_REQUESTS:
+        raise AssertionError(f"ring launcher: {st}, {n_tiled} launches")
+    if out["metrics"].get("store.kind") != "sharded":
+        raise AssertionError("ring launcher: the store is not the ring")
+    err = responses_vs_engine("ring launcher", out["responses"],
+                              out["queries"], run.ram)
+    lf = latency_fig(out, n_tiled, err, secs)
+    lf["metrics"] = {k: v for k, v in out["metrics"].items()
+                     if (k.startswith("store.") and "per_node" not in k)
+                     or k.startswith("engine.degraded")
+                     or k.startswith("device_cache.hit")}
+    run.fig["f"] = lf
+    return n_tiled
+
+
+def ring_phase(d_index, ckpt, budget, batches, dev, *, rate, launches,
+               reset_launches):
+    """Phase 3g: the sharded ring over phase 3c's checkpoint, RING_NODES
+    peers each caching a RING_NODES-th of 3c's budget, the disk index's own
+    store as the fallback: (a), (d), (e) on a loopback ring
+    (:func:`ring_loopback_part`), (b) over the socket wire, (c) chaos, (f)
+    the launcher.  Every batch is held against the RAM engine's.  Returns
+    the figures and the tiled launches of each part."""
+    import torch
+
+    log(f"ring: host MemAvailable {host_available() / 2**30:.2f} GiB before "
+        f"the phase, {trim_host_memory():.2f} GiB after a heap trim")
+    run = RingRun(d_index, ckpt, budget, batches, dev, launches,
+                  reset_launches)
+    try:
+        log(f"ring: {RING_NODES} peers over {ckpt}, {run.cap} records each "
+            f"({run.cap * run.disk.man['record_stride'] / 2**30:.3f} GiB; "
+            f"3c's budget {run.disk.cache.capacity_records} records), the "
+            f"disk index's own store as the fallback; host memory: "
+            f"{meminfo()}")
+        run.part("a", ring_loopback_part)
+        run.n_launch["a"] -= run.n_launch["d"] + run.n_launch["e"]
+        run.fig["a_s"] -= run.fig["d_s"] + run.fig["e_s"]
+        run.part("b", ring_socket_part, rate)
+        run.part("c", ring_chaos_part)
+        run.part("f", ring_launcher_part)
+    finally:
+        run.close()
+    torch.cuda.empty_cache()
+    run.fig["secs"] = time.perf_counter() - run.t0
+    run.fig["mem_end"] = trim_host_memory()
+    return run.fig, run.n_launch
+
+
+def print_phase_3g(fig):
+    """Phase 3g's figures."""
+    def nodes(r):
+        return ", ".join(f"node {n} {v:.1f}"
+                         for n, v in sorted(r["node_blocks"].items()))
+
+    for tr in ("a", "b"):
+        for key, r in fig.items():
+            if not (isinstance(key, tuple) and key[0] == tr):
+                continue
+            _, pipeline, mix = key
+            fetch = (f", fetch {r['fetch']:.3f} ms" if "fetch" in r else "")
+            wire = ""
+            if tr == "b":
+                gb = r["wire_blocks"] * fig["wire_record"] / 1e9
+                wire = (f"; {gb:.3f} GB over the wire a batch"
+                        + (f", {gb / (r['fetch'] / 1e3):.2f} GB/s over the "
+                           "fetch stage" if "fetch" in r else ""))
+            log(f"ring {'loopback' if tr == 'a' else 'socket'} "
+                f"pipeline={pipeline} {mix}: batch {r['batch']:.3f} ms"
+                f"{fetch} (median of {r['n']}); "
+                f"remote blocks {r['remote_blocks']:.1f}, L1 hits "
+                f"{r['l1_hits']:.1f} misses {r['l1_misses']:.1f}; blocks a "
+                f"batch by node: {nodes(r)}{wire}; max |err| vs RAM "
+                f"{r['err']:.3e}")
+    log(f"ring socket: one record {fig['wire_record'] / 1e6:.3f} MB on the "
+        "wire (npz)")
+    c = fig["c"]
+    log(f"ring chaos (loopback, uniform, peer 1 killed, peer 2 +"
+        f"{CHAOS_LATENCY_S} s a fetch): batch {c['batch']:.3f} ms; failovers "
+        f"{c['failovers']}, redirected blocks {c['redirected']}, fallback "
+        f"blocks {c['fallback']}, health {c['health']}, degraded batches "
+        f"{c['degraded']}, injected {c['injected']}; recovered through "
+        f"probe_peers in {c['recovery_s']:.2f} s; the next batch "
+        f"{c['recovered']['batch']:.3f} ms with blocks by node "
+        f"{nodes(c['recovered'])}; without a fallback: {c['no_fallback']}")
+    for mix in ("uniform", "hot_window"):
+        d = fig["d", mix]
+        log(f"ring termination=exact (segmented fetch) {mix}: batch "
+            f"{d['batch']:.3f} ms, equal to the untruncated ring batch; "
+            f"fetches skipped {d['skipped']}, probes dropped {d['dropped']}, "
+            f"segments skipped {d['seg_skipped']} of {d['segments']}, "
+            f"{d['launches']} launches, {d['syncs']} boundary syncs, "
+            f"{d['remote']} remote blocks")
+    e = fig["e"]
+    log(f"ring + {DEVICE_CACHE_MB} MiB device cache (sync) hot: batch "
+        f"{e['batch']:.3f} ms; device hits {e['device_hits']:.1f} a warm "
+        f"batch (store's device_hits), hit rate {e['hit_rate']:.4f}; remote "
+        f"blocks {e['remote_blocks']:.1f}")
+    f = fig["f"]
+    log(f"ring launcher (--cache-shards {RING_NODES} --cache-transport socket "
+        f"--device-cache-mb {DEVICE_CACHE_MB}): {f['batches']} batches, QPS "
+        f"{f['qps']:.1f}, latency p50 {f['p50']:.3f} ms p99 {f['p99']:.3f} "
+        f"ms; {f['launches']} filtered_scan_tiled launches; max |err| vs the "
+        f"RAM engine {f['err']:.3e}; " + json.dumps(f["metrics"],
+                                                     sort_keys=True))
+    log("ring part times: " + ", ".join(
+        f"({p}) {fig[p + '_s']:.2f} s" for p in "abcdef") + "; host "
+        "MemAvailable after each trimmed part: " + ", ".join(
+            f"({p}) {fig[p + '_mem']:.2f} GiB" for p in "abcf")
+        + f"; after the phase {fig['mem_end']:.2f} GiB")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2497,6 +3039,21 @@ def main(argv=None):
     log(f"phase 3f (serving, build) {time.perf_counter() - t0:.2f} s; "
         f"{time.perf_counter() - t_all:.2f} s since start; {f_launches} "
         "launches of filtered_scan_tiled")
+
+    # ---- phase 3g: the sharded ring (before 3d republishes the
+    # checkpoint) ----
+    t0 = time.perf_counter()
+    try:
+        ring_fig, ring_launches = ring_phase(
+            d_index, ckpt, budget, d_batches, dev, rate=rate,
+            launches=launches, reset_launches=reset_launches)
+    except BaseException:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        raise
+    print_phase_3g(ring_fig)
+    log(f"phase 3g (sharded ring) {time.perf_counter() - t0:.2f} s; "
+        f"{time.perf_counter() - t_all:.2f} s since start; "
+        f"filtered_scan_tiled launches by part {ring_launches}")
 
     # ---- phase 3d: live updates on the disk tier ----
     t0 = time.perf_counter()

@@ -23,8 +23,14 @@ tiers).
                                                        sub-partitions
   make_sharded_search, ShardedSearchConfig           — the sharded search
                                                        (one shard)
-  RangeOwnership                                     — cluster ownership map
+  RangeOwnership, HashRing                           — cluster ownership maps
   BlockSpec, LocalBlockStore, ResidentBlockStore     — cluster block stores
+  ShardedBlockStore, StoreStats, open_sharded        — the sharded ring
+  LoopbackTransport, SocketTransport,
+  BlockStoreServer, TransportError, TransportTimeout — its transports
+  CircuitBreaker, PeerHealth                         — peer health
+  FaultRule, FaultSchedule, FaultyBlockStore,
+  FaultyTransport                                    — fault injection
   ClusterCache, DiskIVFIndex                         — the disk tier
   GenerationMismatchError                            — checkpoint skew
 """
@@ -106,34 +112,55 @@ from repro_torch.core.delta import (
 )
 from repro_torch.core.blockstore import (
     BlockSpec,
+    BlockStoreServer,
+    HashRing,
     LocalBlockStore,
+    LoopbackTransport,
     RangeOwnership,
     ResidentBlockStore,
+    ShardedBlockStore,
+    SocketTransport,
+    StoreStats,
+    open_sharded,
 )
+from repro_torch.core.transport import TransportError, TransportTimeout
+from repro_torch.core.health import CircuitBreaker, PeerHealth
+from repro_torch.core.faults import (
+    FaultRule,
+    FaultSchedule,
+    FaultyBlockStore,
+    FaultyTransport,
+)
+from repro_torch.core import faults, health, transport
 from repro_torch.core.distributed import ShardedSearchConfig, make_sharded_search
 from repro_torch.core.disk import ClusterCache, DiskIVFIndex
 from repro_torch.core.storage import GenerationMismatchError
 
 __all__ = [
-    "ATTR_MAX", "ATTR_MIN", "BlockSpec", "BuildStats", "ClusterCache",
-    "ClusterSummaries", "DeltaOverflowError", "DeltaTier", "DiskIVFIndex",
-    "FilterBuilder", "FilterSpec", "FilterTrafficRecorder",
-    "GenerationMismatchError", "HybridSpec", "IVFFlatIndex",
-    "LocalBlockStore", "PartitionBuild", "PartitionCatalog",
-    "RangeOwnership", "RepublishStats",
-    "ResidentBlockStore", "SearchEngine", "SearchPlan", "SearchResult",
-    "ShardedSearchConfig", "TileWork", "add_vectors", "brute_force",
+    "ATTR_MAX", "ATTR_MIN", "BlockSpec", "BlockStoreServer", "BuildStats",
+    "CircuitBreaker", "ClusterCache", "ClusterSummaries",
+    "DeltaOverflowError", "DeltaTier", "DiskIVFIndex", "FaultRule",
+    "FaultSchedule", "FaultyBlockStore", "FaultyTransport", "FilterBuilder",
+    "FilterSpec", "FilterTrafficRecorder", "GenerationMismatchError",
+    "HashRing", "HybridSpec", "IVFFlatIndex", "LocalBlockStore",
+    "LoopbackTransport", "PartitionBuild", "PartitionCatalog", "PeerHealth",
+    "RangeOwnership", "RepublishStats", "ResidentBlockStore",
+    "SearchEngine", "SearchPlan", "SearchResult", "ShardedBlockStore",
+    "ShardedSearchConfig", "SocketTransport", "StoreStats", "TileWork",
+    "TransportError", "TransportTimeout", "add_vectors", "brute_force",
     "build_from_assignments", "build_ivf", "build_partitions",
     "build_summaries", "can_match", "centroid_scores", "choose_attrs",
     "compact_cluster", "compact_deltas", "compact_stale", "concat_hybrid",
     "dedup_rows", "default_n_clusters", "encode_categorical_attr",
-    "encode_numeric_attr", "expected_passing", "fetch_order",
-    "filter_mask", "from_builders", "index_from_arrays", "l2_normalize",
+    "encode_numeric_attr", "expected_passing", "faults", "fetch_order",
+    "filter_mask", "from_builders", "health", "index_from_arrays",
+    "l2_normalize",
     "make_hybrid", "make_sharded_search", "masked_topk", "match_all",
-    "merge_topk", "merge_topk_many", "partitions", "plan_probe_tiles",
+    "merge_topk", "merge_topk_many", "open_sharded", "partitions",
+    "plan_probe_tiles",
     "quantize_index",
     "recall_at_k", "resync_partitions", "scan_compile_count",
     "search_centroids", "search_fused_tiled", "search_reference",
-    "selectivity", "split_hybrid", "stale_counts", "tombstone",
+    "selectivity", "split_hybrid", "stale_counts", "tombstone", "transport",
     "u_cap_buckets", "validity_mask",
 ]

@@ -1,5 +1,4 @@
-"""Pluggable cluster-block fetch layer: the port of ``repro.core.blockstore``
-(the single-host stores).
+"""Pluggable cluster-block fetch layer: the port of ``repro.core.blockstore``.
 
     BlockStore protocol
         get(cluster_ids)  -> {cid: record}      synchronous fetch
@@ -10,25 +9,41 @@
     ResidentBlockStore   RAM tier: per-cluster copies of the resident
                          ``[K, Vpad, ...]`` arrays.
     LocalBlockStore      the disk tier: ShardReader + ClusterCache.
+    ShardedBlockStore    a consistent-hash ring (:class:`HashRing`) over N
+                         peer stores keyed on cluster id: each pod holds one
+                         index copy, the ring decides whose cache owns each
+                         cluster, fetch lists are split per owner and
+                         fetched concurrently, and remote blocks land in a
+                         small local L1.  Peers sit behind a transport
+                         (:mod:`~repro_torch.core.transport`: in-process
+                         loopback, or the deadline-bounded socket wire),
+                         per-peer circuit breakers
+                         (:mod:`~repro_torch.core.health`) route around a
+                         dead or slow peer, and a ``fallback`` store (the
+                         pod's own full copy) serves its clusters meanwhile.
 
 A record is a dict of CPU tensors (``vectors``, ``attrs``, ``ids``,
-``norms``?, ``scales``?, ``gen``).  :func:`assemble_blocks` packs records
-into the scan's batch-local blocks; with ``as_device`` on a CUDA device it
-assembles them in pinned host memory and copies them on a side stream, and
-:func:`wait_blocks` hands them to the consumer's stream.
+``norms``?, ``scales``?, ``gen``); no store or fetch thread touches the
+card.  :func:`assemble_blocks` packs records into the scan's batch-local
+blocks; with ``as_device`` on a CUDA device it assembles them in pinned
+host memory and copies them on a side stream, and :func:`wait_blocks`
+hands them to the consumer's stream.
 
 Every store returns the same per-cluster records, so any store composed
-with the engine yields the results of the RAM tier.  ``RangeOwnership`` is
-the sharded dispatch's ownership map; the consistent-hash ring, the sharded
-store and its transports are not ported yet (ROADMAP A.8).
+with the engine yields the results of the RAM tier: ring membership
+changes, peer failures and failover change only where blocks come from.
+``RangeOwnership`` is the sharded dispatch's ownership map.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -203,6 +218,60 @@ def dead_record(spec: BlockSpec) -> Record:
 # ---------------------------------------------------------------------------
 # Ownership: who serves a cluster
 # ---------------------------------------------------------------------------
+
+
+def _hash_point(key: str) -> int:
+    """Stable 64-bit ring point for a (node, replica) label."""
+    return int.from_bytes(
+        hashlib.blake2b(key.encode(), digest_size=8).digest(), "big")
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """Vectorized splitmix64 finalizer: cluster id -> ring position (the
+    uint64 products wrap on purpose)."""
+    with np.errstate(over="ignore"):
+        z = np.asarray(x).astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return z ^ (z >> np.uint64(31))
+
+
+class HashRing:
+    """Consistent-hash ring over node ids, keyed on cluster id.
+
+    Each node contributes ``replicas`` virtual points; a cluster is owned by
+    the first point clockwise from its hash.  Removing a node reassigns only
+    that node's clusters, so a rebalance moves data, never results.
+    """
+
+    def __init__(self, nodes: Sequence, replicas: int = 64):
+        nodes = tuple(nodes)
+        if not nodes:
+            raise ValueError("HashRing needs at least one node")
+        self.nodes = nodes
+        self.replicas = replicas
+        pts = []
+        for n in nodes:
+            for r in range(replicas):
+                pts.append((_hash_point(f"{n}#{r}"), n))
+        pts.sort(key=lambda p: p[0])
+        self._hashes = np.asarray([p[0] for p in pts], np.uint64)
+        self._owners = np.asarray([nodes.index(p[1]) for p in pts], np.int64)
+
+    def owner_of(self, cluster_ids) -> np.ndarray:
+        """Vectorized owner lookup: [n] cluster ids -> [n] node ids (an
+        object array where a node id is not an integer)."""
+        h = _mix64(np.asarray(cluster_ids, np.int64))
+        idx = np.searchsorted(self._hashes, h, side="right")
+        idx = idx % len(self._hashes)
+        if any(not isinstance(n, (int, np.integer)) for n in self.nodes):
+            return np.asarray(self.nodes, object)[self._owners[idx]]
+        return np.asarray(self.nodes, np.int64)[self._owners[idx]]
+
+    def without(self, node) -> "HashRing":
+        """A new ring with ``node`` removed (its clusters reassigned)."""
+        rest = tuple(n for n in self.nodes if n != node)
+        return HashRing(rest, replicas=self.replicas)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -420,3 +489,465 @@ class LocalBlockStore(_AsyncStoreMixin):
         self._shutdown_pool()
         self.cache.stop()
         self.reader.close()
+
+
+# ---------------------------------------------------------------------------
+# Transports live in repro_torch.core.transport; re-exported here, as the
+# reference's blockstore re-exports them
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.transport import (  # noqa: E402,F401  (re-export)
+    BlockStoreServer,
+    LoopbackTransport,
+    SocketTransport,
+    TransportError,
+    TransportTimeout,
+    _decode_records,
+    _encode_records,
+    _recv_frame,
+    _send_frame,
+)
+
+
+# ---------------------------------------------------------------------------
+# The sharded store
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StoreStats:
+    """Degradation accounting for a sharded store: how often the fetch path
+    routed around an unhealthy peer."""
+
+    failovers: int = 0          # peer sub-fetches that failed mid-request
+    #                             and were re-served by the fallback
+    redirected_blocks: int = 0  # blocks routed straight to the fallback
+    #                             because the owner's circuit was open
+    fallback_blocks: int = 0    # blocks the local full copy served
+    stale_answers: int = 0      # peer answers below the published minimum
+    #                             generation, re-served fresh
+    device_hits: int = 0        # blocks the engine's device cache served:
+    #                             fetches this store never saw
+    fetches_skipped: int = 0    # clusters dropped from the fetch list
+    #                             because every (query, probe) pair on them
+    #                             was already dead at a segment boundary
+
+
+class ShardedBlockStore(_AsyncStoreMixin):
+    """Consistent-hash sharded cluster fetch over N peer stores.
+
+    ``transports`` maps node id -> transport; ``ownership`` (default: a
+    :class:`HashRing` over the node ids) decides which peer serves each
+    cluster.  ``get`` splits the request per owner
+    (:func:`repro_torch.core.probes.split_fetch_by_owner`, first-need order
+    kept) and fetches the owners concurrently on a fan-out pool; fetched
+    blocks land in a small L1 LRU (gen-checked against the caller's minimum
+    generations), so repeat probes do not re-cross the ring.
+    ``self_node`` marks the co-located peer: its blocks skip the L1 and do
+    not count as remote.
+
+    Ring membership is mutable (:meth:`remove_node` / :meth:`add_node`);
+    only ownership moves.  With a ``fallback`` store (the pod's own full
+    copy), peer failures are absorbed: a per-peer circuit breaker
+    (``health``) watches every peer fetch, an open peer's clusters go to the
+    fallback (``redirected_blocks``; ``adopt_fallback`` lands them in the
+    L1), a sub-fetch that fails mid-request is re-served by it
+    (``failovers``), and a stale peer answer is re-served fresh
+    (``stale_answers``).  When a breaker's cooldown lapses, the next fetch
+    for that peer is the half-open probe; :meth:`probe_peers` (or the
+    ``probe_interval_s`` thread) pings open peers.  Without a fallback,
+    peer errors raise.  Records stay CPU tensors: no thread here makes a
+    CUDA call.
+    """
+
+    def __init__(self, transports: Dict[int, object], *,
+                 ownership=None, l1_records: int = 64,
+                 self_node: Optional[int] = None,
+                 owned_stores: Sequence = (), owned_servers: Sequence = (),
+                 fallback=None, owns_fallback: bool = False,
+                 adopt_fallback: bool = True, health=None,
+                 breaker_kwargs: Optional[dict] = None,
+                 probe_interval_s: Optional[float] = None):
+        from repro_torch.core.health import PeerHealth
+
+        if not transports:
+            raise ValueError("ShardedBlockStore needs at least one transport")
+        self.transports = dict(transports)
+        self.ownership = ownership or HashRing(sorted(self.transports))
+        self.self_node = self_node
+        self.l1_records = l1_records
+        self._l1: "collections.OrderedDict[int, Record]" = (
+            collections.OrderedDict())
+        self._l1_lock = threading.Lock()
+        self._fan = ThreadPoolExecutor(
+            max_workers=max(len(self.transports), 1),
+            thread_name_prefix="shard-fetch")
+        self._stats_lock = threading.Lock()
+        self.l1_hits = 0
+        self.l1_misses = 0
+        self.l1_invalidations = 0
+        self.remote_blocks = 0
+        self.node_blocks: Dict[int, int] = {n: 0 for n in self.transports}
+        # teardown ownership (stores and servers built by open_sharded)
+        self._owned_stores = list(owned_stores)
+        self._owned_servers = list(owned_servers)
+        self.fallback = fallback
+        self._owns_fallback = owns_fallback
+        self.adopt_fallback = adopt_fallback
+        self.health = health or PeerHealth(self.transports,
+                                           breaker_kwargs=breaker_kwargs)
+        self.store_stats = StoreStats()
+        self.probe_interval_s = probe_interval_s
+        self._probe_stop = threading.Event()
+        self._prober: Optional[threading.Thread] = None
+        if probe_interval_s:
+            self._prober = threading.Thread(
+                target=self._probe_loop, daemon=True,
+                name="shard-health-probe")
+            self._prober.start()
+
+    # ---- ring membership ----
+    def remove_node(self, node: int):
+        """Drops a peer from the ring; its clusters re-route to the
+        surviving peers (consistent hashing moves only those)."""
+        if len(self.transports) <= 1:
+            raise ValueError("cannot remove the last node")
+        if node not in self.transports:
+            raise KeyError(node)
+        if isinstance(self.ownership, HashRing):
+            self.ownership = self.ownership.without(node)
+        else:
+            raise ValueError(
+                "remove_node needs a HashRing ownership (static maps like "
+                "RangeOwnership have no rebalance story)")
+        t = self.transports.pop(node)
+        t.close()
+        self.health.drop(node)
+        if self.self_node == node:
+            self.self_node = None
+
+    def add_node(self, node: int, transport):
+        if node in self.transports:
+            raise KeyError(f"node {node} already present")
+        if not isinstance(self.ownership, HashRing):
+            raise ValueError("add_node needs a HashRing ownership")
+        self.transports[node] = transport
+        self.node_blocks.setdefault(node, 0)
+        self.ownership = HashRing(sorted(self.transports),
+                                  replicas=self.ownership.replicas)
+
+    # ---- fetch ----
+    def _l1_get(self, cids: np.ndarray,
+                exp: Optional[Dict[int, int]] = None
+                ) -> Tuple[Dict[int, Record], List[int]]:
+        found: Dict[int, Record] = {}
+        missing: List[int] = []
+        invalid = 0
+        with self._l1_lock:
+            for cid in cids:
+                cid = int(cid)
+                rec = self._l1.get(cid)
+                if rec is not None and exp is not None and \
+                        record_gen(rec) < exp.get(cid, 0):
+                    del self._l1[cid]  # superseded by a republish
+                    invalid += 1
+                    rec = None
+                if rec is None:
+                    missing.append(cid)
+                else:
+                    self._l1.move_to_end(cid)
+                    found[cid] = rec
+        with self._stats_lock:
+            self.l1_hits += len(found)
+            self.l1_misses += len(missing)
+            self.l1_invalidations += invalid
+        return found, missing
+
+    def _l1_put(self, recs: Dict[int, Record]):
+        with self._l1_lock:
+            for cid, rec in recs.items():
+                self._l1[cid] = rec
+                self._l1.move_to_end(cid)
+            while len(self._l1) > self.l1_records:
+                self._l1.popitem(last=False)
+
+    def get(self, cluster_ids, gens=None, alive=None) -> Dict[int, Record]:
+        """Fetches records through the ring.  ``alive`` (parallel bool)
+        drops clusters whose every (query, probe) pair is already dead
+        before the per-owner split (``fetches_skipped``): no peer RPC is
+        dispatched for them."""
+        from repro_torch.core import probes as probes_lib
+
+        cids = np.asarray(cluster_ids, np.int64).reshape(-1)
+        if len(cids) == 0:
+            return {}
+        if alive is not None:
+            keep = np.asarray(alive, bool).reshape(-1)
+            n_skip = int((~keep).sum())
+            if n_skip:
+                with self._stats_lock:
+                    self.store_stats.fetches_skipped += n_skip
+                cids = cids[keep]
+                if gens is not None:
+                    gens = np.asarray(gens).reshape(-1)[keep]
+                if len(cids) == 0:
+                    return {}
+        exp: Optional[Dict[int, int]] = None
+        if gens is not None:
+            exp = {int(c): int(g)
+                   for c, g in zip(cids, np.asarray(gens).reshape(-1))}
+        # self-owned clusters never enter the L1 (the co-located peer's own
+        # cache holds them), so they bypass the L1 probe, which would book
+        # a structural miss per lookup
+        if self.self_node is not None:
+            owners_all = np.asarray(self.ownership.owner_of(cids))
+            self_cids = cids[owners_all == self.self_node]
+            peer_cids = cids[owners_all != self.self_node]
+        else:
+            self_cids = cids[:0]
+            peer_cids = cids
+        out, missing = self._l1_get(peer_cids, exp)
+        missing = list(self_cids) + missing
+        if not missing:
+            return out
+        per_owner = probes_lib.split_fetch_by_owner(
+            np.asarray(missing, np.int64), self.ownership.owner_of)
+        futs = {}
+        fallback_cids: List[int] = []
+        for owner, sub in per_owner.items():
+            if (self.fallback is not None and owner != self.self_node
+                    and not self.health.allow(owner)):
+                # circuit open and cooldown not lapsed: the local full copy
+                # serves this peer's clusters (when the cooldown has
+                # lapsed, allow() grants the half-open token and this
+                # sub-fetch is the probe)
+                fallback_cids.extend(int(c) for c in sub)
+                with self._stats_lock:
+                    self.store_stats.redirected_blocks += len(sub)
+                continue
+            sub_gens = (None if exp is None else
+                        np.asarray([exp.get(int(c), 0) for c in sub],
+                                   np.int64))
+            futs[owner] = (sub, self._fan.submit(self._fetch_peer, owner,
+                                                 sub, sub_gens))
+        for owner, (sub, fut) in futs.items():
+            try:
+                recs = fut.result()
+            except Exception:
+                # _fetch_peer already fed the breaker; without a fallback
+                # the error surfaces, and the co-located peer failing is a
+                # local fault, not a ring event
+                if self.fallback is None or owner == self.self_node:
+                    raise
+                fallback_cids.extend(int(c) for c in sub)
+                with self._stats_lock:
+                    self.store_stats.failovers += 1
+                continue
+            if exp is not None and owner != self.self_node:
+                # a peer that has not adopted a republish answers with the
+                # superseded record: re-serve it through the fallback,
+                # never accept it, never L1 it
+                stale = [cid for cid, rec in recs.items()
+                         if record_gen(rec) < exp.get(cid, 0)]
+                if stale:
+                    with self._stats_lock:
+                        self.store_stats.stale_answers += len(stale)
+                    if self.fallback is None:
+                        from repro_torch.core import storage
+
+                        raise storage.GenerationMismatchError(
+                            f"peer {owner} served stale generations for "
+                            f"clusters {stale[:8]} and no fallback store "
+                            f"is configured")
+                    for cid in stale:
+                        recs.pop(cid)
+                    fallback_cids.extend(stale)
+            out.update(recs)
+            with self._stats_lock:
+                self.node_blocks[owner] = (self.node_blocks.get(owner, 0)
+                                           + len(recs))
+                if owner != self.self_node:
+                    self.remote_blocks += len(recs)
+            if owner != self.self_node:
+                self._l1_put(recs)
+        if fallback_cids:
+            fb = np.asarray(fallback_cids, np.int64)
+            if exp is None:
+                recs = self.fallback.get(fb)
+            else:
+                recs = self.fallback.get(fb, gens=np.asarray(
+                    [exp.get(int(c), 0) for c in fallback_cids], np.int64))
+            out.update(recs)
+            with self._stats_lock:
+                self.store_stats.fallback_blocks += len(recs)
+            if self.adopt_fallback:
+                self._l1_put(recs)
+        return out
+
+    def _fetch_peer(self, owner, sub, gens=None) -> Dict[int, Record]:
+        """One peer sub-fetch with passive health signals: its latency
+        feeds the breaker's EWMA, any exception is a failure vote."""
+        t0 = time.monotonic()
+        try:
+            if gens is None:
+                recs = self.transports[owner].fetch(sub)
+            else:
+                recs = self.transports[owner].fetch(sub, gens=gens)
+        except Exception:
+            if owner != self.self_node:
+                self.health.on_failure(owner)
+            raise
+        if owner != self.self_node:
+            self.health.on_success(owner, time.monotonic() - t0)
+        return recs
+
+    def refresh(self):
+        """Adopts a republished checkpoint ring-wide: reopens every owned
+        peer store and the fallback.  The L1 is not cleared: the next
+        gen-stamped fetch invalidates exactly the rewritten clusters
+        (``l1_invalidations``)."""
+        for st in self._owned_stores:
+            r = getattr(st, "refresh", None)
+            if r is not None:
+                r()
+        if self.fallback is not None:
+            r = getattr(self.fallback, "refresh", None)
+            if r is not None:
+                r()
+
+    def note_device_hits(self, n: int):
+        """Counts blocks a device-resident cache served instead of this
+        ring (:class:`~repro_torch.core.devicecache.DeviceBlockCache`)."""
+        with self._stats_lock:
+            self.store_stats.device_hits += n
+
+    # ---- health ----
+    @property
+    def degraded(self) -> bool:
+        """True while any peer's circuit is not closed (the engine counts
+        the batches served in this state)."""
+        return self.health.degraded
+
+    def probe_peers(self) -> int:
+        """One active-probe pass: pings every non-closed peer whose breaker
+        grants a token.  Returns how many probes succeeded."""
+        ok = 0
+        for node, t in list(self.transports.items()):
+            if node == self.self_node:
+                continue
+            ping = getattr(t, "ping", None)
+            if ping is None:
+                continue
+            ok += int(self.health.probe(node, ping))
+        return ok
+
+    def _probe_loop(self):
+        while not self._probe_stop.wait(self.probe_interval_s):
+            self.probe_peers()
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            per_node = {}
+            retries = deadline_misses = 0
+            for n, t in self.transports.items():
+                s = dict(t.stats() if hasattr(t, "stats") else {})
+                s["blocks_served"] = self.node_blocks.get(n, 0)
+                retries += s.get("retries", 0)
+                deadline_misses += s.get("timeouts", 0)
+                per_node[n] = s
+            return dict(
+                kind="sharded", nodes=sorted(self.transports),
+                self_node=self.self_node, l1_hits=self.l1_hits,
+                l1_misses=self.l1_misses, l1_records=len(self._l1),
+                l1_invalidations=self.l1_invalidations,
+                remote_blocks=self.remote_blocks, per_node=per_node,
+                health={n: s["state"]
+                        for n, s in self.health.snapshot().items()},
+                failovers=self.store_stats.failovers,
+                redirected_blocks=self.store_stats.redirected_blocks,
+                fallback_blocks=self.store_stats.fallback_blocks,
+                stale_answers=self.store_stats.stale_answers,
+                device_hits=self.store_stats.device_hits,
+                fetches_skipped=self.store_stats.fetches_skipped,
+                retries=retries, deadline_misses=deadline_misses,
+                has_fallback=self.fallback is not None)
+
+    def close(self):
+        self._probe_stop.set()
+        if self._prober is not None:
+            self._prober.join(timeout=5)
+        self._shutdown_pool()
+        self._fan.shutdown(wait=True)
+        for t in self.transports.values():
+            t.close()
+        for s in self._owned_servers:
+            s.close()
+        for st in self._owned_stores:
+            st.close()
+        if self._owns_fallback and self.fallback is not None:
+            self.fallback.close()
+
+
+def open_sharded(directory: str, *, n_nodes: int,
+                 transport: str = "loopback",
+                 capacity_records: Optional[int] = None,
+                 l1_records: int = 64, self_node: Optional[int] = 0,
+                 pin_fraction: float = 0.5, pin_refresh: int = 64,
+                 fallback="open", adopt_fallback: bool = True,
+                 timeout_s: float = 30.0, retries: int = 1,
+                 breaker_kwargs: Optional[dict] = None,
+                 probe_interval_s: Optional[float] = None,
+                 device="cuda") -> ShardedBlockStore:
+    """Opens an N-node sharded fetch layer over one checkpoint directory.
+
+    Every node opens its own reader and cache over the same checkpoint
+    (``capacity_records`` is the per-node cap); ``transport="socket"`` runs
+    each peer behind a :class:`BlockStoreServer` and talks to it over the
+    deadline-bounded wire (``timeout_s`` / ``retries``).  ``self_node``
+    applies to the loopback transport only: behind a socket every peer
+    costs a round trip, so its blocks belong in the L1.
+
+    ``fallback``: ``"open"`` (the default) opens one more view of the
+    checkpoint as the local full copy; a store instance is used as it is
+    (e.g. the pod's own ``DiskIVFIndex.blockstore``); None disables
+    failover (peer errors raise).  ``breaker_kwargs`` tune the per-peer
+    circuit breakers; ``probe_interval_s`` starts the active-probe thread.
+    ``device`` is the device the opened stores' own gathers copy to (the
+    ring's records stay on the host).  The returned store owns its nodes,
+    servers and an opened fallback: ``close()`` tears them down.
+    """
+    if transport not in ("loopback", "socket"):
+        raise ValueError(f"transport must be 'loopback'|'socket', got "
+                         f"{transport!r}")
+    if transport != "loopback":
+        self_node = None
+    stores = [
+        LocalBlockStore.open(directory, capacity_records=capacity_records,
+                             pin_fraction=pin_fraction,
+                             pin_refresh=pin_refresh, name=f"node{i}",
+                             device=device)
+        for i in range(n_nodes)
+    ]
+    servers: List[BlockStoreServer] = []
+    if transport == "loopback":
+        transports = {i: LoopbackTransport(s) for i, s in enumerate(stores)}
+    else:
+        servers = [BlockStoreServer(s) for s in stores]
+        transports = {
+            i: SocketTransport(srv.host, srv.port, timeout=timeout_s,
+                               retries=retries, spec=stores[i].spec)
+            for i, srv in enumerate(servers)
+        }
+    owns_fallback = isinstance(fallback, str) and fallback == "open"
+    if owns_fallback:
+        fallback = LocalBlockStore.open(
+            directory, capacity_records=capacity_records,
+            pin_fraction=pin_fraction, pin_refresh=pin_refresh,
+            name="fallback", device=device)
+    return ShardedBlockStore(
+        transports, ownership=HashRing(range(n_nodes)),
+        l1_records=l1_records, self_node=self_node,
+        owned_stores=stores, owned_servers=servers,
+        fallback=fallback, owns_fallback=owns_fallback,
+        adopt_fallback=adopt_fallback, breaker_kwargs=breaker_kwargs,
+        probe_interval_s=probe_interval_s)

@@ -14,7 +14,8 @@ The port of ``repro.core.engine``:
              tile's slots are reordered best-bound-first.
     fetch  — RAM tier: the resident ``[K, Vpad, ...]`` arrays (a no-op).
              Disk tier: the plan's fetch list pages through a
-             :mod:`~repro_torch.core.blockstore` store into batch-local
+             :mod:`~repro_torch.core.blockstore` store (a local cache, or a
+             ``ShardedBlockStore`` ring of peer caches) into batch-local
              blocks with slot-local cluster ids, assembled in pinned host
              memory and copied to the card on a side stream; a per-batch
              *operand cache* pulls each cluster through the store once per
@@ -24,7 +25,10 @@ The port of ``repro.core.engine``:
     scan   — the tiled filtered scan kernel over the slot tables; with
              ``termination``, per tile in slot segments, dropping the
              (query, slot) pairs whose score bound cannot reach the running
-             top-k (:meth:`SearchEngine._scan_tile_terminated`).
+             top-k (:meth:`SearchEngine._scan_tile_terminated`).  Over a
+             ``ShardedBlockStore`` without a device cache, the sync
+             terminated executor fetches each segment right before its scan,
+             so a cluster every query has dropped is never fetched.
     merge  — monoid top-k across each query's probes, the l2 constant
              fix-up and the scan accounting (:func:`_scan_merge_tiled`);
              then the delta fold: the RAM delta tier's exact scan merged in
@@ -41,9 +45,8 @@ Two executors share those stages and return the same results:
     ``result`` extend the overlap across batches.
 
 The reference's ``backend`` knob has no counterpart: the port picks the
-kernel by the tensors' device.  The terminated executor's segmented-fetch
-mode serves only a sharded block store, which is not ported yet (ROADMAP
-A.8).
+kernel by the tensors' device.  ``stats.degraded_batches`` counts batches
+served while the store routed around an unhealthy peer.
 """
 
 from __future__ import annotations
@@ -434,6 +437,9 @@ class EngineStats:
     # BlockStore fetch path accounting
     blocks_fetched: int = 0   # per-cluster blocks pulled through the store
     blocks_reused: int = 0    # slots served from the per-batch operand cache
+    # batches completed while the store reported a non-closed peer circuit
+    # (the fallback serves the same records, so results do not change)
+    degraded_batches: int = 0
     # batches whose result folded a non-empty delta segment
     delta_folds: int = 0
     # batches whose delta scan was skipped because the segment's summary
@@ -480,8 +486,9 @@ def _flatten_metrics(out: Dict[str, Any], prefix: str, obj: Any) -> None:
 # Prometheus counters; every other numeric metric is a gauge.
 _PROM_COUNTERS = frozenset((
     "batches", "pipelined_batches", "tiles_scanned", "scan_compilations",
-    "blocks_fetched", "blocks_reused", "hits", "misses", "puts",
-    "evictions", "invalidations", "prefetched", "errors", "stalled_waits",
+    "blocks_fetched", "blocks_reused", "degraded_batches", "hits",
+    "misses", "puts", "evictions", "invalidations", "prefetched", "errors",
+    "stalled_waits",
     "gets", "blocks", "scan_compile_count", "delta_folds", "delta_skips",
     "delta_interval_skips", "adds", "tombstoned", "commits", "tile_hits",
     "tile_puts", "probes_terminated", "term_segments_skipped",
@@ -1343,8 +1350,53 @@ class SearchEngine:
         self._observe_stage("scan", time.perf_counter() - t0)
         return res
 
+    def _fetch_segment(self, plan: SearchPlan, seg_sc: np.ndarray,
+                       alive_seg: np.ndarray, ops: Dict[int, dict]):
+        """Per-segment fetch of the sharded terminated executor.
+
+        The segment's clusters not in the batch-scoped ``ops`` cache are
+        fetched through the ring, minus those whose every (query, probe)
+        pair is already dead at the boundary (``alive=``: the store drops
+        them before the per-owner split and counts ``fetches_skipped``).
+        Those are scanned as 1-row all-dead :func:`~repro_torch.core.
+        blockstore.dead_record` stand-ins (every row masked, and the
+        batch's row height stays the tallest live record's) and are not
+        cached, so a later tile where they are alive fetches them.  Every
+        candidate a skipped cluster could hold is below the final kth, so
+        results stay exact.  Returns the segment's blocks, assembled in
+        pinned memory and copied to the card on a side stream."""
+        spec = self._bspec
+        uniq, local = blockstore_lib.first_need_unique(seg_sc)
+        slot_alive = alive_seg.any(axis=0)  # [seg]
+        cid_alive = np.zeros(len(uniq), bool)
+        np.logical_or.at(cid_alive, local, slot_alive)
+        need = np.asarray([j for j, c in enumerate(uniq) if int(c) not in ops],
+                          np.int64)
+        if need.size:
+            need_ids = uniq[need]
+            recs = self._store.get(
+                need_ids, gens=self._expected_gens(plan, need_ids),
+                alive=cid_alive[need])
+            self._count_fetched(plan, recs)
+            for c, r in recs.items():
+                ops[int(c)] = r
+        dead = None
+        view = {}
+        for c in uniq:
+            r = ops.get(int(c))
+            if r is None:  # skipped this segment: an all-dead stand-in
+                if dead is None:
+                    dead = blockstore_lib.dead_record(spec)
+                r = dead
+            view[int(c)] = r
+        return blockstore_lib.assemble_blocks(
+            seg_sc, uniq, local, view, spec, as_device=True,
+            device=self.device)
+
     def _scan_tile_terminated(self, plan: SearchPlan, i: int, operands,
-                              block_rows: int) -> SearchResult:
+                              block_rows: int,
+                              ops: Optional[Dict[int, dict]] = None
+                              ) -> SearchResult:
         """Bound-driven scan of one query tile: its slots in best-bound-first
         segments, the running top-k folded on the card after each, and at
         each boundary the remaining (query, slot) pairs dropped whose upper
@@ -1356,14 +1408,13 @@ class SearchEngine:
 
         ``operands`` are the tile's ``(slot rows, vectors, attrs, ids,
         norms, scales)``; ``block_rows`` is the row count the reference's
-        operand blocks have (the scan-signature count).  The reference's
-        segmented-fetch mode (``operands=None``) serves a sharded block
-        store, not ported yet (ROADMAP A.8).
+        operand blocks have (the scan-signature count).  ``operands=None``
+        runs the *segmented-fetch* mode (sharded ring): each scanned
+        segment's clusters are fetched right before its scan through
+        :meth:`_fetch_segment`, so boundary drops shrink the remote fetch
+        lists; ``ops`` is the batch-scoped record cache, and ``n_scanned``
+        counts only the rows actually fetched.
         """
-        if operands is None:
-            raise NotImplementedError(
-                "the segmented-fetch terminated executor serves a sharded "
-                "block store, not ported yet (ROADMAP A.8 sharded ring)")
         t_start = time.perf_counter()
         term = plan.term
         qb, cap, k = plan.q_block, plan.u_cap, self.k
@@ -1378,16 +1429,26 @@ class SearchEngine:
         pok = np.asarray(plan.probe_ok[rows])
         q_pad, lo_pad, hi_pad = (plan.queries_pad[rows], plan.lo_pad[rows],
                                  plan.hi_pad[rows])
-        slot_rows, vectors, attrs, ids, norms, scales = operands
-        ids = self._mask_tombstones(plan, ids)
-        sc = probes_lib._host(slot_rows).reshape(-1).astype(np.int32)
+        segmented = operands is None
+        if segmented:
+            sc = np.asarray(plan.slot_cluster).reshape(
+                plan.n_tiles, cap)[i].astype(np.int64)
+        else:
+            slot_rows, vectors, attrs, ids, norms, scales = operands
+            ids = self._mask_tombstones(plan, ids)
+            sc = probes_lib._host(slot_rows).reshape(-1).astype(np.int32)
         # pad to the segmented width by repeating the last slot (a pad
         # position holds no valid pair, so it is never scanned)
         if cap_pad > cap:
             sc = np.concatenate([sc, np.repeat(sc[-1:], cap_pad - cap)])
         u = int(np.asarray(plan.n_unique)[i])
-        sc_dev = torch.from_numpy(sc).to(dev)
-        live_per_slot = (ids >= 0).sum(-1)[sc_dev.long()]  # [cap_pad]
+        if segmented:
+            # filled per scanned segment from the rows actually fetched
+            live_per_slot = torch.zeros((cap_pad,), dtype=torch.int64,
+                                        device=dev)
+        else:
+            sc_dev = torch.from_numpy(sc).to(dev)
+            live_per_slot = (ids >= 0).sum(-1)[sc_dev.long()]  # [cap_pad]
         zeros_tile = torch.zeros((seg,), dtype=torch.int32, device=dev)
 
         alive = term.valid[i].copy()  # [qb, cap_pad]
@@ -1405,6 +1466,18 @@ class SearchEngine:
                 frags.append(None)
             else:
                 scanned[si] = True
+                if segmented:
+                    t_f = time.perf_counter()
+                    blocks = blockstore_lib.wait_blocks(self._fetch_segment(
+                        plan, sc[p0:p1], alive_seg, ops))
+                    seg_rows, vectors, attrs, ids, norms, scales = (
+                        self._dev(a) for a in blocks)
+                    self._observe_stage("fetch", time.perf_counter() - t_f)
+                    ids = self._mask_tombstones(plan, ids)
+                    live_per_slot[p0:p1] = (ids >= 0).sum(-1)[seg_rows.long()]
+                    scan_sc = seg_rows
+                else:
+                    scan_sc = sc_dev[p0:p1]
                 self._count_scan((
                     "term", self.backend, metric, k, qb, self.v_block, seg,
                     (block_rows,) + tuple(vectors.shape[1:]),
@@ -1414,7 +1487,7 @@ class SearchEngine:
                 n_live = torch.tensor([min(max(u - p0, 0), seg)],
                                       dtype=torch.int32, device=dev)
                 svals, sids, snpass = filtered_scan_tiled(
-                    sc_dev[p0:p1], zeros_tile, n_live, q_pad, lo_pad, hi_pad,
+                    scan_sc, zeros_tile, n_live, q_pad, lo_pad, hi_pad,
                     vectors, attrs, ids, norms, scales, metric=metric, k=k,
                     q_block=qb)
                 frags.append((svals, sids, snpass))
@@ -1477,7 +1550,11 @@ class SearchEngine:
     def _execute_terminated_sync(self, plan: SearchPlan) -> SearchResult:
         """Sync executor with termination: one whole-batch fetch, then per
         tile the segmented scan (its decisions need the tile's running
-        kth)."""
+        kth).  Over a sharded ring without a device cache, the segmented
+        fetch instead (:meth:`_execute_terminated_segmented`)."""
+        if (self._device_cache is None and isinstance(
+                self._store, blockstore_lib.ShardedBlockStore)):
+            return self._execute_terminated_segmented(plan)
         operands = self.fetch(plan)
         slot_rows = probes_lib._host(operands[0]).reshape(plan.n_tiles,
                                                           plan.u_cap)
@@ -1487,6 +1564,22 @@ class SearchEngine:
         for i in range(plan.n_tiles):
             parts.append(self._scan_tile_terminated(
                 plan, i, (slot_rows[i],) + tuple(operands[1:]), rows))
+            self.stats.tiles_scanned += 1
+        return self._merge_parts(plan, parts)
+
+    def _execute_terminated_segmented(self, plan: SearchPlan
+                                      ) -> SearchResult:
+        """Terminated executor over a sharded ring: a fetch per scanned
+        segment in place of one whole-batch gather, so a cluster every
+        query has dropped at a segment boundary is never dispatched to its
+        owner (``StoreStats.fetches_skipped``).  Scores and ids stay
+        exact; ``n_scanned`` counts only the rows actually fetched."""
+        ops: Dict[int, dict] = {}
+        parts: List[SearchResult] = []
+        for i in range(plan.n_tiles):
+            # a segment's blocks hold one row per slot in the reference
+            parts.append(self._scan_tile_terminated(
+                plan, i, None, plan.term.seg, ops=ops))
             self.stats.tiles_scanned += 1
         return self._merge_parts(plan, parts)
 
@@ -1514,7 +1607,17 @@ class SearchEngine:
         else:
             res = self._sync_batch(plan)
         self._note_partition_rows(plan, res)
-        return self._fold_delta(plan, res)
+        res = self._fold_delta(plan, res)
+        self._note_degraded()
+        return res
+
+    def _note_degraded(self):
+        """Counts batches served while the fetch store was routing around
+        an unhealthy peer (failover keeps results the same, so this counter
+        is its only visible trace)."""
+        if self._store is not None and getattr(self._store, "degraded",
+                                               False):
+            self.stats.degraded_batches += 1
 
     def submit(self, queries, fspec: FilterSpec) -> PendingSearch:
         """Starts a batch: plans it and (pipelined, with a fetch source)
@@ -1539,7 +1642,9 @@ class SearchEngine:
         else:
             res = self._sync_batch(plan)
         self._note_partition_rows(plan, res)
-        return self._fold_delta(plan, res)
+        res = self._fold_delta(plan, res)
+        self._note_degraded()
+        return res
 
     def _tile_operands(self, plan: SearchPlan, i: int):
         """RAM-tier per-tile operands: the resident arrays and the tile's

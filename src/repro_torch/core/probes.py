@@ -1,8 +1,9 @@
 """Probe planning: query tiling and per-batch probe deduplication — the
 port of ``repro.core.probes`` (the RAM tier's part, and the disk tier's
 host-side fetch lists: :func:`fetch_order`, :func:`tile_fetch_lists`,
-:func:`tile_release_lists`; and :func:`bound_order`, the bound-driven
-executor's best-bound-first slot permutation).
+:func:`tile_release_lists`, :func:`split_fetch_by_owner`; and
+:func:`bound_order`, the bound-driven executor's best-bound-first slot
+permutation).
 
 Queries are grouped into tiles of ``q_block`` rows; per tile, the Q·T probe
 ids are sorted and deduplicated into a table of ``u_cap`` unique-cluster
@@ -228,3 +229,24 @@ def bound_order(slot_cluster, n_unique, slot_of_probe, slot_bound,
     t_idx, s = np.divmod(_host(slot_of_probe).astype(np.int32), u_cap)
     sop = (t_idx * u_cap + inv[t_idx, s]).astype(np.int32)
     return sc.reshape(-1), sop, perm
+
+
+def split_fetch_by_owner(fetch, owner_of, alive=None):
+    """Splits a first-need fetch list per owning node (host-side).
+
+    ``fetch`` is any fetch-list unit (a whole-plan :func:`fetch_order`, or
+    one tile's :func:`tile_fetch_lists` entry); ``owner_of`` maps cluster
+    ids to node ids (a ``blockstore.HashRing`` / ``RangeOwnership``).  Each
+    owner's sublist keeps the input's first-need order, and the sublists
+    partition the input.  ``alive`` (parallel bool mask) drops entries
+    whose every (query, probe) pair is already dead before the split.
+
+    Returns ``{node_id: 1-D int64 array}`` for the owners that appear.
+    """
+    fetch = np.asarray(fetch, dtype=np.int64).reshape(-1)
+    if alive is not None:
+        fetch = fetch[np.asarray(alive, dtype=bool).reshape(-1)]
+    if fetch.size == 0:
+        return {}
+    owners = np.asarray(owner_of(fetch))
+    return {int(o): fetch[owners == o] for o in np.unique(owners)}

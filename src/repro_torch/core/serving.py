@@ -10,10 +10,11 @@ the port of ``repro.core.serving``.
     once;
   * a refresh asked for from any thread is taken strictly between batches
     (the hot/cold tier's no-drain generation flip);
-  * shard health is an EWMA-on-failure tracker with probation.
-
-The sharded fetch ring (``cache_shards > 1``: peer stores, transports,
-circuit breakers) is not ported yet (ROADMAP A.8).
+  * shard health is an EWMA-on-failure tracker with probation;
+  * with ``cache_shards > 1`` the disk tier fetches through a
+    ``ShardedBlockStore`` ring of peer caches (loopback or socket peers,
+    per-peer circuit breakers, the index's own store as the fallback), and
+    a response says whether its batch was served degraded.
 """
 
 from __future__ import annotations
@@ -42,6 +43,13 @@ def make_fused_search_fn(index, *, k: int, n_probes: int, q_block: int = 64,
                          operand_cache: str = "auto",
                          u_cap_ladder: str = "pow2",
                          cache_shards: int = 1,
+                         cache_transport: str = "loopback",
+                         cache_l1_records: int = 64,
+                         cache_fallback: bool = True,
+                         peer_timeout_s: float = 30.0,
+                         peer_retries: int = 1,
+                         breaker_kwargs: Optional[dict] = None,
+                         probe_interval_s: Optional[float] = None,
                          delta_budget_mb: Optional[float] = None,
                          delta_quantize: str = "auto",
                          device_cache_mb: Optional[float] = None,
@@ -68,8 +76,20 @@ def make_fused_search_fn(index, *, k: int, n_probes: int, q_block: int = 64,
     attaches a ``DeltaTier`` to a disk-tier index (layout >= 3) as
     ``search_fn.delta``; ``search_fn.refresh()`` adopts a republish between
     batches.  ``device_cache_mb`` attaches a ``DeviceBlockCache`` to a
-    disk-tier index as ``search_fn.device_cache``.  ``cache_shards > 1``
-    (the sharded ring) raises: ROADMAP A.8.
+    disk-tier index as ``search_fn.device_cache``.
+
+    ``cache_shards > 1`` builds a consistent-hash ``ShardedBlockStore``
+    over that many peer caches of the disk index's checkpoint, each holding
+    ``index.cache.capacity_records // cache_shards`` records, and routes
+    the engine's fetch stage through it (``search_fn.blockstore``; torn
+    down by ``search_fn.close()``).  ``cache_transport`` picks the peers'
+    transport (``"loopback"`` in process, ``"socket"`` the wire protocol
+    behind a local server per peer), ``cache_l1_records`` the ring's L1,
+    ``cache_fallback`` wires the index's own store in as the availability
+    floor, ``peer_timeout_s`` / ``peer_retries`` bound each socket fetch,
+    ``breaker_kwargs`` tune the per-peer circuit breakers and
+    ``probe_interval_s`` starts the active health probe.
+    ``search_fn.degraded()`` says whether a peer circuit is open.
     """
     from repro_torch.core import blockstore as blockstore_lib
     from repro_torch.core.disk import DiskIVFIndex
@@ -99,18 +119,25 @@ def make_fused_search_fn(index, *, k: int, n_probes: int, q_block: int = 64,
         delta = delta_lib.DeltaTier.for_index(index, delta_budget_mb,
                                               quantize=delta_quantize)
         index.delta = delta
+    store = None
     if cache_shards > 1:
         if not isinstance(index, DiskIVFIndex):
             raise ValueError(
                 "cache_shards > 1 needs a disk-tier index (a checkpoint "
                 "path or an open DiskIVFIndex) — the RAM tier has no fetch "
                 "stage to shard")
-        if owns_index:
-            index.close()
-        raise NotImplementedError(
-            f"cache_shards={cache_shards}: the sharded cluster cache (peer "
-            "stores, transports, health) is not ported yet (ROADMAP A.8 "
-            "sharded ring)")
+        # per-node capacity: N peers together hold what the index's own
+        # cache would; the index's own store (otherwise idle) is the
+        # availability floor, at no extra memory
+        cap = max(index.cache.capacity_records // cache_shards, 1)
+        store = blockstore_lib.open_sharded(
+            index.directory, n_nodes=cache_shards,
+            transport=cache_transport, capacity_records=cap,
+            l1_records=cache_l1_records,
+            fallback=index.blockstore if cache_fallback else None,
+            timeout_s=peer_timeout_s, retries=peer_retries,
+            breaker_kwargs=breaker_kwargs,
+            probe_interval_s=probe_interval_s, device=dev)
     device_cache = None
     if device_cache_mb is not None:
         from repro_torch.core.devicecache import DeviceBlockCache
@@ -129,9 +156,10 @@ def make_fused_search_fn(index, *, k: int, n_probes: int, q_block: int = 64,
         index, k=k, n_probes=n_probes, q_block=q_block, v_block=v_block,
         backend=backend, prune=prune, t_max=t_max, pipeline=pipeline,
         pipeline_depth=pipeline_depth, adaptive_u_cap=adaptive_u_cap,
-        operand_cache=operand_cache, u_cap_ladder=u_cap_ladder,
-        device_cache=device_cache, termination=termination, epsilon=epsilon,
-        partitions=partitions, device=dev)
+        blockstore=store, operand_cache=operand_cache,
+        u_cap_ladder=u_cap_ladder, device_cache=device_cache,
+        termination=termination, epsilon=epsilon, partitions=partitions,
+        device=dev)
 
     def search_fn(queries, fspec, shard_ok=None):
         del shard_ok  # single host
@@ -140,6 +168,8 @@ def make_fused_search_fn(index, *, k: int, n_probes: int, q_block: int = 64,
 
     def close():
         engine.close()
+        if store is not None:
+            store.close()
         # only tear down an index this factory opened (str path) — a
         # caller-provided DiskIVFIndex may back other search_fns
         if owns_index:

@@ -15,10 +15,13 @@ Two tiers:
         --tier disk --resident-budget-mb 64
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 4000
 
+``--tier disk --cache-shards N`` (N > 1) fetches through a sharded ring of
+N peer caches over the checkpoint (``--cache-transport loopback|socket``,
+``--cache-fallback``, ``--peer-timeout-s``, ``--peer-retries``,
+``--probe-interval-s``).
+
 It runs on the CUDA card unless ``--device cpu`` is given, and raises where
-CUDA is absent.  The sharded cluster cache (``--cache-shards`` > 1 and its
-transport, fallback, peer and probe flags) parses as in the reference and
-raises: ROADMAP A.8.
+CUDA is absent.
 """
 
 from __future__ import annotations
@@ -95,10 +98,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cluster gathers kept in flight ahead of the scan")
     ap.add_argument("--cache-shards", type=int, default=1,
                     help="disk tier: shard the cluster cache over this many "
-                         "peer stores (not ported: > 1 raises, ROADMAP A.8)")
+                         "peer stores (consistent-hash ring; 1 = local "
+                         "cache only)")
     ap.add_argument("--cache-transport", choices=("loopback", "socket"),
                     default="loopback",
-                    help="sharded-cache peer transport (parsed; not ported, ROADMAP A.8)")
+                    help="sharded-cache peer transport: in-process, or "
+                         "the length-prefixed socket protocol behind a "
+                         "local server per peer")
     ap.add_argument("--operand-cache", choices=("auto", "on", "off"),
                     default="auto",
                     help="per-batch operand reuse: fetch each cluster "
@@ -111,16 +117,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "midpoints")
     ap.add_argument("--cache-fallback", choices=("on", "off"), default="on",
                     help="sharded cache: serve an unhealthy peer's "
-                         "clusters from the local copy (parsed; not ported, ROADMAP A.8)")
+                         "clusters from the local copy (results unchanged; "
+                         "off = peer errors fail the batch)")
     ap.add_argument("--peer-timeout-s", type=float, default=30.0,
                     help="sharded cache, socket transport: per-request "
-                         "deadline (parsed; not ported, ROADMAP A.8)")
+                         "deadline")
     ap.add_argument("--peer-retries", type=int, default=1,
                     help="sharded cache, socket transport: reconnect "
-                         "retries per fetch (parsed; not ported, ROADMAP A.8)")
+                         "retries per fetch")
     ap.add_argument("--probe-interval-s", type=float, default=None,
                     help="sharded cache: active health-probe period "
-                         "(parsed; not ported, ROADMAP A.8)")
+                         "(seconds; default: passive detection only)")
     ap.add_argument("--delta-budget-mb", type=float, default=None,
                     help="disk tier, layout-v3 checkpoint: attach a delta "
                          "tier of this many MiB and run a live "
@@ -303,6 +310,11 @@ def main(argv=None) -> dict:
         pipeline_depth=args.pipeline_depth,
         operand_cache=args.operand_cache, u_cap_ladder=args.u_cap_ladder,
         cache_shards=args.cache_shards,
+        cache_transport=args.cache_transport,
+        cache_fallback=args.cache_fallback == "on",
+        peer_timeout_s=args.peer_timeout_s,
+        peer_retries=args.peer_retries,
+        probe_interval_s=args.probe_interval_s,
         delta_budget_mb=args.delta_budget_mb,
         delta_quantize=args.delta_quantize,
         device_cache_mb=args.device_cache_mb,
@@ -317,6 +329,12 @@ def main(argv=None) -> dict:
         out["metrics_url"] = (f"http://127.0.0.1:"
                               f"{metrics_httpd.server_address[1]}/metrics")
         print(f"metrics: {out['metrics_url']}")
+
+    if search_fn.blockstore is not None and args.cache_shards > 1:
+        bs = search_fn.blockstore
+        print(f"sharded cluster cache: {args.cache_shards} nodes "
+              f"({args.cache_transport} transport), ring "
+              f"{bs.ownership.__class__.__name__}")
 
     server = SearchServer(
         search_fn, batch_size=args.batch, dim=serving_index.spec.dim,

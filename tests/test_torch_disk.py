@@ -384,9 +384,8 @@ def test_fetch_lists_match_reference(u_cap):
             np.testing.assert_array_equal(w, g, err_msg=fn)
 
 
-# Reference metrics of features the port does not have yet (the sharded
-# store's degraded-peer count, ROADMAP A.8).
-UNPORTED_METRICS = {"engine.degraded_batches"}
+# Reference metrics of features the port does not have yet: none.
+UNPORTED_METRICS: set = set()
 
 
 def test_metrics_key_set_matches_reference(built):

@@ -354,12 +354,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 # Public names of repro.core the port does not have yet, by ROADMAP item.
 UNPORTED_CORE = {
-    # A.8 sharded ring
-    "faults", "health", "transport", "BlockStoreServer", "CircuitBreaker",
-    "FaultRule", "FaultSchedule", "FaultyBlockStore", "FaultyTransport",
-    "HashRing", "LoopbackTransport", "PeerHealth", "ShardedBlockStore",
-    "SocketTransport", "StoreStats", "TransportError", "TransportTimeout",
-    "open_sharded",
     # A.9 multi-device
     "topk_tree_merge",
 }

@@ -1,6 +1,7 @@
 """CUDA-only tests of the port: each hand-written kernel against its plain
-version, and the engine, the sharded search, ``search_fused`` and the disk
-tier on the card against the same entry points on the CPU.
+version, and the engine, the sharded search, ``search_fused``, the disk
+tier and the sharded ring on the card against the same entry points on the
+CPU.
 
 They need a card and skip without one; this file imports no JAX, so it
 also runs where only PyTorch is installed:
@@ -951,6 +952,141 @@ def test_routed_and_terminated_on_card(cuda, tmp_path, variant, pipeline):
         _assert_topk_close((card[name].scores, card[name].ids),
                            (cr.scores, cr.ids), ties_by_id=False)
         assert torch.equal(cr.n_scanned, card[name].n_scanned.cpu()), name
+
+
+# ---- the sharded ring on the card ----
+
+
+@pytest.mark.parametrize("transport", ["loopback", "socket"])
+@pytest.mark.parametrize("pipeline", ["off", "on"])
+@pytest.mark.parametrize("variant", ["dot-bf16", "l2-f32", "sq8"])
+def test_ring_on_card_matches_cpu(cuda, tmp_path, variant, pipeline,
+                                  transport):
+    """A 3-node ring (host records, fetched by peer threads, assembled in
+    pinned memory and copied by the engine) feeding the engine on the card:
+    the card's local-store run bit for bit, the CPU's plain path by the
+    near-tie rule, and the ring's counters equal to the CPU ring's."""
+    tstorage.save_index(_index(variant, "cpu"), str(tmp_path), n_shards=2)
+    qs, fspec = _window_batch(37, 4, width=800)
+    kw = dict(k=10, n_probes=4, q_block=16, pipeline=pipeline)
+    out, stats = {}, {}
+    for side, dev in (("cpu", "cpu"), ("card", cuda)):
+        ring = tbs.open_sharded(str(tmp_path), n_nodes=3, transport=transport,
+                                timeout_s=5.0, device=dev)
+        try:
+            with tdisk.DiskIVFIndex.open(str(tmp_path), device=dev) as d:
+                out[side] = d.search(qs.to(dev), fspec.to(dev),
+                                     blockstore=ring, **kw)
+                if side == "card":
+                    local = d.search(qs.to(dev), fspec.to(dev), **kw)
+            stats[side] = ring.stats()
+        finally:
+            ring.close()
+    for f in ("ids", "scores", "n_scanned", "n_passed"):
+        assert torch.equal(getattr(out["card"], f), getattr(local, f)), f
+    cr, gr = out["cpu"], out["card"]
+    _assert_topk_close((gr.scores, gr.ids), (cr.scores, cr.ids),
+                       ties_by_id=False)
+    for c in ("n_scanned", "n_passed"):
+        assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
+    for key in ("l1_hits", "l1_misses", "remote_blocks", "fallback_blocks"):
+        assert stats["card"][key] == stats["cpu"][key], key
+    assert stats["card"]["remote_blocks"] > 0
+
+
+def _twin_index(dev):
+    """Near-duplicate cluster pairs, near-orthogonal pairs between them,
+    attr0 a topic-owned time band and attr1 the topic id (the termination
+    tests' fixture): bound-driven drops fire, and a later segment's
+    clusters can be dead before they are fetched."""
+    rng = np.random.default_rng(5)
+    kc, n, d, m, ts_range = 16, 1536, 32, 6, 6000
+    base = rng.standard_normal((kc // 2, d)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=-1, keepdims=True)
+    step = rng.standard_normal((kc // 2, d)).astype(np.float32)
+    step /= np.linalg.norm(step, axis=-1, keepdims=True)
+    centers = np.empty((kc, d), np.float32)
+    centers[0::2] = base
+    twin = base + 0.25 * step
+    centers[1::2] = twin / np.linalg.norm(twin, axis=-1, keepdims=True)
+    topic = (np.arange(n) * kc) // n
+    core = centers[topic] + 0.05 * rng.standard_normal((n, d)).astype(
+        np.float32)
+    core /= np.linalg.norm(core, axis=-1, keepdims=True)
+    band_of = rng.permutation(kc)
+    band = ts_range // kc
+    tstamp = band_of[topic] * band + rng.integers(0, band, n)
+    cat = topic.copy()
+    bin_ts = (np.arange(kc) * (ts_range - 1)) // (kc - 1)
+    for t in range(kc):
+        rows = np.where(topic == t)[0]
+        tstamp[rows[:kc]] = bin_ts
+        cat[rows[kc:3 * kc]] = np.repeat(np.arange(kc), 2)
+    attrs = rng.integers(0, 16, (n, m)).astype(np.int16)
+    attrs[:, 0] = tstamp.astype(np.int16)
+    attrs[:, 1] = cat.astype(np.int16)
+    spec = thy.HybridSpec(dim=d, n_attrs=m, core_dtype=torch.float32)
+    index, _ = tivf.build_from_assignments(spec, centers, core, attrs,
+                                           topic.astype(np.int32), device=dev)
+    # 8 tight queries on three hot topics, a thin window in the topic's band
+    qrng = np.random.default_rng(1)
+    w = int(0.03 * ts_range)
+    pairs = qrng.permutation(kc // 2)[:3]
+    hot = 2 * pairs + qrng.integers(0, 2, 3)
+    topics = hot[qrng.integers(0, 3, 8)]
+    qs = (centers[topics] + 0.01 * qrng.standard_normal((8, d))).astype(
+        np.float32)
+    lo = np.full((8, 1, m), -32768, np.int16)
+    hi = np.full((8, 1, m), 32767, np.int16)
+    start = band_of[topics] * band + qrng.integers(0, max(band - w, 1), 8)
+    lo[:, 0, 0], hi[:, 0, 0] = start, start + w - 1
+    lo[:, 0, 1] = hi[:, 0, 1] = topics
+    fspec = tf.FilterSpec(lo=torch.from_numpy(lo), hi=torch.from_numpy(hi))
+    return index, torch.from_numpy(qs), fspec
+
+
+def test_segmented_terminated_on_card(cuda, tmp_path):
+    """The segmented-fetch terminated executor on the card: each scanned
+    segment's blocks (1-row dead records beside full clusters) fetched
+    through the ring and scanned by the tiled kernel, equal to the
+    untruncated ring batch bit for bit, with skipped fetches; against the
+    CPU's segmented run by the near-tie rule, counters exact."""
+    index, qs, fspec = _twin_index("cpu")
+    tstorage.save_index(index, str(tmp_path), n_shards=2)
+    kw = dict(k=10, n_probes=6, q_block=8, prune="on", pipeline="off")
+    out, skipped = {}, {}
+    for side, dev in (("cpu", "cpu"), ("card", cuda)):
+        ring = tbs.open_sharded(str(tmp_path), n_nodes=3, device=dev)
+        try:
+            with tdisk.DiskIVFIndex.open(str(tmp_path), device=dev) as d:
+                base = teng.SearchEngine(d, blockstore=ring, device=dev, **kw)
+                r0 = base.search(qs.to(dev), fspec.to(dev))
+                before = (ring.stats()["fetches_skipped"], tfs.LAUNCHES)
+                term = teng.SearchEngine(d, blockstore=ring, device=dev,
+                                         termination="exact", **kw)
+                plan = term.plan(qs.to(dev), fspec.to(dev))
+                r1 = term.execute(plan)
+                skipped[side] = ring.stats()["fetches_skipped"] - before[0]
+                if side == "card":  # one launch per scanned segment
+                    assert tfs.LAUNCHES - before[1] == (
+                        plan.n_tiles * plan.term.n_seg
+                        - term.stats.term_segments_skipped) > 0
+                for f in ("ids", "scores"):
+                    assert torch.equal(getattr(r0, f), getattr(r1, f)), f
+                assert (r1.n_scanned <= r0.n_scanned).all()
+                assert term.stats.probes_terminated > 0
+                out[side] = (r1, term.stats.probes_terminated)
+                base.close()
+                term.close()
+        finally:
+            ring.close()
+    assert skipped["card"] > 0 and skipped["card"] == skipped["cpu"]
+    (cr, cdrop), (gr, gdrop) = out["cpu"], out["card"]
+    assert gdrop == cdrop
+    _assert_topk_close((gr.scores, gr.ids), (cr.scores, cr.ids),
+                       ties_by_id=False)
+    for c in ("n_scanned", "n_passed"):
+        assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
 
 
 # ---- the index build and the serving entry point on the card ----

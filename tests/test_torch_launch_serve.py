@@ -7,8 +7,9 @@ sub-partitions and the metrics endpoint, and returns what it served.  On a
 checkpoint written by the JAX package's ``save_index``, its responses for
 the launcher's own queries are held against the reference's
 ``SearchServer`` over the reference's ``make_fused_search_fn`` on the same
-checkpoint: ids exact, scores rtol 1e-5.  Without ``--device cpu`` and
-without CUDA it raises; a sharded cache raises naming ROADMAP A.8.
+checkpoint: ids exact, scores rtol 1e-5.  With ``--cache-shards`` the disk
+tier fetches through the sharded ring and answers as a single store does.
+Without ``--device cpu`` and without CUDA it raises.
 """
 
 import urllib.request
@@ -143,11 +144,35 @@ def test_needs_cuda_without_device_cpu(monkeypatch):
         serve.main(["--n", "500", "--dim", "8", "--clusters", "2"])
 
 
-def test_cache_shards_raises_naming_a8(reference_ckpt):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        serve.main(["--device", "cpu", "--load", reference_ckpt, "--tier",
-                    "disk", "--cache-shards", "2", "--cache-transport",
-                    "socket", "--cache-fallback", "off",
-                    "--probe-interval-s", "1"])
+RING_FLAGS = {  # transport: launcher flags
+    "loopback": ["--cache-transport", "loopback"],
+    "socket": ["--cache-transport", "socket", "--peer-timeout-s", "5",
+               "--cache-fallback", "off", "--probe-interval-s", "1"],
+}
+
+
+@pytest.mark.parametrize("transport", sorted(RING_FLAGS))
+def test_cache_shards_serves_single_store_results(reference_ckpt, transport,
+                                                  capsys):
+    """``--tier disk --cache-shards 2`` fetches through the sharded ring,
+    prints the reference's ring line, and answers every request as the
+    single-store run does."""
+    base = ["--device", "cpu", "--load", reference_ckpt, "--tier", "disk",
+            "--requests", "40", "--batch", "16", "--k", "5", "--probes", "3"]
+    single = serve.main(base)
+    capsys.readouterr()
+    out = serve.main(base + ["--cache-shards", "2"] + RING_FLAGS[transport])
+    text = _check(out, capsys, requests=40)
+    assert (f"sharded cluster cache: 2 nodes ({transport} transport), ring "
+            "HashRing") in text
+    np.testing.assert_array_equal(out["queries"], single["queries"])
+    for got, want in zip(out["responses"], single["responses"]):
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.scores, want.scores)
+        assert not got.degraded
+    assert out["metrics"]["store.kind"] == "sharded"
+    assert out["metrics"]["store.remote_blocks"] > 0
+    assert out["metrics"]["store.has_fallback"] == (transport == "loopback")
+    assert out["metrics"]["engine.degraded_batches"] == 0
     with pytest.raises(SystemExit):
         serve.main(SMALL + ["--cache-shards", "2"])  # needs --tier disk

@@ -597,7 +597,7 @@ def test_partition_metrics_match_reference(built):
             if key.startswith(("partitions.", "filter_traffic.",
                                "engine.partition", "engine.flat_rows")):
                 assert got[key] == want[key], key
-        assert set(got) == set(want) - {"engine.degraded_batches"}
+        assert set(got) == set(want)
         text = te.metrics_text()
         assert "# TYPE repro_engine_partition_hits counter" in text
         assert "repro_partitions_subs" in text

@@ -8,8 +8,9 @@ tier): ids exact, scores rtol 1e-5, the engines' deterministic counters
 exact, through pruning, widening, the delta tier, the device cache,
 termination and sub-partition routing.  The server's cases are the
 reference's (shard health, the drain deadline, the end-to-end loop) plus
-the padding of tail batches and the refresh between batches.  The
-sharded ring (``cache_shards > 1``) raises naming ROADMAP A.8.
+the padding of tail batches and the refresh between batches.  Over the
+sharded ring (``cache_shards > 1``) the function serves the reference's
+results; the ring's own cases are in ``test_torch_sharded.py``.
 """
 
 import queue
@@ -107,7 +108,7 @@ def _call(jfn, tfn, qs, lo, hi):
 
 def _same_counters(jfn, tfn):
     want, got = jfn.metrics(), tfn.metrics()
-    assert set(got) == set(want) - {"engine.degraded_batches"}
+    assert set(got) == set(want)
     for key in COUNTERS:
         assert (key in want) == (key in got), key
         if key in want:
@@ -255,11 +256,18 @@ def test_fn_checks_in_reference_order(built):
             tsrv.make_fused_search_fn(disk, delta_budget_mb=1.0, **kw)
     with pytest.raises(ValueError, match="cache_shards"):
         tsrv.make_fused_search_fn(ram, cache_shards=2, **kw)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tsrv.make_fused_search_fn(ckpt, cache_shards=2, **kw)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tsrv.make_fused_search_fn(ckpt, cache_shards=2,
-                                  termination="exact", **kw)
+    # over a checkpoint the sharded ring serves the reference's results
+    for extra in ({}, dict(termination="exact")):
+        tfn = tsrv.make_fused_search_fn(ckpt, cache_shards=2, **extra, **kw)
+        jfn = jsrv.make_fused_search_fn(ckpt, k=K, n_probes=NP,
+                                        cache_shards=2, **extra)
+        try:
+            _call(jfn, tfn, *_batch(16, "window"))
+            _same_counters(jfn, tfn)
+            assert tfn.blockstore.stats()["kind"] == "sharded"
+        finally:
+            tfn.close()
+            jfn.close()
     with pytest.raises(ValueError, match="device_cache_mb"):
         tsrv.make_fused_search_fn(ram, device_cache_mb=8, **kw)
     with pytest.raises(NotImplementedError, match="backend"):

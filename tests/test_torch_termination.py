@@ -545,5 +545,5 @@ def test_termination_knobs_and_metrics(built):
     want, got = je.metrics(), te.metrics()
     for key in ("engine.probes_terminated", "engine.term_segments_skipped"):
         assert got[key] == want[key] > -1, key
-    assert set(got) == set(want) - {"engine.degraded_batches"}
+    assert set(got) == set(want)
     assert "# TYPE repro_engine_probes_terminated counter" in te.metrics_text()
