@@ -96,6 +96,22 @@ Phases:
      Inside 3d, a loopback ring opened before ``compact_deltas`` serves
      one hot batch before and after ``refresh``, each equal to the
      rebuild, the second with L1 invalidations and no stale answer;
+  3h. (run between 3g and 3d, on 3c's checkpoint) the multi-shard search:
+     6 spawned ranks as a (data=2, model=3) ``torch.distributed`` mesh on
+     the one card (gloo), each holding its K/6 clusters of the checkpoint
+     (``storage.load_index_shard``, only its record range read), the
+     sharded search through both backends on 1 warm-up + 2 batches of each
+     mix, each batch's plan, scan and tree merge timed on every rank;
+     every batch at ``p_cap_slack = 6`` (nothing can overflow) equal on
+     every rank to the one-shard search (phase 3b's) on the same batch,
+     the default slack's overflow logged and its answers held to the
+     reference's invariants; rank 3 dropped through ``shard_ok`` (no id of
+     its clusters, every id passing its filter, no more live results); a
+     ``SearchServer`` on rank 0 driving the others (``lead`` / ``follow``)
+     on the uniform batches, the last with one shard failed in
+     ``ShardHealth`` (served degraded); one ``compressed_psum_tree`` over
+     the 6 ranks against the mean computed in the parent.  The ranks'
+     kernel launches are summed into the kernels line;
   4. each kernel on one full-size batch: held against its plain version,
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
      for centroid_topk); filtered_scan_tiled on both of its full-size
@@ -2722,6 +2738,401 @@ def print_phase_3g(fig):
         + f"; after the phase {fig['mem_end']:.2f} GiB")
 
 
+# ---- phase 3h: the multi-shard search over torch.distributed ----
+
+SHARD_MESH = ((2, 3), ("data", "model"))  # 6 ranks on the card, gloo
+N_RANKS = 6
+RANK_WARMUP, RANK_BATCHES = 1, 2  # per (backend, slack, mix) in 3h
+RANK_TIMEOUT_S = 300  # every collective's limit: a hung rank fails the run
+STRAGGLER = 3  # the rank whose shard_ok is false
+FAILED_SHARD = 1  # the shard marked failed in the server's ShardHealth
+COMPRESS_SHAPES = {"emb": (1024, DIM), "proj": (DIM, DIM), "bias": (DIM,)}
+
+
+def grads_of(rank, dev):
+    """Rank ``rank``'s gradient tree for the compression check, from a
+    seed: ~5.5 MB of f32."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 + rank)
+    return {k: torch.randn(s, generator=gen, device=dev)
+            for k, s in COMPRESS_SHAPES.items()}
+
+
+def shard_rank(rank, work, ckpt, device):
+    """One rank of phase 3h (spawned): its shard of 3c's checkpoint read
+    from its record range, the sharded search over the (data=2, model=3)
+    mesh on every batch of ``work/inputs.npz`` (both backends, at slack S
+    and at the default), the straggler drop, the server (rank 0 leads, the
+    others follow) and the compressed all-reduce.  Writes its results and
+    launch counts to ``work/rank{rank}.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import FilterSpec, storage
+    from repro_torch.core import distributed as dist_lib
+    from repro_torch.core.serving import SearchServer
+    from repro_torch.distributed import compressed_psum_tree
+    from repro_torch.kernels.centroid_topk import centroid_topk as ct_mod
+    from repro_torch.kernels.filtered_scan import filtered_scan as fs_mod
+    from repro_torch.launch import mesh as mesh_lib
+
+    work = Path(work)
+    dev = torch.device(device)
+    backend = mesh_lib.init_process_group(
+        rank, N_RANKS, init_method=f"file://{work / 'store'}", device=dev,
+        timeout_s=RANK_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = mesh_lib.make_mesh(*SHARD_MESH, device_type=dev.type)
+        t0 = time.perf_counter()
+        shard = storage.load_index_shard(str(ckpt), rank, N_RANKS,
+                                         target_shards=N_RANKS, device=dev)
+        torch.cuda.synchronize()
+        out = dict(backend=backend, coordinate=list(mesh.get_coordinate()),
+                   load_s=time.perf_counter() - t0,
+                   shard_gib=shard.nbytes() / 2**30,
+                   k_local=shard.vectors.shape[0])
+        dist.barrier()
+        out["mem_loaded"] = host_available() / 2**30
+        inputs = dict(np.load(work / "inputs.npz"))  # read once, not per key
+        mixes = [str(m) for m in inputs["mixes"]]
+
+        def batch(mix, i):
+            lo = torch.from_numpy(inputs[f"{mix}/lo"][i]).to(dev)
+            hi = torch.from_numpy(inputs[f"{mix}/hi"][i]).to(dev)
+            return (torch.from_numpy(inputs[f"{mix}/queries"][i]).to(dev),
+                    FilterSpec(lo=lo, hi=hi))
+
+        def search(backend_, slack):
+            return dist_lib.make_sharded_search(
+                "dot", q_total=Q, n_clusters=shard.n_clusters, mesh=mesh,
+                device=dev,
+                cfg=dist_lib.ShardedSearchConfig(
+                    k=K_TOP, n_probes=N_PROBES, scan_q_block=64,
+                    backend=backend_, prune="auto", p_cap_slack=slack))
+
+        ct_mod.LAUNCHES = fs_mod.LAUNCHES = fs_mod.PER_PROBE_LAUNCHES = 0
+        searches = {}
+        for backend_ in ("pallas_tiled", "pallas"):
+            for slack_name, slack in (("gate", float(N_RANKS)),
+                                      ("default", 2.0)):
+                fn, info = searches[backend_, slack_name] = search(backend_,
+                                                                   slack)
+                out[backend_, slack_name, "p_cap"] = info["p_cap"]
+                for mix in mixes:
+                    for i in range(len(inputs[f"{mix}/queries"])):
+                        queries, fspec = batch(mix, i)
+                        dist.barrier()
+                        torch.cuda.synchronize()
+                        t = [time.perf_counter()]
+                        plan = fn.plan(shard, queries, fspec)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                        vals, ids = fn.scan(shard, plan)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                        res = fn.merge(plan, vals, ids)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                        live = (plan.u_count if backend_ == "pallas_tiled"
+                                else plan.slot_valid.sum())
+                        out[backend_, slack_name, mix, i] = dict(
+                            ids=res.ids.cpu(), scores=res.scores.cpu(),
+                            overflow=int(res.n_scanned[0]),
+                            live_slots=int(plan.slot_valid.sum()),
+                            scan_slots=int(live),
+                            ms=[(b - a) * 1e3 for a, b in zip(t, t[1:])]
+                            + [(t[-1] - t[0]) * 1e3])
+        # the straggler: shard STRAGGLER dropped from every mix's last batch
+        ok = torch.ones((N_RANKS,), dtype=torch.bool, device=dev)
+        ok[STRAGGLER] = False
+        for backend_ in ("pallas_tiled", "pallas"):
+            fn, _ = searches[backend_, "gate"]
+            for mix in mixes:
+                res = fn(shard, *batch(mix, -1), ok)
+                out[backend_, "straggler", mix] = dict(
+                    ids=res.ids.cpu(), scores=res.scores.cpu())
+        # the server: rank 0 serves the uniform batches as requests
+        fn, _ = searches["pallas_tiled", "gate"]
+        if rank == 0:
+            lead = dist_lib.lead(fn, shard)
+            server = SearchServer(lead, batch_size=Q, dim=DIM,
+                                  n_attrs=M_ATTRS, n_terms=1,
+                                  n_shards=N_RANKS, max_wait_s=SERVE_WAIT_S,
+                                  device=dev)
+            server.start()
+            try:
+                served = []
+                for i in range(len(inputs["uniform/queries"])):
+                    if i == len(inputs["uniform/queries"]) - 1:
+                        for _ in range(4):
+                            server.health.report(FAILED_SHARD, failed=True)
+                    futs = [server.submit(inputs["uniform/queries"][i][j],
+                                          (inputs["uniform/lo"][i][j],
+                                           inputs["uniform/hi"][i][j]))
+                            for j in range(Q)]
+                    resp = [f.get(timeout=RANK_TIMEOUT_S) for f in futs]
+                    served.append(dict(
+                        ids=torch.from_numpy(np.stack([r.ids for r in resp])),
+                        scores=torch.from_numpy(np.stack(
+                            [r.scores for r in resp])),
+                        degraded=[bool(r.degraded) for r in resp]))
+            finally:
+                server.stop()
+                lead.stop()
+            out["served"] = served
+            out["server_stats"] = dict(server.stats)
+            out["ok_mask"] = server.health.ok_mask().tolist()
+        else:
+            out["followed"] = dist_lib.follow(fn, shard)
+        out["launches"] = {"centroid_topk": ct_mod.LAUNCHES,
+                           "filtered_scan_tiled": fs_mod.LAUNCHES,
+                           "filtered_scan": fs_mod.PER_PROBE_LAUNCHES}
+        # one compressed all-reduce over the 6 ranks
+        grads = grads_of(rank, dev)
+        err = {k: torch.zeros_like(v) for k, v in grads.items()}
+        compressed_psum_tree(grads, err, dist.group.WORLD, N_RANKS)  # warm
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, new_err = compressed_psum_tree(grads, err, dist.group.WORLD,
+                                             N_RANKS)
+        torch.cuda.synchronize()
+        out["compress_ms"] = (time.perf_counter() - t0) * 1e3
+        out["compress_mean"] = {k: v.cpu() for k, v in mean.items()}
+        torch.save(out, work / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def ids_pass_filter(index, ids, fspec):
+    """[Q, k] bool: each live id's attribute row passes its query's filter
+    (pads count as passing)."""
+    import torch
+
+    from repro_torch.core import filter_mask
+
+    flat = index.ids.reshape(-1)
+    live = flat >= 0
+    pos = torch.full((int(flat.max()) + 1,), -1, dtype=torch.long,
+                     device=flat.device)
+    pos[flat[live].long()] = torch.nonzero(live).squeeze(1)
+    ids = ids.to(flat.device).long()
+    rows = pos[ids.clamp(min=0)]
+    attrs = index.attrs.reshape(-1, index.attrs.shape[-1])[rows.clamp(min=0)]
+    ok = filter_mask(fspec, attrs) & (rows >= 0)
+    return ok | (ids < 0)
+
+
+def shard_phase(d_index, ckpt, batches, dev):
+    """Phase 3h: N_RANKS spawned ranks as a (data=2, model=3) mesh on the
+    card (gloo), each holding its K/S clusters of 3c's checkpoint, read from
+    its record range.  Every batch of both backends at p_cap_slack = S is
+    held against the one-shard sharded search (phase 3b's) on the same
+    batch; the default slack's overflow is logged and its results held to
+    the reference's invariants; the straggler, the server and the
+    compressed all-reduce are checked.  Returns the figures and the ranks'
+    summed launches."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.distributed import (
+        ShardedSearchConfig, make_sharded_search)
+    from repro_torch.distributed import compressed_psum_tree
+
+    t_phase = time.perf_counter()
+    fig = dict(mem_before=trim_host_memory())
+    n_run = RANK_WARMUP + RANK_BATCHES
+    mixes = list(batches)
+    work = ROOT / "build" / "shard_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    arrays = {"mixes": np.array(mixes)}
+    for mix in mixes:
+        blist = batches[mix][:n_run]
+        arrays[f"{mix}/queries"] = np.stack([q.cpu().numpy() for q, _ in blist])
+        arrays[f"{mix}/lo"] = np.stack([f.lo.cpu().numpy() for _, f in blist])
+        arrays[f"{mix}/hi"] = np.stack([f.hi.cpu().numpy() for _, f in blist])
+    np.savez(work / "inputs.npz", **arrays)
+    # phase 3b's one-shard search on the same batches: what every batch
+    # at slack S must equal
+    wants = {}
+    for backend in ("pallas_tiled", "pallas"):
+        fn, _ = make_sharded_search(
+            "dot", q_total=Q, n_clusters=d_index.n_clusters, device=dev,
+            cfg=ShardedSearchConfig(k=K_TOP, n_probes=N_PROBES,
+                                    scan_q_block=64, backend=backend,
+                                    prune="auto"))
+        for mix in mixes:
+            for i, (queries, fspec) in enumerate(batches[mix][:n_run]):
+                res = fn(d_index, queries, fspec)
+                wants[backend, mix, i] = (res.scores.cpu(), res.ids.cpu())
+    torch.cuda.synchronize()
+    log(f"shard phase: {N_RANKS} ranks as a {SHARD_MESH[0]} {SHARD_MESH[1]} "
+        f"mesh over {ckpt}; host MemAvailable {fig['mem_before']:.2f} GiB "
+        "before the ranks load (heap trimmed)")
+    t0 = time.perf_counter()
+    mp.start_processes(shard_rank, args=(str(work), str(ckpt), str(dev)),
+                       nprocs=N_RANKS, start_method="spawn")  # re-raises
+    fig["ranks_s"] = time.perf_counter() - t0
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(N_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    fig["mem_loaded"] = ranks[0]["mem_loaded"]
+    fig["ranks"] = [{k: r[k] for k in ("backend", "coordinate", "load_s",
+                                       "shard_gib", "k_local")}
+                    for r in ranks]
+    fig["p_cap"] = {(b, s): ranks[0][b, s, "p_cap"]
+                    for b in ("pallas_tiled", "pallas")
+                    for s in ("gate", "default")}
+    r0 = ranks[0]
+    for backend in ("pallas_tiled", "pallas"):
+        for mix in mixes:
+            for i in range(n_run):
+                name = f"shard {backend} {mix} batch {i}"
+                gate = r0[backend, "gate", mix, i]
+                for r in ranks[1:]:  # every rank ends with the answer
+                    if not torch.equal(r[backend, "gate", mix, i]["ids"],
+                                       gate["ids"]):
+                        raise AssertionError(f"{name}: ranks disagree")
+                if gate["overflow"]:
+                    raise AssertionError(f"{name}: overflow at slack S")
+                wv, wi = wants[backend, mix, i]
+                err = check_topk(f"{name} vs one shard", gate["scores"],
+                                 gate["ids"], wv, wi)
+                fig[backend, mix, i] = dict(
+                    err=err, ms=[r[backend, "gate", mix, i]["ms"]
+                                 for r in ranks],
+                    live=[r[backend, "gate", mix, i]["live_slots"]
+                          for r in ranks],
+                    scan=[r[backend, "gate", mix, i]["scan_slots"]
+                          for r in ranks])
+                d = r0[backend, "default", mix, i]
+                fig[backend, mix, i]["overflow"] = d["overflow"]
+                fig[backend, mix, i]["default_ms"] = [
+                    r[backend, "default", mix, i]["ms"] for r in ranks]
+                # the default slack: a counted degradation, never a better
+                # or a different answer where nothing overflowed
+                if d["overflow"] == 0:
+                    check_topk(f"{name} default slack", d["scores"], d["ids"],
+                               gate["scores"], gate["ids"])
+                elif bool((d["scores"] > gate["scores"]
+                           + 1e-6 * gate["scores"].abs()).any()):
+                    raise AssertionError(f"{name} default slack: a score "
+                                         "above the full search's")
+        for mix in mixes:
+            queries, fspec = batches[mix][n_run - 1]
+            strag = r0[backend, "straggler", mix]
+            full = r0[backend, "gate", mix, n_run - 1]
+            kl = ranks[0]["k_local"]
+            gone = d_index.ids[STRAGGLER * kl:(STRAGGLER + 1) * kl]
+            got = strag["ids"].to(dev)
+            if bool(torch.isin(got[got >= 0], gone[gone >= 0]).any()):
+                raise AssertionError(f"straggler {backend} {mix}: an id of "
+                                     "the dropped shard")
+            if not bool(ids_pass_filter(d_index, got, fspec).all()):
+                raise AssertionError(f"straggler {backend} {mix}: an id "
+                                     "fails its filter")
+            if int((strag["ids"] >= 0).sum()) > int((full["ids"] >= 0).sum()):
+                raise AssertionError(f"straggler {backend} {mix}: more live "
+                                     "results than the full batch")
+            fig[backend, "straggler", mix] = int(
+                (strag["ids"] != full["ids"]).any(-1).sum())
+    # the server: every response equal to the search's (each query's
+    # answer is its own at slack S, however the server batches it); the
+    # last requests served with FAILED_SHARD dropped
+    served = r0["served"]
+    for i, s in enumerate(served[:-1]):
+        gate = r0["pallas_tiled", "gate", "uniform", i]
+        if not torch.equal(s["ids"], gate["ids"]) or any(s["degraded"]):
+            raise AssertionError(f"server batch {i}: differs from the search")
+    if not all(served[-1]["degraded"]):
+        raise AssertionError("server: the failed shard's batch is not "
+                             "degraded")
+    kl = ranks[0]["k_local"]
+    gone = d_index.ids[FAILED_SHARD * kl:(FAILED_SHARD + 1) * kl]
+    got = served[-1]["ids"].to(dev)
+    if bool(torch.isin(got[got >= 0], gone[gone >= 0]).any()):
+        raise AssertionError("server: an id of the failed shard")
+    n_batches = r0["server_stats"]["batches"]
+    if [r["followed"] for r in ranks[1:]] != [n_batches] * (N_RANKS - 1):
+        raise AssertionError(f"server: {n_batches} batches served, followed "
+                             f"{[r['followed'] for r in ranks[1:]]}")
+    fig["server"] = dict(r0["server_stats"], ok_mask=r0["ok_mask"])
+    # the compressed all-reduce against the mean computed here
+    outs = [compressed_psum_tree(grads_of(r, dev),
+                                 {k: torch.zeros(s, device=dev)
+                                  for k, s in COMPRESS_SHAPES.items()},
+                                 None, 1)[0] for r in range(N_RANKS)]
+    c_err = 0.0
+    for k in COMPRESS_SHAPES:
+        want = torch.stack([o[k] for o in outs]).sum(0) / N_RANKS
+        got = r0["compress_mean"][k].to(dev)
+        c_err = max(c_err, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=1e-6, atol=1e-7):
+            raise AssertionError(f"compressed_psum_tree {k}: off by {c_err}")
+    fig["compress"] = dict(
+        ms=[r["compress_ms"] for r in ranks], err=c_err,
+        mb=sum(np.prod(s) for s in COMPRESS_SHAPES.values()) * 4 / 1e6)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    for k in ("centroid_topk", "filtered_scan_tiled", "filtered_scan"):
+        if not all(r["launches"][k] for r in ranks):
+            raise AssertionError(f"shard phase: a rank never launched {k}")
+    fig["launches"] = launches
+    fig["secs"] = time.perf_counter() - t_phase
+    fig["mem_end"] = trim_host_memory()
+    return fig, launches
+
+
+def print_phase_3h(fig):
+    """Phase 3h's figures: per batch, rank 0's plan / scan / merge ms and
+    the slowest rank's batch, each rank's live slots, the overflow at the
+    default slack."""
+    for r, info in enumerate(fig["ranks"]):
+        log(f"shard rank {r}: {info['backend']} at {info['coordinate']}, "
+            f"{info['k_local']} clusters, {info['shard_gib']:.2f} GiB loaded "
+            f"in {info['load_s']:.2f} s")
+    log(f"shard phase: host MemAvailable {fig['mem_before']:.2f} GiB before "
+        f"the ranks load, {fig['mem_loaded']:.2f} GiB with every shard "
+        f"loaded, {fig['mem_end']:.2f} GiB after (trimmed); p_cap "
+        + ", ".join(f"{b} {s} {v}" for (b, s), v in fig["p_cap"].items()))
+    for key, row in fig.items():
+        if not (isinstance(key, tuple) and len(key) == 3
+                and isinstance(key[2], int)):
+            continue
+        backend, mix, i = key
+        p, s, m, b = row["ms"][0]
+        worst = max(x[3] for x in row["ms"])
+        dworst = max(x[3] for x in row["default_ms"])
+        log(f"shard {backend} {mix} batch {i}{' (warm-up)' if i < RANK_WARMUP else ''}: "
+            f"rank 0 plan {p:.3f} ms, scan {s:.3f} ms, tree merge {m:.3f} "
+            f"ms, batch {b:.3f} ms; slowest rank's batch {worst:.3f} ms; "
+            f"live slots by rank {row['live']}, scanned slots {row['scan']}; "
+            f"at the default slack: overflow {row['overflow']}, slowest "
+            f"batch {dworst:.3f} ms; max |err| vs one shard {row['err']:.3e}")
+    for key, n in fig.items():
+        if isinstance(key, tuple) and key[1] == "straggler":
+            log(f"shard straggler {key[0]} {key[2]} (rank {STRAGGLER} "
+                f"dropped): {n} of {Q} queries changed, none with an id of "
+                "its clusters, every id passes its filter")
+    srv = fig["server"]
+    log(f"shard server (rank 0 leads, {N_RANKS - 1} follow): "
+        f"{srv['batches']} batches, {srv['requests']} requests, degraded "
+        f"batches {srv['degraded_batches']} (shard {FAILED_SHARD} failed in "
+        f"ShardHealth, ok mask {srv['ok_mask']}), latency "
+        f"{srv['total_latency_s'] / srv['batches'] * 1e3:.3f} ms a batch")
+    c = fig["compress"]
+    log(f"shard compressed_psum_tree over {N_RANKS} ranks, {c['mb']:.2f} MB "
+        f"f32: {max(c['ms']):.3f} ms (slowest rank), max |err| vs the mean "
+        f"{c['err']:.3e}")
+    log(f"shard phase {fig['secs']:.2f} s (ranks {fig['ranks_s']:.2f} s); "
+        f"launches {fig['launches']}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3055,6 +3466,19 @@ def main(argv=None):
         f"{time.perf_counter() - t_all:.2f} s since start; "
         f"filtered_scan_tiled launches by part {ring_launches}")
 
+    # ---- phase 3h: the multi-shard search (before 3d republishes the
+    # checkpoint) ----
+    t0 = time.perf_counter()
+    try:
+        shard_fig, shard_launches = shard_phase(d_index, ckpt, d_batches, dev)
+    except BaseException:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        raise
+    print_phase_3h(shard_fig)
+    log(f"phase 3h (multi-shard search) {time.perf_counter() - t0:.2f} s; "
+        f"{time.perf_counter() - t_all:.2f} s since start; launches "
+        f"{shard_launches}")
+
     # ---- phase 3d: live updates on the disk tier ----
     t0 = time.perf_counter()
     try:
@@ -3119,6 +3543,8 @@ def main(argv=None):
                   + disk_launches["filtered_scan_tiled"]
                   + e_launches["filtered_scan_tiled"]
                   + f_launches
+                  + sum(ring_launches.values())
+                  + shard_launches["filtered_scan_tiled"]
                   + live_launches["filtered_scan_tiled"]),
         max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms,
@@ -3206,7 +3632,8 @@ def main(argv=None):
         name="centroid_topk", route="cuda",
         source="src/repro_torch/kernels/centroid_topk/csrc/centroid_topk.cu",
         replaces="src/repro/kernels/centroid_topk/centroid_topk.py:82",
-        launches=sharded_launches["centroid_topk"], max_abs_err=ct_err,
+        launches=(sharded_launches["centroid_topk"]
+                  + shard_launches["centroid_topk"]), max_abs_err=ct_err,
         ms=ct_ms, plain_ms=ct_plain, bound_ms=max(ct_byte_ms, ct_op_ms),
         bound_by="bytes" if ct_byte_ms >= ct_op_ms else "operations",
         library_ms=ct_lib,
@@ -3252,7 +3679,8 @@ def main(argv=None):
         name="filtered_scan", route="cuda",
         source="src/repro_torch/kernels/filtered_scan/csrc/filtered_scan.cu",
         replaces="src/repro/kernels/filtered_scan/filtered_scan.py:160",
-        launches=sharded_launches["filtered_scan"],
+        launches=(sharded_launches["filtered_scan"]
+                  + shard_launches["filtered_scan"]),
         max_abs_err=uni["max_abs_err"], ms=uni["ms"], plain_ms=uni["plain_ms"],
         bound_ms=uni["bound_ms"], bound_by=uni["bound_by"], library_ms=None,
         mixes=fs_mixes,

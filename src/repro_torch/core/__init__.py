@@ -14,7 +14,9 @@ tiers).
   SearchEngine, search_fused_tiled, SearchPlan,
   TileWork, u_cap_buckets, scan_compile_count        — the fused tiled path
   plan_probe_tiles, dedup_rows, fetch_order          — probe planning
-  masked_topk, merge_topk, merge_topk_many           — top-k monoid
+  masked_topk, merge_topk, merge_topk_many,
+  merge_topk_axis, topk_tree_merge                   — top-k monoid and
+                                                       its merge tree
   add_vectors, tombstone, stale_counts,
   compact_stale, compact_cluster                     — online updates
   DeltaTier, compact_deltas, RepublishStats          — live hot/cold serving
@@ -22,7 +24,7 @@ tiers).
   choose_attrs, FilterTrafficRecorder                — filter-specialized
                                                        sub-partitions
   make_sharded_search, ShardedSearchConfig           — the sharded search
-                                                       (one shard)
+                                                       over a mesh
   RangeOwnership, HashRing                           — cluster ownership maps
   BlockSpec, LocalBlockStore, ResidentBlockStore     — cluster block stores
   ShardedBlockStore, StoreStats, open_sharded        — the sharded ring
@@ -87,7 +89,13 @@ from repro_torch.core.engine import (
     u_cap_buckets,
 )
 from repro_torch.core.probes import dedup_rows, fetch_order, plan_probe_tiles
-from repro_torch.core.topk import masked_topk, merge_topk, merge_topk_many
+from repro_torch.core.topk import (
+    masked_topk,
+    merge_topk,
+    merge_topk_axis,
+    merge_topk_many,
+    topk_tree_merge,
+)
 from repro_torch.core import partitions
 from repro_torch.core.partitions import (
     FilterTrafficRecorder,
@@ -156,11 +164,13 @@ __all__ = [
     "filter_mask", "from_builders", "health", "index_from_arrays",
     "l2_normalize",
     "make_hybrid", "make_sharded_search", "masked_topk", "match_all",
-    "merge_topk", "merge_topk_many", "open_sharded", "partitions",
+    "merge_topk", "merge_topk_axis", "merge_topk_many", "open_sharded",
+    "partitions",
     "plan_probe_tiles",
     "quantize_index",
     "recall_at_k", "resync_partitions", "scan_compile_count",
     "search_centroids", "search_fused_tiled", "search_reference",
-    "selectivity", "split_hybrid", "stale_counts", "tombstone", "transport",
+    "selectivity", "split_hybrid", "stale_counts", "tombstone",
+    "topk_tree_merge", "transport",
     "u_cap_buckets", "validity_mask",
 ]

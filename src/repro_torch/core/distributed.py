@@ -1,30 +1,44 @@
-"""Sharded filtered search: probe dispatch and each shard's scan + merge —
-the port of ``repro.core.distributed``, run on one shard.
+"""Sharded filtered search: probe dispatch, each shard's scan + merge and
+the tree merge over a mesh — the port of ``repro.core.distributed``.
 
 Sharding model (the reference's): the index's cluster axis is range-sharded
 over S shards, shard ``s`` owning clusters ``[s·K/S, (s+1)·K/S)``; queries,
-centroids and filters are replicated.  A probe (q, t) is owned by exactly
-one shard.  Dispatch sorts the probes by owner, ranks them within their
-owner and scatters them into a static ``[S, P_cap]`` slot table; probes
+centroids, summaries and filters are replicated.  A probe (q, t) is owned by
+exactly one shard.  Dispatch sorts the probes by owner, ranks them within
+their owner and scatters them into a static ``[S, P_cap]`` slot table; probes
 past ``P_cap`` are counted, not silently lost (``SearchResult.n_scanned``
 carries the count).  Each shard scans its slots — per probe (``backend=
 "pallas"``), or deduplicated per (query tile, cluster) with a streaming
 top-k (``"pallas_tiled"``) — and folds them into a per-query top-k; the
 shards' answers are then merged.
 
-The dispatch functions are pure and take any ``n_shards``.
-:func:`make_sharded_search` builds the one-shard search: with S = 1 the
-merge over shards is one ``masked_topk`` over the shard's own k entries and
-needs no collective.  More shards need ``torch.distributed`` and are not
-ported yet (ROADMAP A.9).
+A shard is one rank of a ``torch.distributed`` process group laid out as a
+:class:`~torch.distributed.device_mesh.DeviceMesh`
+(:mod:`repro_torch.launch.mesh`).  The search is SPMD: every rank calls it
+with the same replicated inputs and its own ``[K/S, Vpad, D]`` slice of the
+index (:func:`local_shard`, or ``storage.load_index_shard`` from a
+checkpoint); every rank computes the same slot table and takes its own row;
+the per-rank top-k is tree-merged by all-gathers of ``[Q, k]`` over the mesh
+axes in reverse (``model → data → pod``), so every rank ends with the
+answer.  Without a mesh the search is the one-shard case: the merge is one
+``masked_topk`` over the shard's own k entries and needs no process group.
+
+Straggler mitigation: the merge is a monoid, so ``shard_ok`` drops a
+shard's contribution and the result stays a valid, lower-recall answer.
+:func:`lead` and :func:`follow` drive the ranks from one controller, the
+counterpart of JAX's single-controller call: rank 0 broadcasts each batch
+(with its ``shard_ok``) to the other ranks, which wait in a follow loop, so
+a ``SearchServer`` on rank 0 serves the sharded search.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import probes as probes_lib
 from repro_torch.core import summaries as summaries_lib
@@ -256,17 +270,22 @@ class ShardedPlan:
 
 
 class ShardedSearch:
-    """The one-shard search: ``search(index, queries, fspec, shard_ok=None)
-    -> SearchResult``, or its two stages :meth:`plan` (probe centroids,
-    prune, dispatch) and :meth:`execute` (scan, merge).
+    """One rank's sharded search: ``search(index, queries, fspec,
+    shard_ok=None) -> SearchResult``, or its stages :meth:`plan` (probe
+    centroids, prune, dispatch), :meth:`scan` (this shard's slots → its
+    per-query top-k) and :meth:`merge` (the tree merge over the mesh);
+    :meth:`execute` is scan + merge.
 
-    Like the reference, ``n_scanned`` carries the dispatch's overflow count
-    for every query and ``n_passed`` is zeros.
+    ``index`` is this rank's shard (its ``k_local`` clusters, replicated
+    centroids and summaries).  Like the reference, ``n_scanned`` carries the
+    dispatch's overflow count (over every shard) for every query and
+    ``n_passed`` is zeros.
     """
 
     def __init__(self, metric: str, cfg: ShardedSearchConfig, *, p_cap: int,
                  k_local: int, scan_q_block: int, u_cap: int,
-                 device: torch.device):
+                 device: torch.device, n_shards: int = 1, shard_id: int = 0,
+                 groups: tuple = ()):
         self.metric = metric
         self.cfg = cfg
         self.p_cap = p_cap
@@ -274,7 +293,9 @@ class ShardedSearch:
         self.scan_q_block = scan_q_block
         self.u_cap = u_cap
         self.device = device
-        self.n_shards = 1
+        self.n_shards = n_shards
+        self.shard_id = shard_id
+        self.groups = groups  # merge order: model → data → pod
 
     def plan(self, index: IVFFlatIndex, queries: torch.Tensor,
              fspec: FilterSpec, shard_ok: Optional[torch.Tensor] = None
@@ -284,6 +305,11 @@ class ShardedSearch:
         if dev.type != self.device.type:
             raise ValueError(f"index lives on {dev}, search built for "
                              f"{self.device}")
+        if index.vectors.shape[0] != self.k_local:
+            raise ValueError(
+                f"index holds {index.vectors.shape[0]} clusters, shard "
+                f"{self.shard_id} of {self.n_shards} owns {self.k_local}: "
+                "pass the rank's shard (local_shard / load_index_shard)")
         if shard_ok is None:
             shard_ok = torch.ones((self.n_shards,), dtype=torch.bool, device=dev)
         # §4.4 step 2: probe centroids (replicated)
@@ -296,13 +322,15 @@ class ShardedSearch:
             cm = summaries_lib.can_match(summ, fspec.lo, fspec.hi)  # [Q, K]
             probe_valid = torch.gather(cm, 1, probe_ids.long())
         qb = self.scan_q_block
+        sid = self.shard_id
         kw = dict(n_shards=self.n_shards, k_local=self.k_local,
                   p_cap=self.p_cap, probe_valid=probe_valid)
+        # dispatch: replicated compute, each rank takes its own row
         if cfg.backend == "pallas_tiled":
             sc, sq, sv, n_drop, uc, ut, uslot, ucount = dispatch_probes_tiled(
                 probe_ids, u_cap=self.u_cap, q_block=qb, **kw)
-            tiled = dict(u_cluster=uc[0], u_tile=ut[0], slot_of=uslot[0],
-                         u_count=ucount[0])
+            tiled = dict(u_cluster=uc[sid], u_tile=ut[sid],
+                         slot_of=uslot[sid], u_count=ucount[sid])
             queries_in = probes_lib.pad_to_tiles(queries, qb).contiguous()
             lo_in = probes_lib.pad_to_tiles(fspec.lo, qb).contiguous()
             hi_in = probes_lib.pad_to_tiles(fspec.hi, qb).contiguous()
@@ -313,29 +341,43 @@ class ShardedSearch:
             lo_in, hi_in = fspec.lo.contiguous(), fspec.hi.contiguous()
         return ShardedPlan(
             q=queries.shape[0], queries=queries, queries_in=queries_in,
-            lo_in=lo_in, hi_in=hi_in, slot_cluster=sc[0], slot_query=sq[0],
-            slot_valid=sv[0] & shard_ok[0], n_overflowed=n_drop, **tiled)
+            lo_in=lo_in, hi_in=hi_in, slot_cluster=sc[sid],
+            slot_query=sq[sid], slot_valid=sv[sid] & shard_ok[sid],
+            n_overflowed=n_drop, **tiled)
 
-    def execute(self, index: IVFFlatIndex, plan: ShardedPlan) -> SearchResult:
-        cfg = self.cfg
-        l2 = self.metric == "l2"
-        vals, out_ids = _local_shard_search(
+    def scan(self, index: IVFFlatIndex, plan: ShardedPlan):
+        """This shard's per-query top-k ``(vals, ids)`` over its slots,
+        ``[Q_in, k]`` (``Q_in``: the tiled scan's padded rows)."""
+        return _local_shard_search(
             index.vectors, index.attrs, index.ids,
-            index.norms if l2 else None,
+            index.norms if self.metric == "l2" else None,
             index.scales,  # None unless SQ8
             plan.queries_in, plan.lo_in, plan.hi_in, plan.slot_cluster,
             plan.slot_query, plan.slot_valid, plan.u_cluster, plan.u_tile,
-            plan.slot_of, plan.u_count, metric=self.metric, k=cfg.k,
-            t=cfg.n_probes, q_block=self.scan_q_block, backend=cfg.backend)
-        # the tree merge over shards: one shard's k entries
-        vals, out_ids = topk_lib.masked_topk(vals, None, cfg.k, ids=out_ids)
+            plan.slot_of, plan.u_count, metric=self.metric, k=self.cfg.k,
+            t=self.cfg.n_probes, q_block=self.scan_q_block,
+            backend=self.cfg.backend)
+
+    def merge(self, plan: ShardedPlan, vals: torch.Tensor,
+              out_ids: torch.Tensor) -> SearchResult:
+        """The tree merge over the mesh (every rank gets the answer); with
+        one shard and no mesh, one ``masked_topk`` over its k entries."""
+        k = self.cfg.k
+        if self.groups:
+            vals, out_ids = topk_lib.topk_tree_merge(vals, out_ids, k,
+                                                     self.groups)
+        else:
+            vals, out_ids = topk_lib.masked_topk(vals, None, k, ids=out_ids)
         q = plan.q
         vals, out_ids = vals[:q], out_ids[:q]
-        if l2:
+        if self.metric == "l2":
             q2 = torch.sum(plan.queries.float() ** 2, -1, keepdim=True)
             vals = torch.where(vals > NEG_INF / 2, vals - q2, vals)
         zero = torch.zeros((q,), dtype=torch.int32, device=vals.device)
         return SearchResult(vals, out_ids, zero + plan.n_overflowed, zero)
+
+    def execute(self, index: IVFFlatIndex, plan: ShardedPlan) -> SearchResult:
+        return self.merge(plan, *self.scan(index, plan))
 
     def __call__(self, index: IVFFlatIndex, queries: torch.Tensor,
                  fspec: FilterSpec, shard_ok: Optional[torch.Tensor] = None
@@ -344,34 +386,153 @@ class ShardedSearch:
 
 
 def make_sharded_search(metric: str, *, q_total: int, n_clusters: int,
-                        cfg: ShardedSearchConfig, n_shards: int = 1,
-                        device="cuda"):
-    """Builds the sharded search step for one shard.
+                        cfg: ShardedSearchConfig, mesh=None,
+                        axis_names=None, n_shards: int = 1, device="cuda"):
+    """Builds the sharded search step of this rank.
+
+    With a ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh`),
+    the cluster axis is split over ``axis_names`` (default: every mesh
+    axis): S is the product of their sizes, this rank's shard id is its
+    coordinate over them, row-major (for a mesh over the whole world, the
+    global rank), and the merge runs over their process groups in reverse.
+    Without one, ``n_shards`` must be 1.
 
     Returns ``(search_fn, info)``: ``search_fn(index, queries, fspec,
     shard_ok=None) -> SearchResult`` (a :class:`ShardedSearch`), and
-    ``info`` with ``p_cap``, ``k_local``, ``n_shards`` and the dispatch's
-    ``ownership`` map.  The reference's mesh and shardings have no
-    counterpart: ``n_shards > 1`` raises.  ``device`` defaults to CUDA and
+    ``info`` with ``p_cap``, ``k_local``, ``n_shards``, ``shard_id``, the
+    dispatch's ``ownership`` map and ``shardings``: for each index leaf, the
+    mesh axes its cluster axis is split over (``()``: replicated), the
+    reference's ``NamedSharding`` dict.  ``device`` defaults to CUDA and
     raises when CUDA is absent and the CPU was not asked for.
     """
     dev = resolve_device(device)
-    if n_shards != 1:
-        raise NotImplementedError(
-            f"n_shards={n_shards}: the multi-shard search over "
-            "torch.distributed is not ported yet (ROADMAP A.9)")
     if metric not in ("dot", "l2"):
         raise ValueError(metric)
     if cfg.backend not in BACKENDS:
         raise ValueError(
             f"backend must be one of {BACKENDS}, got {cfg.backend!r}: in the "
             "port the tensors' device picks the route")
+    axes = ()
+    if mesh is not None:
+        names = tuple(mesh.mesh_dim_names)
+        axes = tuple(axis_names or names)
+        sizes = [mesh.shape[names.index(a)] for a in axes]
+        n_shards = math.prod(sizes)
+    elif n_shards != 1:
+        raise ValueError(f"n_shards={n_shards} needs a mesh: pass mesh= (a "
+                         "DeviceMesh over the ranks, launch.mesh.make_mesh)")
+    if n_clusters % n_shards:
+        raise ValueError(
+            f"K={n_clusters} must divide over {n_shards} shards; pad K at "
+            "build time (storage.pad_k, or load with target_shards).")
+    shard_id, groups = 0, ()
+    if mesh is not None:
+        coord = mesh.get_coordinate()
+        for a, size in zip(axes, sizes):
+            shard_id = shard_id * size + coord[names.index(a)]
+        groups = tuple(mesh.get_group(a) for a in reversed(axes))
+        for a, g in zip(reversed(axes), groups):
+            # the merge lays out candidates in group-rank order, which must
+            # be the mesh coordinate (the reference's all_gather order)
+            if dist.get_rank(g) != coord[names.index(a)]:
+                raise ValueError(f"axis {a!r}: group rank "
+                                 f"{dist.get_rank(g)} is not the mesh "
+                                 f"coordinate {coord[names.index(a)]}")
     k_local = n_clusters // n_shards
     p_cap = probe_capacity(q_total, cfg.n_probes, n_shards, cfg.p_cap_slack)
     scan_qb = min(cfg.scan_q_block, round_up(q_total, 8))
     n_tiles = round_up(q_total, scan_qb) // scan_qb
     u_cap = max(1, min(p_cap, k_local * n_tiles))
     search = ShardedSearch(metric, cfg, p_cap=p_cap, k_local=k_local,
-                           scan_q_block=scan_qb, u_cap=u_cap, device=dev)
+                           scan_q_block=scan_qb, u_cap=u_cap, device=dev,
+                           n_shards=n_shards, shard_id=shard_id,
+                           groups=groups)
+    shardings = dict(centroids=(), summaries=(), vectors=axes, attrs=axes,
+                     ids=axes, norms=axes, scales=axes, counts=axes)
     return search, dict(p_cap=p_cap, k_local=k_local, n_shards=n_shards,
+                        shard_id=shard_id, shardings=shardings,
                         ownership=RangeOwnership(n_shards, k_local))
+
+
+def local_shard(index: IVFFlatIndex, shard_id: int, n_shards: int
+                ) -> IVFFlatIndex:
+    """Shard ``shard_id`` of ``index``: the per-cluster leaves over
+    ``[s·K/S, (s+1)·K/S)`` (views), the centroids and summaries whole (the
+    placement of the reference's ``jax.device_put(index, shardings)``)."""
+    k = index.n_clusters
+    if k % n_shards:
+        raise ValueError(f"K={k} must divide over {n_shards} shards; pad K "
+                         "first (storage.pad_k)")
+    kl = k // n_shards
+    sl = slice(shard_id * kl, (shard_id + 1) * kl)
+    return dataclasses.replace(
+        index, vectors=index.vectors[sl], attrs=index.attrs[sl],
+        ids=index.ids[sl], counts=index.counts[sl],
+        norms=None if index.norms is None else index.norms[sl],
+        scales=None if index.scales is None else index.scales[sl])
+
+
+# ---- driving the ranks from one controller ----
+
+_HEADER = 5  # stop, Q, D, F, M
+
+
+def _broadcast_batch(queries, lo, hi, shard_ok):
+    """Sends one batch from rank 0 (the header first, so the other ranks
+    can allocate); gloo has no int16, so the bounds go as int32."""
+    q, d = queries.shape
+    _, f, m = lo.shape
+    header = torch.tensor([0, q, d, f, m], dtype=torch.int64,
+                          device=queries.device)
+    dist.broadcast(header, src=0)
+    for t in (queries.contiguous(), lo.int(), hi.int(),
+              shard_ok.to(torch.uint8)):
+        dist.broadcast(t, src=0)
+
+
+def lead(search: ShardedSearch, index: IVFFlatIndex):
+    """Rank 0's side of the driver: a ``search_fn(queries, fspec,
+    shard_ok=None) -> (scores, ids)`` for a ``SearchServer`` that sends each
+    batch to the other ranks (each in :func:`follow`) and then searches it
+    (queries travel, and are searched, as f32).  ``search_fn.stop()`` ends
+    their follow loops."""
+    def search_fn(queries, fspec, shard_ok=None):
+        queries = queries.float()
+        if shard_ok is None:
+            shard_ok = torch.ones((search.n_shards,), dtype=torch.bool,
+                                  device=queries.device)
+        _broadcast_batch(queries, fspec.lo, fspec.hi, shard_ok)
+        res = search(index, queries, fspec, shard_ok)
+        return res.scores, res.ids
+
+    def stop():
+        header = torch.zeros((_HEADER,), dtype=torch.int64,
+                             device=search.device)
+        header[0] = 1
+        dist.broadcast(header, src=0)
+
+    search_fn.stop = stop
+    return search_fn
+
+
+def follow(search: ShardedSearch, index: IVFFlatIndex) -> int:
+    """Every other rank's side: receives rank 0's batches and searches each
+    (its shard's scan and its part of the merge) until ``stop``.  Returns
+    the number of batches served."""
+    dev = search.device
+    n = 0
+    while True:
+        header = torch.zeros((_HEADER,), dtype=torch.int64, device=dev)
+        dist.broadcast(header, src=0)
+        stop, q, d, f, m = (int(v) for v in header.tolist())
+        if stop:
+            return n
+        queries = torch.empty((q, d), dtype=torch.float32, device=dev)
+        lo = torch.empty((q, f, m), dtype=torch.int32, device=dev)
+        hi = torch.empty_like(lo)
+        ok = torch.empty((search.n_shards,), dtype=torch.uint8, device=dev)
+        for t in (queries, lo, hi, ok):
+            dist.broadcast(t, src=0)
+        search(index, queries, FilterSpec(lo=lo.short(), hi=hi.short()),
+               ok.bool())
+        n += 1

@@ -194,23 +194,32 @@ def pad_k(index: IVFFlatIndex, k_new: int) -> IVFFlatIndex:
     k = index.n_clusters
     if k_new < k:
         raise ValueError(f"cannot shrink K: {k} -> {k_new}")
-    if k_new == k:
-        return index
-    dk = k_new - k
+    return _pad_clusters(index, k_new, k_new)
 
-    def pad(a, fill):
-        return torch.cat([a, torch.full((dk,) + tuple(a.shape[1:]), fill,
-                                        dtype=a.dtype, device=a.device)])
+
+def _pad_clusters(index: IVFFlatIndex, k_new: int, rows_new: int
+                  ) -> IVFFlatIndex:
+    """:func:`pad_k`'s padding: the centroids and summaries to ``k_new``
+    clusters, the per-cluster leaves (all of them, or one shard's) to
+    ``rows_new``."""
+    if k_new == index.n_clusters and rows_new == index.vectors.shape[0]:
+        return index
+
+    def pad(a, n, fill):
+        if a is None or n == a.shape[0]:
+            return a
+        return torch.cat([a, torch.full((n - a.shape[0],) + tuple(a.shape[1:]),
+                                        fill, dtype=a.dtype, device=a.device)])
 
     return dataclasses.replace(
         index,
-        centroids=pad(index.centroids, 0.0),
-        vectors=pad(index.vectors, 0),
-        attrs=pad(index.attrs, 0),
-        ids=pad(index.ids, -1),
-        counts=pad(index.counts, 0),
-        norms=None if index.norms is None else pad(index.norms, 0),
-        scales=None if index.scales is None else pad(index.scales, 1.0),
+        centroids=pad(index.centroids, k_new, 0.0),
+        vectors=pad(index.vectors, rows_new, 0),
+        attrs=pad(index.attrs, rows_new, 0),
+        ids=pad(index.ids, rows_new, -1),
+        counts=pad(index.counts, rows_new, 0),
+        norms=pad(index.norms, rows_new, 0),
+        scales=pad(index.scales, rows_new, 1.0),
         summaries=(None if index.summaries is None
                    else pad_clusters(index.summaries, k_new)),
     )
@@ -609,32 +618,55 @@ def _load_v1(directory: str, man: dict, paths: List[str], dev
     )
 
 
-def read_shard_fields(path: str, man: dict) -> Dict[str, torch.Tensor]:
-    """Reads one v2/v3 shard file into per-field CPU tensors
-    ``[kl, *field_shape]``."""
+def read_shard_fields(path: str, man: dict, start: int = 0,
+                      count: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Reads records ``[start, start + count)`` (default: every record) of
+    one v2/v3 shard file into per-field CPU tensors ``[count,
+    *field_shape]``.  The records have a fixed stride, so only that range is
+    read, one field at a time (no copy of the whole records)."""
     stride = man["record_stride"]
-    raw = np.fromfile(path, np.uint8)
-    if raw.size % stride:
-        raise ValueError(f"{path}: size {raw.size} not a stride multiple")
-    raw = raw.reshape(-1, stride)
+    size = os.path.getsize(path)
+    if size % stride:
+        raise ValueError(f"{path}: size {size} not a stride multiple")
+    n = size // stride
+    count = n - start if count is None else count
+    if not 0 <= start <= start + count <= n:
+        raise ValueError(f"{path}: records [{start}, {start + count}) out of "
+                         f"[0, {n})")
+    raw = (np.memmap(path, np.uint8, mode="r", offset=start * stride,
+                     shape=(count, stride)) if count
+           else np.empty((0, stride), np.uint8))
     out = {}
     for fld in man["fields"]:
         dt = np_dtype(fld["dtype"])
         nb = int(np.prod(fld["shape"])) * dt.itemsize
         o = fld["offset"]
-        flat = np.ascontiguousarray(raw[:, o:o + nb]).view(dt)
+        flat = np.array(raw[:, o:o + nb]).view(dt)  # a copy, off the map
         out[fld["name"]] = to_tensor(
-            flat.reshape((raw.shape[0],) + tuple(fld["shape"])), fld["dtype"])
+            flat.reshape((count,) + tuple(fld["shape"])), fld["dtype"])
+    del raw
     return out
 
 
-def _load_v2(directory: str, man: dict, paths: List[str], dev
-             ) -> IVFFlatIndex:
-    parts = [read_shard_fields(p, man) for p in paths]
+def _load_v2(directory: str, man: dict, paths: List[str], dev,
+             lo: int = 0, hi: Optional[int] = None) -> IVFFlatIndex:
+    """Clusters ``[lo, hi)`` (default: all) of a fixed-stride checkpoint,
+    read from only the records they span; centroids and summaries whole."""
+    k = man["n_clusters"]
+    hi = k if hi is None else hi
+    kf = k // man["n_shards"]  # clusters a shard file holds
+    parts = []
+    for f, path in enumerate(paths):
+        a, b = max(lo, f * kf), min(hi, (f + 1) * kf)
+        if a < b:
+            parts.append(read_shard_fields(path, man, a - f * kf, b - a))
+    if not parts:
+        parts = [read_shard_fields(paths[0], man, 0, 0)]
 
     def cat(key):
         return torch.cat([p[key] for p in parts], 0).to(dev)
 
+    counts = np.load(os.path.join(directory, "counts.npy"), mmap_mode="r")
     return IVFFlatIndex(
         spec=spec_from_manifest(man),
         centroids=torch.from_numpy(
@@ -642,12 +674,19 @@ def _load_v2(directory: str, man: dict, paths: List[str], dev
         vectors=cat("vectors"),
         attrs=cat("attrs"),
         ids=cat("ids"),
-        counts=torch.from_numpy(
-            np.load(os.path.join(directory, "counts.npy"))).to(dev),
+        counts=torch.from_numpy(np.array(counts[lo:hi])).to(dev),
         norms=cat("norms") if man["has_norms"] else None,
         scales=cat("scales") if man["quantized"] else None,
         summaries=load_summaries(directory, man, device=dev),
     )
+
+
+def _target_k(k: int, target_shards: Optional[int]) -> int:
+    """K padded to a multiple of ``target_shards``, as :func:`load_index`
+    pads it."""
+    if target_shards and k % target_shards:
+        return ((k + target_shards - 1) // target_shards) * target_shards
+    return k
 
 
 def load_index(directory: str, *, target_shards: Optional[int] = None,
@@ -679,8 +718,34 @@ def load_index(directory: str, *, target_shards: Optional[int] = None,
                      for rec in load_partition_records(directory, man)],
             vpads=load_partition_vpads(directory))
         return partitions_lib.attach(index, build)
-    if target_shards and index.n_clusters % target_shards:
-        k_new = ((index.n_clusters + target_shards - 1) // target_shards
-                 ) * target_shards
-        index = pad_k(index, k_new)
-    return index
+    return pad_k(index, _target_k(index.n_clusters, target_shards))
+
+
+def load_index_shard(directory: str, shard_id: int, n_shards: int, *,
+                     target_shards: Optional[int] = None, device="cuda"
+                     ) -> IVFFlatIndex:
+    """Shard ``shard_id`` of ``n_shards`` of a layout-2/3 checkpoint, read
+    from only the records of its cluster range: byte for byte
+    ``distributed.local_shard(load_index(directory, target_shards=
+    target_shards), shard_id, n_shards)``, without loading the rest (each
+    rank of a sharded search holds ``[K/S, Vpad, D]``).  ``target_shards``
+    pads K as :func:`load_index` does; the padded K must divide over
+    ``n_shards``."""
+    dev = resolve_device(device)
+    man = load_manifest(directory)
+    paths = check_complete(directory, man)
+    if man["layout"] < 2 or man.get("has_partitions"):
+        raise ValueError(
+            f"load_index_shard reads layouts 2 and 3, not layout "
+            f"{man['layout']}: use load_index and distributed.local_shard")
+    k = man["n_clusters"]
+    k_new = _target_k(k, target_shards)
+    if k_new % n_shards:
+        raise ValueError(f"K={k_new} must divide over {n_shards} shards; "
+                         "pass target_shards")
+    if not 0 <= shard_id < n_shards:
+        raise ValueError(f"shard_id {shard_id} out of [0, {n_shards})")
+    kl = k_new // n_shards
+    lo, hi = shard_id * kl, (shard_id + 1) * kl
+    index = _load_v2(directory, man, paths, dev, min(lo, k), min(hi, k))
+    return _pad_clusters(index, k_new, kl)

@@ -1,4 +1,5 @@
-"""Top-k primitives (paper §4.4 step 5): the port of ``repro.core.topk``.
+"""Top-k primitives and the distributed merge tree (paper §4.4 step 5):
+the port of ``repro.core.topk``.
 
 ``torch.topk`` does not keep ``lax.top_k``'s tie order (the lowest index
 wins among equal values), so every selection here is a stable descending
@@ -10,6 +11,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 # Finite stand-in for -inf: survives bf16 casts and keeps top-k total-ordered.
 NEG_INF = -3.0e38
@@ -76,3 +78,31 @@ def merge_topk_many(vals: torch.Tensor, ids: torch.Tensor, k: int, axis: int
             vals, ids = mv, mi
         n = vals.shape[-2]
     return vals[..., 0, :], ids[..., 0, :]
+
+
+def merge_topk_axis(vals: torch.Tensor, ids: torch.Tensor, k: int, group
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-gathers ``[..., k]`` candidate lists over the process group
+    ``group`` (one mesh axis) and re-selects the best ``k`` on every member.
+
+    The gathered lists are laid out member 0's first, in group-rank order
+    (the member's coordinate along the mesh axis), as the reference's
+    ``all_gather`` → ``moveaxis(0, -2)`` → reshape: that order decides which
+    id wins a tie.  Payload per stage is ``[axis, ..., k]``.
+    """
+    n = dist.get_world_size(group)
+    gv = [torch.empty_like(vals) for _ in range(n)]
+    gi = [torch.empty_like(ids) for _ in range(n)]
+    # the list form: gloo does not assure all_gather_into_tensor on CUDA
+    dist.all_gather(gv, vals.contiguous(), group=group)
+    dist.all_gather(gi, ids.contiguous(), group=group)
+    return masked_topk(torch.cat(gv, -1), None, k, ids=torch.cat(gi, -1))
+
+
+def topk_tree_merge(vals: torch.Tensor, ids: torch.Tensor, k: int, groups
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hierarchical merge over the mesh axes' process groups, in the order
+    given (``model → data → pod``)."""
+    for group in groups:
+        vals, ids = merge_topk_axis(vals, ids, k, group)
+    return vals, ids

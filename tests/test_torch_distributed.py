@@ -9,6 +9,8 @@ The reference's full search compiles for ~10 s per configuration, so its
 five configurations are built once per module.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -265,13 +267,31 @@ def test_sharded_search_matches_search_reference_and_drops_shards(sharded):
 
 
 def test_make_sharded_search_rejects_what_is_not_ported():
+    """The reference's interpret and XLA backends have no counterpart; a
+    mesh whose shard count does not divide K raises as the reference's
+    does, before any collective (so stand-in meshes that carry only the
+    axis names and sizes reach the check in both packages); more than one
+    shard needs a mesh."""
     cfg = tdist.ShardedSearchConfig()
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tdist.make_sharded_search("dot", q_total=8, n_clusters=KC, cfg=cfg,
-                                  n_shards=2, device="cpu")
     for backend in ("pallas_interpret", "pallas_tiled_interpret", "xla_map",
                     "xla_vmap", "xla_tiled"):
         with pytest.raises(ValueError, match="device"):
             tdist.make_sharded_search(
                 "dot", q_total=8, n_clusters=KC, device="cpu",
                 cfg=tdist.ShardedSearchConfig(backend=backend))
+    names, sizes = ("data", "model"), (2, 3)
+    jmesh = types.SimpleNamespace(axis_names=names, shape=dict(zip(names,
+                                                                   sizes)))
+    tmesh = types.SimpleNamespace(mesh_dim_names=names, shape=sizes)
+    with pytest.raises(ValueError) as want:
+        jdist.make_sharded_search(jmesh, "dot", q_total=8, n_clusters=KC,
+                                  cfg=jdist.ShardedSearchConfig())
+    with pytest.raises(ValueError) as got:
+        tdist.make_sharded_search("dot", q_total=8, n_clusters=KC, cfg=cfg,
+                                  mesh=tmesh, device="cpu")
+    head = f"K={KC} must divide over 6 shards;"
+    assert str(want.value).startswith(head), want.value
+    assert str(got.value).startswith(head), got.value
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tdist.make_sharded_search("dot", q_total=8, n_clusters=KC, cfg=cfg,
+                                  n_shards=2, device="cpu")

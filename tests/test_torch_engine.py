@@ -353,10 +353,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 # Public names of repro.core the port does not have yet, by ROADMAP item.
-UNPORTED_CORE = {
-    # A.9 multi-device
-    "topk_tree_merge",
-}
+UNPORTED_CORE = set()
 
 
 def test_core_exports_match_reference():

@@ -525,17 +525,21 @@ def test_filtered_scan_rejects_unsupported_dtype_pairs(cuda):
         tfs.filtered_scan(*args, **kw)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "pallas_tiled"])
-@pytest.mark.parametrize("variant", ["dot-f32", "dot-bf16", "l2-f32", "sq8"])
-def test_sharded_search_on_card_matches_cpu(cuda, variant, backend):
+def _sharded_batch(q=37):
     rng = np.random.default_rng(2)
-    q = 37
     qs = torch.from_numpy(rng.standard_normal((q, 32)).astype(np.float32))
     lo = np.full((q, 1, 3), -32768, np.int16)
     hi = np.full((q, 1, 3), 32767, np.int16)
     start = rng.integers(0, 1500, q)
     lo[:, 0, 0], hi[:, 0, 0] = start, start + 399
-    fspec = tf.FilterSpec(lo=torch.from_numpy(lo), hi=torch.from_numpy(hi))
+    return qs, tf.FilterSpec(lo=torch.from_numpy(lo), hi=torch.from_numpy(hi))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_tiled"])
+@pytest.mark.parametrize("variant", ["dot-f32", "dot-bf16", "l2-f32", "sq8"])
+def test_sharded_search_on_card_matches_cpu(cuda, variant, backend):
+    qs, fspec = _sharded_batch()
+    q = qs.shape[0]
     metric = VARIANTS[variant][0]
     cfg = tdist.ShardedSearchConfig(k=10, n_probes=4, scan_q_block=16,
                                     backend=backend)
@@ -553,6 +557,63 @@ def test_sharded_search_on_card_matches_cpu(cuda, variant, backend):
     np.testing.assert_allclose(cr.scores.numpy(), gr.scores.cpu().numpy(),
                                rtol=1e-5)
     assert (gr.n_scanned == 0).all() and (gr.n_passed == 0).all()
+
+
+def _two_rank_main(rank, work, variant, backend):
+    """One of two ranks on the card(s): its shard of the index, the
+    sharded search over a (model=2) mesh, its result and launches saved."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+
+    tmesh.init_process_group(rank, 2, init_method=f"file://{work}/store",
+                             timeout_s=120)
+    try:
+        mesh = tmesh.make_mesh((2,), ("model",))
+        qs, fspec = _sharded_batch()
+        fn, info = tdist.make_sharded_search(
+            VARIANTS[variant][0], q_total=qs.shape[0], n_clusters=16,
+            mesh=mesh, cfg=tdist.ShardedSearchConfig(
+                k=10, n_probes=4, scan_q_block=16, backend=backend))
+        shard = tdist.local_shard(_index(variant, "cuda"), rank, 2)
+        before = (tct.LAUNCHES, tfs.LAUNCHES + tfs.PER_PROBE_LAUNCHES)
+        res = fn(shard, qs.cuda(), fspec.to("cuda"))
+        after = (tct.LAUNCHES, tfs.LAUNCHES + tfs.PER_PROBE_LAUNCHES)
+        np.savez(os.path.join(work, f"rank{rank}.npz"),
+                 ids=res.ids.cpu().numpy(), scores=res.scores.cpu().numpy(),
+                 n_scanned=res.n_scanned.cpu().numpy(),
+                 launches=np.subtract(after, before),
+                 backend=dist.get_backend())
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("variant,backend", [("dot-bf16", "pallas_tiled"),
+                                             ("l2-f32", "pallas")])
+def test_two_ranks_on_card_match_one_shard(cuda, tmp_path, variant, backend):
+    """Two spawned ranks (gloo on one card, NCCL on two) each scan their
+    half of the index with the kernels and tree-merge to the one-shard
+    search's answer."""
+    import torch.multiprocessing as mp
+
+    qs, fspec = _sharded_batch()
+    fn, _ = tdist.make_sharded_search(
+        VARIANTS[variant][0], q_total=qs.shape[0], n_clusters=16,
+        cfg=tdist.ShardedSearchConfig(k=10, n_probes=4, scan_q_block=16,
+                                      backend=backend))
+    want = fn(_index(variant, cuda), qs.to(cuda), fspec.to(cuda))
+    mp.start_processes(_two_rank_main, args=(str(tmp_path), variant, backend),
+                       nprocs=2, start_method="spawn")  # joins; re-raises
+    for rank in range(2):
+        got = np.load(tmp_path / f"rank{rank}.npz")
+        assert str(got["backend"]) == ("nccl" if torch.cuda.device_count() >= 2
+                                       else "gloo")
+        assert (got["launches"] == 1).all(), got["launches"]
+        _assert_topk_close((torch.from_numpy(got["scores"]),
+                            torch.from_numpy(got["ids"])),
+                           (want.scores.cpu(), want.ids.cpu()),
+                           ties_by_id=False)
+        assert (got["n_scanned"] == 0).all()
 
 
 @pytest.mark.parametrize("variant", ["dot-f32", "dot-bf16", "l2-f32", "sq8"])
