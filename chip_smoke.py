@@ -112,6 +112,25 @@ Phases:
      ``ShardHealth`` (served degraded); one ``compressed_psum_tree`` over
      the 6 ranks against the mean computed in the parent.  The ranks'
      kernel launches are summed into the kernels line;
+  3i. (run right after phase 2, before phase 3 allocates anything) the
+     examples, training and the recsys models: each port example
+     (``examples/torch/*.py``) at its own size on the card, its printed
+     claims held; the four recsys configs at their published widths
+     (din, sasrec, bst, wide_deep with 40 fields x 1,048,576 x 32), 3
+     ``Trainer`` steps each from ``recsys_batch`` at a batch of 256 (AdamW;
+     wide_deep also Adafactor), the first step's loss and parameters held
+     against the same step on the CPU (rtol 1e-4; wide_deep's
+     ``vocab_sparse`` cut, and the cut printed, only where MemAvailable
+     cannot hold its CPU step); sasrec's restart (4 steps straight against
+     2 + a checkpoint + a fresh ``Trainer`` + 2) equal bit for bit; SASRec
+     retrieval: ``config()`` user vectors for 256 histories querying an
+     index over all 1,048,576 L2-normalised item rows (K = 1024, f32,
+     D = 50) with the example's filters at k = 100, T = 16, through
+     ``search_fused`` and ``SearchEngine``, each held against
+     ``search_reference`` and ``brute_force`` and timed; both scans against
+     their plain versions at D = 18, 32, 50, 64 f32 and on the retrieval's
+     full-size operands (timed beside plain and bound).  The examples' and
+     the retrieval's launches count into the kernels line;
   4. each kernel on one full-size batch: held against its plain version,
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
      for centroid_topk); filtered_scan_tiled on both of its full-size
@@ -264,7 +283,7 @@ def sass_counts(lib):
 
 
 def tiled_bound(slot_cluster, live, queries, lo, n_unique, qb, vpad,
-                k=K_TOP, v_bytes=2, peak="bf16"):
+                k=K_TOP, v_bytes=2, peak="bf16", d=DIM):
     """filtered_scan_tiled's least time on the card for these operands:
     (bound_ms, byte_ms, op_ms, n_live, n_clusters).  Bytes: the distinct
     clusters' rows (vectors of ``v_bytes`` a value, int16 attributes,
@@ -277,20 +296,22 @@ def tiled_bound(slot_cluster, live, queries, lo, n_unique, qb, vpad,
     n_clusters = int(torch.unique(slot_cluster[live]).numel())
     s = slot_cluster.shape[0]
     m = lo.shape[2]
-    row_bytes = DIM * v_bytes + m * 2 + 4
+    row_bytes = d * v_bytes + m * 2 + 4
     nbytes = (n_clusters * vpad * row_bytes
               + queries.numel() * queries.element_size() + 2 * lo.numel() * 2
               + 2 * s * 4 + (0 if n_unique is None else n_unique.numel() * 4)
               + s * qb * (k * 8 + 4))
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = 2 * qb * vpad * DIM * n_live / PEAK_OPS[peak] * 1e3
+    op_ms = 2 * qb * vpad * d * n_live / PEAK_OPS[peak] * 1e3
     return max(byte_ms, op_ms), byte_ms, op_ms, n_live, n_clusters
 
 
-def per_probe_bound(slot_cluster, slot_query, queries, lo, n_clusters, vpad):
+def per_probe_bound(slot_cluster, slot_query, queries, lo, n_clusters, vpad,
+                    d=DIM, m=M_ATTRS, v_bytes=2):
     """The per-probe filtered_scan's least time on the card for a slot
     table, whatever implements it.  Bytes: the distinct in-range clusters'
-    rows (bf16 vectors, int16 attributes, int32 ids) read once, the
+    rows (vectors of ``v_bytes`` a value, int16 attributes, int32 ids)
+    read once, the
     queries, bounds and slot tables, and the [P, Vpad] f32 output written
     once.  Operations: 2·Vpad·D per distinct (cluster, query) pair (slots
     of one pair have one output) at the f32 FMA peak."""
@@ -303,12 +324,12 @@ def per_probe_bound(slot_cluster, slot_query, queries, lo, n_clusters, vpad):
     sc, sq = slot_cluster[ok].long(), slot_query[ok].long()
     n_clusters_read = int(torch.unique(sc).numel())
     n_pairs = int(torch.unique(sc * nq + sq).numel())
-    row_bytes = DIM * 2 + M_ATTRS * 2 + 4  # vector, attributes, id
+    row_bytes = d * v_bytes + m * 2 + 4  # vector, attributes, id
     small = (queries.numel() * queries.element_size() + 2 * lo.numel() * 2
              + 2 * p * 4 + p * vpad * 4)  # + the output
     nbytes = n_clusters_read * vpad * row_bytes + small
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = 2 * n_pairs * vpad * DIM / PEAK_OPS["f32"] * 1e3
+    op_ms = 2 * n_pairs * vpad * d / PEAK_OPS["f32"] * 1e3
     return dict(slots=p, clusters=n_clusters_read, pairs=n_pairs,
                 bytes=nbytes, byte_ms=byte_ms, op_ms=op_ms,
                 bound_ms=max(byte_ms, op_ms),
@@ -3133,6 +3154,578 @@ def print_phase_3h(fig):
         f"launches {fig['launches']}")
 
 
+# ---- phase 3i: the examples, training and the recsys models ----
+
+EXAMPLES = ("quickstart", "kmeans_index_build", "filtered_search_serving",
+            "train_embedder", "recsys_retrieval")
+RECSYS_ARCHS = ("din", "sasrec", "bst", "wide_deep")
+RECSYS_BATCH = 256
+RECSYS_STEPS = 3  # Trainer steps of each config on the card
+RESTART_STEPS = 4  # sasrec straight, against half, a checkpoint and half
+RECSYS_LR = 1e-3
+CPU_STEP_BYTES = 8  # host bytes a CPU step holds per parameter byte
+RETRIEVAL_K, RETRIEVAL_T = 100, 16
+RETRIEVAL_KC, RETRIEVAL_KMEANS = 1024, 60
+RETRIEVAL_M = 4  # category, price bucket, in stock, region
+SLICE_WIDTHS = (18, 32, 50, 64)  # the slice's f32 embedding widths
+
+
+def load_example(name):
+    """``examples/torch/<name>.py`` by file path (``examples/torch`` is a
+    directory named ``torch``: never on ``sys.path``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_part(launches):
+    """Phase 3i (a): each port example at its own size on the card, its
+    printed claims held.  Returns {name: (seconds, launches by kernel)}."""
+    import torch
+
+    out = {}
+    ckpt = ROOT / "build" / "embedder_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        for name in EXAMPLES:
+            argv = ["--device", "cuda"]
+            if name == "train_embedder":
+                argv += ["--ckpt-dir", str(ckpt)]
+            before = launches()
+            t0 = time.perf_counter()
+            log(f"---- example {name} ----")
+            res = load_example(name).main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after = launches()
+            out[name] = (secs, {k: after[k] - before[k] for k in after})
+            if name == "quickstart":
+                ok = res["fused_identical"] and res["self_ids"] == list(
+                    range(res["n"], res["n"] + 5))
+                claim = (f"fused identical {res['fused_identical']}, "
+                         f"self-retrieval {res['self_ids']}")
+            elif name == "kmeans_index_build":
+                mb, ll = res["minibatch"]["recall"], res["lloyd"]["recall"]
+                ok = ll >= mb and res["restored_recall"] == ll
+                claim = (f"recall minibatch {mb:.3f} lloyd {ll:.3f}, after "
+                         f"restore {res['restored_recall']:.3f}")
+            elif name == "filtered_search_serving":
+                ok = res["responses_equal"]
+                claim = (f"{res['batches']} batches, every response equal "
+                         f"to the engine's, {res['qps']:.1f} QPS")
+            elif name == "train_embedder":
+                losses = res["losses"]
+                ok = (losses[-1] <= losses[0] / 10 and res["recall"] >= 0.70
+                      and res["hit1"] >= 0.85)
+                claim = (f"loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+                         f"recall@10 {res['recall']:.3f}, hit@1 "
+                         f"{res['hit1']:.2f}")
+            else:
+                ok = res["filters_ok"]
+                claim = (f"recall@100 {res['recall']:.3f}, {res['n_cand']} "
+                         "candidates a user, every one passing its filter")
+            if not ok:
+                raise AssertionError(f"example {name}: {claim}")
+            log(f"example {name}: {claim}; {secs:.2f} s, launches "
+                f"{out[name][1]}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
+def recsys_loss(cfg):
+    from repro_torch.models.recsys import RecsysBatch, loss_fn
+
+    return lambda p, b: loss_fn(p, cfg, RecsysBatch(**b))
+
+
+def recsys_feeder(cfg, seed):
+    from repro_torch.data import ShardedFeeder, recsys_batch
+
+    return ShardedFeeder(
+        lambda s, i: recsys_batch(s, i, RECSYS_BATCH, cfg.seq_len,
+                                  cfg.n_dense, cfg.n_sparse, cfg.vocab_items,
+                                  cfg.vocab_sparse), seed=seed)
+
+
+def recsys_trainer(cfg, params, optimizer, device, ckpt_dir=None,
+                   total=RECSYS_STEPS):
+    from repro_torch.train.train_loop import Trainer, TrainLoopConfig
+
+    return Trainer(recsys_loss(cfg), params, TrainLoopConfig(
+        total_steps=total, ckpt_every=2, ckpt_dir=ckpt_dir, log_every=1000,
+        lr=RECSYS_LR, warmup=0, optimizer=optimizer), device=device)
+
+
+def run_steps(trainer, feeder, n):
+    """``n`` steps one at a time: (losses, each step's ms on the host's
+    clock after a ``synchronize``)."""
+    import torch
+
+    losses, step_ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses += trainer.run(feeder, max_steps=1)["loss"]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms
+
+
+STEP_OUTLIERS = 1e-3  # share of a leaf's elements a first step may flip
+
+
+def step_close(name, got, want, lr=RECSYS_LR):
+    """A first training step's parameter on the card against the CPU's:
+    all but STEP_OUTLIERS of the elements within rtol 1e-4, atol 1e-6, and
+    every element within that plus 2·lr.  A first AdamW or Adafactor step
+    is g / (|g| + eps) an element (|step| <= 1): where the gradient is at
+    f32 rounding level (a sum that cancels), the two devices' rounding
+    gives it another size or sign, which moves the element by up to 2·lr
+    more; anywhere else the step agrees.  Returns (max relative error
+    where |err| > 1e-6, elements past rtol 1e-4)."""
+    import torch
+
+    err = (got - want).abs()
+    near = err <= 1e-4 * want.abs() + 1e-6
+    outliers = int((~near).sum())
+    if outliers > STEP_OUTLIERS * want.numel() or bool(
+            (err > 1e-4 * want.abs() + 1e-6 + 2 * lr).any()):
+        raise AssertionError(f"{name}: {outliers} of {want.numel()} elements "
+                             f"differ from the CPU step, by up to "
+                             f"{float(err.max()):.3e}")
+    big = err > 1e-6
+    rel = float((err[big] / want.abs()[big].clamp(min=1e-30)).max()
+                ) if bool(big.any()) else 0.0
+    return rel, outliers
+
+
+def recsys_step_part(dev, seed):
+    """Phase 3i (b): each recsys config at its published widths, 3 Trainer
+    steps on the card (AdamW; wide_deep also Adafactor); the first held
+    against the same step on the CPU from the same parameters (loss and
+    every parameter rtol 1e-4).  Returns a row a run."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch.models.recsys import init_params
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    rows = []
+    for arch in RECSYS_ARCHS:
+        cfg = importlib.import_module(f"repro_torch.configs.{arch}").config()
+        for optimizer in (("adamw", "adafactor") if arch == "wide_deep"
+                          else ("adamw",)):
+            # the CPU step holds about CPU_STEP_BYTES a parameter byte, plus
+            # the two host copies held for the comparison
+            run_cfg = cfg
+            nbytes = 4 * (cfg.vocab_items * cfg.embed_dim + cfg.n_sparse
+                          * cfg.vocab_sparse * (cfg.embed_dim + 1))
+            avail = host_available()
+            cut = None
+            if (CPU_STEP_BYTES + 2) * nbytes > 0.8 * avail:
+                keep = max(int(0.8 * avail / (CPU_STEP_BYTES + 2) / 4
+                               / max(cfg.n_sparse * (cfg.embed_dim + 1), 1)
+                               ), 1024)
+                run_cfg = dataclasses.replace(cfg, vocab_sparse=min(
+                    keep, cfg.vocab_sparse))
+                cut = (f"vocab_sparse {cfg.vocab_sparse} -> "
+                       f"{run_cfg.vocab_sparse}: MemAvailable "
+                       f"{avail / 2**30:.2f} GiB holds no full CPU step")
+                log(f"phase 3i cut: {arch} {optimizer} {cut}")
+            gen = torch.Generator(dev).manual_seed(seed)
+            params = init_params(gen, run_cfg, device=dev)
+            host = tree_map(lambda x: x.cpu(), params)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            trainer = recsys_trainer(run_cfg, params, optimizer, dev)
+            del params
+            feeder = recsys_feeder(run_cfg, seed)
+            try:
+                losses, step_ms = run_steps(trainer, feeder, 1)
+                first = {"/".join(p): x.cpu() for p, x in
+                         leaves_with_paths(trainer.params)}
+                more, more_ms = run_steps(trainer, feeder, RECSYS_STEPS - 1)
+            finally:
+                feeder.close()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            n_params = sum(x.numel() for x in first.values())
+            del trainer
+            torch.cuda.empty_cache()
+            mem_before = host_available() / 2**30
+            t0 = time.perf_counter()
+            cpu = recsys_trainer(run_cfg, host, optimizer, "cpu")
+            del host
+            feeder = recsys_feeder(run_cfg, seed)
+            try:
+                cpu_loss = cpu.run(feeder, max_steps=1)["loss"]
+            finally:
+                feeder.close()
+            cpu_s = time.perf_counter() - t0
+            mem_cpu = host_available() / 2**30
+            if not np.allclose(losses[0], cpu_loss[0], rtol=1e-4, atol=0):
+                raise AssertionError(f"{arch} {optimizer}: loss "
+                                     f"{losses[0]} on the card, {cpu_loss[0]} "
+                                     "on the CPU")
+            max_rel, outliers = 0.0, 0
+            for path, want in leaves_with_paths(cpu.params):
+                key = "/".join(path)
+                rel, out = step_close(f"{arch} {optimizer} {key}", first[key],
+                                      want)
+                max_rel, outliers = max(max_rel, rel), outliers + out
+            del cpu, first
+            trim_host_memory()
+            rows.append(dict(
+                arch=arch, optimizer=optimizer, cut=cut, params=n_params,
+                param_gib=nbytes / 2**30, losses=losses + more,
+                step_ms=step_ms + more_ms, peak_gib=peak, cpu_s=cpu_s,
+                cpu_loss=cpu_loss[0], max_rel=max_rel, outliers=outliers,
+                mem_before=mem_before, mem_cpu=mem_cpu))
+            log(f"recsys {arch} {optimizer}: {n_params} parameters "
+                f"({nbytes / 2**30:.2f} GiB), losses "
+                f"{[round(x, 6) for x in losses + more]}, step ms "
+                f"{[round(x, 3) for x in step_ms + more_ms]}, peak "
+                f"{peak:.2f} GiB on the card; first step equal to the CPU's "
+                f"(loss {cpu_loss[0]:.6f}, max rel err {max_rel:.2e} where "
+                f"|err| > 1e-6, {outliers} elements past rtol 1e-4; CPU "
+                f"step {cpu_s:.2f} s, MemAvailable {mem_before:.2f} GiB "
+                f"before, {mem_cpu:.2f} after)")
+    return rows
+
+
+def restart_part(dev, seed):
+    """Phase 3i (b): sasrec at full width, RESTART_STEPS steps straight
+    against half, a checkpoint, a fresh Trainer from the same initial
+    parameters and the other half: every parameter and state leaf equal
+    bit for bit."""
+    import importlib
+
+    import torch
+
+    from repro_torch.models.recsys import init_params
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    cfg = importlib.import_module("repro_torch.configs.sasrec").config()
+    init = init_params(torch.Generator(dev).manual_seed(seed + 1), cfg,
+                       device=dev)
+    ckpt = ROOT / "build" / "restart_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        runs = []
+        for d, steps in ((None, None), (ckpt, RESTART_STEPS // 2),
+                         (ckpt, None)):
+            trainer = recsys_trainer(
+                cfg, tree_map(torch.clone, init), "adamw", dev,
+                ckpt_dir=None if d is None else str(d), total=RESTART_STEPS)
+            feeder = recsys_feeder(cfg, seed)
+            try:
+                trainer.run(feeder, max_steps=steps)
+            finally:
+                feeder.close()
+            runs.append(trainer)
+        straight, half, resumed = runs
+        if (half.step, resumed.step, straight.step) != (
+                RESTART_STEPS // 2, RESTART_STEPS, RESTART_STEPS):
+            raise AssertionError("restart: wrong step counts")
+        want = dict(leaves_with_paths({"params": straight.params,
+                                       "opt": straight.opt_state}))
+        n = 0
+        for path, got in leaves_with_paths({"params": resumed.params,
+                                            "opt": resumed.opt_state}):
+            if not torch.equal(got, want[path]):
+                raise AssertionError(f"restart: {'/'.join(path)} differs")
+            n += 1
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    log(f"restart (sasrec, {RESTART_STEPS} steps straight against "
+        f"{RESTART_STEPS // 2} + checkpoint + {RESTART_STEPS // 2}): all "
+        f"{n} parameter and state leaves equal bit for bit; {secs:.2f} s")
+    return dict(leaves=n, secs=secs)
+
+
+def width_cases(dev, gen):
+    """f32 operands of both scans at the slice's embedding widths (M = 4),
+    the tiled scan at k = 10 and 100: ("tiled" | "per_probe", name, args,
+    kwargs)."""
+    import torch
+
+    kc, vpad, m, qb, n_tiles, u_cap, q, p = 6, 264, RETRIEVAL_M, 16, 3, 5, 9, 40
+
+    def ri(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    for d in SLICE_WIDTHS:
+        vec = torch.randn((kc, vpad, d), generator=gen, device=dev)
+        attrs = ri(0, 8, (kc, vpad, m), torch.int16)
+        ids = ri(-1, 10**6, (kc, vpad), torch.int32)
+        queries = torch.randn((n_tiles * qb, d), generator=gen, device=dev)
+        lo = ri(-8, 3, (n_tiles * qb, 1, m), torch.int16)
+        hi = ri(3, 9, (n_tiles * qb, 1, m), torch.int16)
+        for k in (K_TOP, K_WIDE):
+            yield "tiled", f"D={d} k={k}", (
+                ri(0, kc, (n_tiles * u_cap,), torch.int32),
+                torch.arange(n_tiles, device=dev, dtype=torch.int32
+                             ).repeat_interleave(u_cap),
+                ri(1, u_cap + 1, (n_tiles,), torch.int32), queries, lo, hi,
+                vec, attrs, ids, None, None), dict(metric="dot", k=k,
+                                                   q_block=qb)
+        yield "per_probe", f"D={d}", (
+            ri(0, kc, (p,), torch.int32), ri(0, q, (p,), torch.int32),
+            queries[:q].contiguous(), lo[:q].contiguous(), hi[:q].contiguous(),
+            vec, attrs, ids, None, None), dict(metric="dot")
+
+
+def retrieval_part(dev, seed, launches):
+    """Phase 3i (c): SASRec ``config()`` user vectors for RECSYS_BATCH
+    histories as queries of a hybrid index over all of its L2-normalised
+    item rows (K = 1024, 60 k-means steps, f32), filtered as the example
+    does, k = 100, T = 16, through ``search_fused`` and ``SearchEngine``:
+    both held against ``search_reference`` (ids by the near-tie rule) and
+    against ``brute_force`` (recall@100, every id passing its filter);
+    each path's batch timed with CUDA events.  Returns (fig, the launches
+    of the searches, the operands for the D = 50 kernel checks)."""
+    import importlib
+
+    import torch
+
+    from repro_torch.core import (FilterBuilder, HybridSpec, SearchEngine,
+                                  brute_force, build_ivf, from_builders,
+                                  recall_at_k, search_reference)
+    from repro_torch.core.hybrid import l2_normalize
+    from repro_torch.core.search import search_centroids
+    from repro_torch.data import recsys_batch
+    from repro_torch.kernels.filtered_scan import search_fused
+    from repro_torch.models.recsys import (RecsysBatch, init_params,
+                                           user_embedding)
+
+    cfg = importlib.import_module("repro_torch.configs.sasrec").config()
+    gen = torch.Generator(dev).manual_seed(seed + 2)
+    params = init_params(gen, cfg, device=dev)
+    arrays = recsys_batch(seed, 0, RECSYS_BATCH, cfg.seq_len, cfg.n_dense,
+                          cfg.n_sparse, cfg.vocab_items, cfg.vocab_sparse)
+    batch = RecsysBatch(**{k: torch.as_tensor(v, device=dev)
+                           for k, v in arrays.items()})
+    with torch.no_grad():
+        users = l2_normalize(user_embedding(params, cfg, batch)).contiguous()
+        items = l2_normalize(params["item_table"])
+    del params
+    rng = np.random.default_rng(seed)
+    attrs_np = rng.integers(0, 8, (cfg.vocab_items, RETRIEVAL_M)).astype(
+        np.int16)
+    attrs = torch.as_tensor(attrs_np, device=dev)
+    t0 = time.perf_counter()
+    index, stats = build_ivf(
+        torch.Generator(dev).manual_seed(seed + 3),
+        HybridSpec(dim=cfg.embed_dim, n_attrs=RETRIEVAL_M,
+                   core_dtype=torch.float32), items, attrs,
+        n_clusters=RETRIEVAL_KC, kmeans_steps=RETRIEVAL_KMEANS, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"retrieval index: {cfg.vocab_items} SASRec item rows D="
+        f"{cfg.embed_dim} f32, K={index.n_clusters}, Vpad={index.vpad}, "
+        f"longest list {stats.max_list_len} (mean "
+        f"{stats.mean_list_len:.0f}); built in {build_s:.2f} s")
+    fspec = from_builders([FilterBuilder(RETRIEVAL_M).eq(0, u % 8).ge(2, 1)
+                           for u in range(RECSYS_BATCH)], device=dev)
+    kw = dict(k=RETRIEVAL_K, n_probes=RETRIEVAL_T)
+    ref = search_reference(index, users, fspec, **kw)
+    oracle = brute_force(items, attrs, users, fspec, k=RETRIEVAL_K)
+    engine = SearchEngine(index, q_block=64, prune="auto", **kw)
+
+    def timed(fn, reps=3):
+        res = fn()  # warm-up
+        times = []
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = fn()
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        return res, statistics.median(times)
+
+    before = launches()
+    paths = {}
+    paths["search_fused"] = timed(lambda: search_fused(index, users, fspec,
+                                                       **kw))
+    paths["engine"] = timed(lambda: engine.search(users, fspec))
+    after = launches()
+    searched = {k: after[k] - before[k] for k in after}
+    if not (searched["filtered_scan"] and searched["filtered_scan_tiled"]):
+        raise AssertionError(f"retrieval: a path missed its kernel "
+                             f"{searched}")
+    paths["search_reference"] = timed(
+        lambda: search_reference(index, users, fspec, **kw))
+    paths["brute_force"] = timed(
+        lambda: brute_force(items, attrs, users, fspec, k=RETRIEVAL_K))
+    fig = dict(build_s=build_s, vpad=index.vpad, kc=index.n_clusters,
+               max_list=stats.max_list_len, paths={})
+    rec_ref = recall_at_k(ref, oracle)
+    for name, (res, batch_ms) in paths.items():
+        rec = recall_at_k(res, oracle)
+        err = 0.0
+        if name in ("search_fused", "engine"):
+            err = check_topk(f"retrieval {name}", res.scores, res.ids,
+                             ref.scores, ref.ids)
+            if abs(rec - rec_ref) > 0.005:
+                raise AssertionError(f"retrieval {name}: recall {rec} "
+                                     f"against the reference's {rec_ref}")
+        ids = res.ids.cpu().numpy()
+        for u in range(RECSYS_BATCH):
+            live = ids[u][ids[u] >= 0]
+            if not ((attrs_np[live, 0] == u % 8).all()
+                    and (attrs_np[live, 2] >= 1).all()):
+                raise AssertionError(f"retrieval {name}: user {u}'s "
+                                     "candidates fail the filter")
+        fig["paths"][name] = dict(ms=batch_ms, recall=rec, max_abs_err=err)
+        log(f"retrieval {name}: batch of {RECSYS_BATCH} {batch_ms:.3f} ms "
+            f"(median of 3, CUDA events), recall@{RETRIEVAL_K} {rec:.4f} "
+            f"against brute force; every candidate passes its filter"
+            + (f"; equal to search_reference by the near-tie rule, max "
+               f"|err| {err:.3e}" if name in ("search_fused", "engine")
+               else ""))
+    plan = engine.plan(users, fspec)
+    probe_ids, _ = search_centroids(index, users, RETRIEVAL_T)
+    slot_query = torch.repeat_interleave(
+        torch.arange(RECSYS_BATCH, dtype=torch.int32, device=dev),
+        RETRIEVAL_T)
+    operands = dict(
+        tiled=((plan.slot_cluster, plan.slot_tile, plan.n_unique,
+                plan.queries_pad, plan.lo_pad, plan.hi_pad, index.vectors,
+                index.attrs, index.ids, None, None),
+               dict(metric="dot", k=RETRIEVAL_K, q_block=plan.q_block)),
+        per_probe=((probe_ids.reshape(-1).contiguous(), slot_query, users,
+                    fspec.lo.contiguous(), fspec.hi.contiguous(),
+                    index.vectors, index.attrs, index.ids, None, None), {}),
+        vpad=index.vpad, kc=index.n_clusters, d=cfg.embed_dim)
+    engine.close()
+    return fig, searched, operands
+
+
+def slice_kernels(dev, gen, operands):
+    """Phase 3i (c): both scans against their plain versions at the
+    slice's f32 widths (small shapes) and on the retrieval's full-size
+    D = 50 operands, k = 100, each timed beside its plain version and its
+    bound (the card's time alone).  Launches here are comparisons and
+    count nowhere."""
+    import torch
+
+    from repro_torch.kernels.filtered_scan import filtered_scan as fs_mod
+    from repro_torch.kernels.filtered_scan.ref import (
+        filtered_scan_ref, filtered_scan_tiled_ref, live_slots)
+
+    for kind, name, a, kw in width_cases(dev, gen):
+        if kind == "tiled":
+            got = fs_mod.filtered_scan_tiled(*a, **kw)
+            torch.cuda.synchronize()
+            err = check_scan(f"filtered_scan_tiled f32 {name}", got,
+                             *plain_scan(a, kw))
+        else:
+            got = fs_mod.filtered_scan(*a, **kw)
+            torch.cuda.synchronize()
+            err = check_scores(f"filtered_scan f32 {name}", got,
+                               filtered_scan_ref(*a, **kw))
+        log(f"{'filtered_scan_tiled' if kind == 'tiled' else 'filtered_scan'}"
+            f" f32 {name}: ok, max |err| {err:.3e}")
+    out = {}
+    a, kw = operands["tiled"]
+    d, vpad = operands["d"], operands["vpad"]
+    body = fs_mod.tiled_body(d, RETRIEVAL_M, 1, "dot", torch.float32,
+                             torch.float32)
+    err = check_scan("retrieval full size, tiled, D=50 k=100",
+                     fs_mod.filtered_scan_tiled(*a, **kw), *plain_scan(a, kw))
+    k_ms = ms(lambda: fs_mod.filtered_scan_tiled(*a, **kw), 10)
+    p_ms = ms(lambda: filtered_scan_tiled_ref(*a, **kw), 3)
+    plan_live = live_slots(a[1], a[2])
+    b_ms, byte_ms, op_ms, n_live, n_cl = tiled_bound(
+        a[0], plan_live, a[3], a[4], a[2], kw["q_block"], vpad,
+        k=RETRIEVAL_K, v_bytes=4, peak="f32", d=d)
+    out["filtered_scan_tiled"] = dict(
+        d=d, k=RETRIEVAL_K, body=body, live_slots=n_live, clusters=n_cl,
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by="bytes" if byte_ms >= op_ms else "operations",
+        max_abs_err=err)
+    log(f"filtered_scan_tiled retrieval full size (D={d} f32 x f32, "
+        f"{body} body, k={RETRIEVAL_K}): {n_live} live slots over {n_cl} "
+        f"clusters, Vpad {vpad}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+        f"bound {b_ms:.3f} ms (bytes {byte_ms:.3f}, f32 FMA ops "
+        f"{op_ms:.3f}), kernel / bound {k_ms / b_ms:.2f}; max |err| "
+        f"{err:.3e}")
+    a, kw = operands["per_probe"]
+    err = check_scores("retrieval full size, per-probe, D=50",
+                       fs_mod.filtered_scan(*a), filtered_scan_ref(*a))
+    k_ms = ms(lambda: fs_mod.filtered_scan(*a), 10)
+    p_ms = ms(lambda: filtered_scan_ref(*a), 3)
+    b = per_probe_bound(a[0], a[1], a[2], a[3], operands["kc"], vpad, d=d,
+                        m=RETRIEVAL_M, v_bytes=4)
+    out["filtered_scan"] = dict(d=d, slots=b["slots"], ms=k_ms,
+                                plain_ms=p_ms, bound_ms=b["bound_ms"],
+                                bound_by=b["bound_by"], max_abs_err=err)
+    log(f"filtered_scan retrieval full size (D={d} f32, scalar loads): "
+        f"P={b['slots']} slots over {b['clusters']} clusters, {b['pairs']} "
+        f"pairs; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}), kernel / bound "
+        f"{k_ms / b['bound_ms']:.2f}; max |err| {err:.3e}")
+    return out
+
+
+def slice_phase(dev, gen, seed, launches, reset_launches):
+    """Phase 3i: the examples, the recsys models under the Trainer, the
+    bit-for-bit restart and the SASRec retrieval at full width.  Launch
+    counts are set to 0 before and read after the examples and the
+    retrieval's searches.  Returns (fig, launches)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    fig = dict(mem_start=host_available() / 2**30)
+    reset_launches()
+    fig["examples"] = example_part(launches)
+    ex_launches = launches()
+    torch.cuda.empty_cache()
+    fig["recsys"] = recsys_step_part(dev, seed)
+    fig["restart"] = restart_part(dev, seed)
+    torch.cuda.empty_cache()
+    reset_launches()
+    fig["retrieval"], searched, operands = retrieval_part(dev, seed,
+                                                          launches)
+    fig["kernels"] = slice_kernels(dev, gen, operands)
+    del operands
+    torch.cuda.empty_cache()
+    fig["mem_end"] = trim_host_memory()
+    fig["secs"] = time.perf_counter() - t_phase
+    total = {k: ex_launches[k] + searched[k] for k in ex_launches}
+    return fig, total
+
+
+def print_phase_3i(fig):
+    ex = fig["examples"]
+    log("phase 3i examples (s): " + ", ".join(
+        f"{name} {secs:.2f}" for name, (secs, _) in ex.items()))
+    for r in fig["recsys"]:
+        steady = r["step_ms"][1:] or r["step_ms"]
+        log(f"phase 3i {r['arch']} {r['optimizer']}: step "
+            f"{statistics.median(steady):.3f} ms (steps 2-{RECSYS_STEPS}; "
+            f"first {r['step_ms'][0]:.3f}), peak {r['peak_gib']:.2f} GiB, "
+            f"{r['params']} parameters" + (f"; cut: {r['cut']}" if r["cut"]
+                                           else ""))
+    ret = fig["retrieval"]
+    log("phase 3i retrieval: " + ", ".join(
+        f"{name} {p['ms']:.3f} ms recall@{RETRIEVAL_K} {p['recall']:.4f}"
+        for name, p in ret["paths"].items())
+        + f"; build {ret['build_s']:.2f} s")
+    log(f"phase 3i: host MemAvailable {fig['mem_start']:.2f} GiB at the "
+        f"start, {fig['mem_end']:.2f} at the end; {fig['secs']:.2f} s")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3225,6 +3818,16 @@ def main(argv=None):
         err = check_scores(name, got, filtered_scan_ref(*a, **kw))
         log(f"filtered_scan {name}: ok, max |err| {err:.3e}")
     log(f"phase 2 (kernel checks) {time.perf_counter() - t0:.2f} s")
+
+    # ---- phase 3i: the examples, training and the recsys models (first
+    # of the phases: the host's and the card's memory are at their freest)
+    t0 = time.perf_counter()
+    slice_fig, slice_launches = slice_phase(dev, gen, args.seed, launches,
+                                            reset_launches)
+    print_phase_3i(slice_fig)
+    log(f"phase 3i (examples, training, recsys) {time.perf_counter() - t0:.2f}"
+        f" s; {time.perf_counter() - t_all:.2f} s since start; launches "
+        f"{slice_launches}")
 
     # ---- phase 3: the main path at real size ----
     t0 = time.perf_counter()
@@ -3545,7 +4148,8 @@ def main(argv=None):
                   + f_launches
                   + sum(ring_launches.values())
                   + shard_launches["filtered_scan_tiled"]
-                  + live_launches["filtered_scan_tiled"]),
+                  + live_launches["filtered_scan_tiled"]
+                  + slice_launches["filtered_scan_tiled"]),
         max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by="bytes" if byte_ms >= op_ms else "operations",
@@ -3555,6 +4159,7 @@ def main(argv=None):
                   max_abs_err=w_err),
         f32={k: build_fig["f32"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "vpad")},
+        recsys=slice_fig["kernels"]["filtered_scan_tiled"],
     )]
 
     # the sharded tiled backend's own operands: f32 queries against the
@@ -3633,7 +4238,8 @@ def main(argv=None):
         source="src/repro_torch/kernels/centroid_topk/csrc/centroid_topk.cu",
         replaces="src/repro/kernels/centroid_topk/centroid_topk.py:82",
         launches=(sharded_launches["centroid_topk"]
-                  + shard_launches["centroid_topk"]), max_abs_err=ct_err,
+                  + shard_launches["centroid_topk"]
+                  + slice_launches["centroid_topk"]), max_abs_err=ct_err,
         ms=ct_ms, plain_ms=ct_plain, bound_ms=max(ct_byte_ms, ct_op_ms),
         bound_by="bytes" if ct_byte_ms >= ct_op_ms else "operations",
         library_ms=ct_lib,
@@ -3680,10 +4286,11 @@ def main(argv=None):
         source="src/repro_torch/kernels/filtered_scan/csrc/filtered_scan.cu",
         replaces="src/repro/kernels/filtered_scan/filtered_scan.py:160",
         launches=(sharded_launches["filtered_scan"]
-                  + shard_launches["filtered_scan"]),
+                  + shard_launches["filtered_scan"]
+                  + slice_launches["filtered_scan"]),
         max_abs_err=uni["max_abs_err"], ms=uni["ms"], plain_ms=uni["plain_ms"],
         bound_ms=uni["bound_ms"], bound_by=uni["bound_by"], library_ms=None,
-        mixes=fs_mixes,
+        mixes=fs_mixes, recsys=slice_fig["kernels"]["filtered_scan"],
     ))
     log(f"phase 4 (kernel timing) {time.perf_counter() - t0:.2f} s; total "
         f"{time.perf_counter() - t_all:.2f} s")

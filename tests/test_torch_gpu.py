@@ -1291,3 +1291,254 @@ def test_launcher_on_card(cuda, tmp_path):
     assert out["stats"]["requests"] == 48 and disk["stats"]["requests"] == 32
     assert disk["metrics"]["device_cache.puts"] > 0
     assert disk["delta"]["commits"] >= 1
+
+
+# ---- the NCCL branch, the examples, training and recsys on the card ----
+
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("d", [18, 32, 50])
+def test_tiled_kernel_f32_at_the_recsys_widths(cuda, d, k):
+    """The f32 x f32 body at the recsys embedding widths (D = 50 is no
+    multiple of 8: the scalar staging) and the retrieval's k = 100."""
+    args, kw = _case("dot-f32", 1, cuda, d=d, k=k, vpad=260)
+    before = tfs.LAUNCHES
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES == before + 1
+    _assert_close(got, *_plain_with_next(args, kw))
+
+
+@pytest.mark.parametrize("d", [18, 32, 50])
+def test_filtered_scan_f32_at_the_recsys_widths(cuda, d):
+    """The per-probe kernel where D·4 is no multiple of 16 (18, 50: the
+    scalar loads) and where it is (32)."""
+    args, kw = _legacy_case("dot-f32", 1, cuda, d=d)
+    before = tfs.PER_PROBE_LAUNCHES
+    got = tfs.filtered_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfs.PER_PROBE_LAUNCHES == before + 1
+    _assert_scores_close(got, filtered_scan_ref(*args, **kw))
+
+
+def _one_rank_nccl_main(rank, work):
+    """The only rank of a one-card group: ``choose_backend(1, "cuda")``
+    takes NCCL.  The sharded search on a (1, 1) mesh through both backends
+    and ``sharded_embedding_bag`` over the mesh's model group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.recsys import sharded_embedding_bag
+
+    backend = tmesh.init_process_group(rank, 1,
+                                       init_method=f"file://{work}/store",
+                                       timeout_s=120)
+    try:
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+        qs, fspec = _sharded_batch()
+        out = {"backend": np.array(backend)}
+        shard = tdist.local_shard(_index("dot-f32", "cuda"), 0, 1)
+        for name in ("pallas", "pallas_tiled"):
+            fn, _ = tdist.make_sharded_search(
+                "dot", q_total=qs.shape[0], n_clusters=16, mesh=mesh,
+                cfg=tdist.ShardedSearchConfig(k=10, n_probes=4,
+                                              scan_q_block=16, backend=name))
+            res = fn(shard, qs.cuda(), fspec.to("cuda"))
+            out[f"{name}/ids"] = res.ids.cpu().numpy()
+            out[f"{name}/scores"] = res.scores.cpu().numpy()
+        table, ids = _bag_data()
+        for mode in ("sum", "mean"):
+            out[f"bag/{mode}"] = sharded_embedding_bag(
+                table.cuda(), ids.cuda(), mesh, mode=mode).cpu().numpy()
+        np.savez(os.path.join(work, "nccl.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _bag_data():
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 50, (9, 6)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.3] = -1
+    return (torch.from_numpy(rng.standard_normal((50, 8)).astype(np.float32)),
+            torch.from_numpy(ids))
+
+
+def test_one_rank_nccl_group_matches_the_meshless_search(cuda, tmp_path):
+    """A spawned rank alone on the card takes the NCCL branch; its sharded
+    search on a (1, 1) mesh equals the search without a mesh, and the
+    sharded embedding bag over its model group the plain bag."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.models.recsys import embedding_bag
+
+    mp.start_processes(_one_rank_nccl_main, args=(str(tmp_path),), nprocs=1,
+                       start_method="spawn")  # joins; re-raises
+    got = np.load(tmp_path / "nccl.npz")
+    assert str(got["backend"]) == "nccl"
+    qs, fspec = _sharded_batch()
+    for name in ("pallas", "pallas_tiled"):
+        fn, _ = tdist.make_sharded_search(
+            "dot", q_total=qs.shape[0], n_clusters=16,
+            cfg=tdist.ShardedSearchConfig(k=10, n_probes=4, scan_q_block=16,
+                                          backend=name))
+        want = fn(_index("dot-f32", cuda), qs.to(cuda), fspec.to(cuda))
+        np.testing.assert_array_equal(got[f"{name}/ids"],
+                                      want.ids.cpu().numpy())
+        np.testing.assert_array_equal(got[f"{name}/scores"],
+                                      want.scores.cpu().numpy())
+    table, ids = _bag_data()
+    for mode in ("sum", "mean"):
+        np.testing.assert_allclose(
+            got[f"bag/{mode}"], embedding_bag(table, ids, mode=mode).numpy(),
+            rtol=1e-6, atol=1e-7)
+
+
+def _load_example(name):
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples", "torch",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"card_example_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_examples_on_card(cuda, tmp_path):
+    """Each port example on the card at a tiny size, with its claims held
+    and its search paths through the kernels."""
+    before = (tfs.LAUNCHES, tfs.PER_PROBE_LAUNCHES)
+    out = _load_example("quickstart").main(["--n", "5000"])
+    assert out["fused_identical"] and out["self_ids"] == list(
+        range(5000, 5005))
+    assert tfs.PER_PROBE_LAUNCHES > before[1]
+    out = _load_example("kmeans_index_build").main(["--n", "8000"])
+    assert out["lloyd"]["recall"] >= out["minibatch"]["recall"]
+    assert out["restored_recall"] == out["lloyd"]["recall"]
+    out = _load_example("filtered_search_serving").main(
+        ["--n", "8000", "--requests", "48", "--term-n", "4000",
+         "--part-n", "6000"])
+    assert out["responses_equal"] and out["routed_rows"] < out["flat_rows"]
+    assert tfs.LAUNCHES > before[0]
+    out = _load_example("train_embedder").main(
+        ["--steps", "60", "--corpus", "3000", "--ckpt-dir", str(tmp_path)])
+    assert out["losses"][-1] < out["losses"][0] / 10
+    assert out["recall"] >= 0.6 and out["hit1"] >= 0.85
+    out = _load_example("recsys_retrieval").main(["--items", "20000"])
+    assert out["filters_ok"] and out["n_cand"] == 100
+
+
+RECSYS = ("din", "sasrec", "bst", "wide_deep")
+
+
+def _recsys_trainer(arch, dev, params, optimizer="adamw", ckpt_dir=None,
+                    total=3):
+    import importlib
+
+    from repro_torch.models.recsys import RecsysBatch, loss_fn
+    from repro_torch.train.train_loop import Trainer, TrainLoopConfig
+
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").smoke_config()
+    tcfg = TrainLoopConfig(total_steps=total, ckpt_every=2, ckpt_dir=ckpt_dir,
+                           log_every=100, lr=1e-3, warmup=0,
+                           optimizer=optimizer)
+    return cfg, Trainer(lambda p, b: loss_fn(p, cfg, RecsysBatch(**b)),
+                        params, tcfg, device=dev)
+
+
+def _recsys_feeder(cfg):
+    from repro_torch.data import ShardedFeeder, recsys_batch
+
+    return ShardedFeeder(
+        lambda s, i: recsys_batch(s, i, 64, cfg.seq_len, cfg.n_dense,
+                                  cfg.n_sparse, cfg.vocab_items,
+                                  cfg.vocab_sparse), seed=0)
+
+
+def _recsys_params(arch):
+    import importlib
+
+    from repro_torch.models.recsys import init_params
+
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").smoke_config()
+    return init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+
+def _train_leaves(trainer):
+    from repro_torch.train.tree import leaves_with_paths
+
+    return {"/".join(p): x.detach().cpu()
+            for p, x in leaves_with_paths({"params": trainer.params,
+                                           "opt": trainer.opt_state})}
+
+
+@pytest.mark.parametrize("arch,optimizer", [(a, "adamw") for a in RECSYS]
+                         + [("wide_deep", "adafactor")])
+def test_recsys_step_on_card_matches_cpu(cuda, arch, optimizer):
+    """One Trainer step of each smoke config on the card against the same
+    step on the CPU from the same parameters: the loss and the optimizer
+    state within rtol 1e-4; the parameters too, but for at most 0.1% of a
+    leaf's elements, which may differ by up to 2·lr: a first step is
+    g / (|g| + eps) an element, so a gradient at f32 rounding level (a sum
+    that cancels) takes another size or sign on the other device."""
+    from repro_torch.train.checkpoint import params_from_numpy
+    from repro_torch.train.tree import tree_map
+
+    host = tree_map(lambda x: x.numpy(), _recsys_params(arch))
+    runs = []
+    for dev in ("cpu", cuda):
+        cfg, trainer = _recsys_trainer(arch, dev,
+                                       params_from_numpy(host, dev),
+                                       optimizer)
+        feeder = _recsys_feeder(cfg)
+        try:
+            hist = trainer.run(feeder, max_steps=1)
+        finally:
+            feeder.close()
+        runs.append((hist, trainer))
+    (ch, ct), (gh, gt) = runs
+    assert gt.params["item_table"].device.type == cuda.type
+    np.testing.assert_allclose(gh["loss"], ch["loss"], rtol=1e-4)
+    cl, gl = _train_leaves(ct), _train_leaves(gt)
+    lr = ct.cfg.lr
+    for key in cl:
+        want, got = cl[key].numpy(), gl[key].numpy()
+        if not key.startswith("params/"):
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6,
+                                       err_msg=key)
+            continue
+        err = np.abs(got - want)
+        off = err > 1e-4 * np.abs(want) + 1e-6
+        assert off.sum() <= 1e-3 * want.size, (key, int(off.sum()))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6 + 2 * lr,
+                                   err_msg=key)
+
+
+def test_recsys_restart_on_card_is_bit_for_bit(cuda, tmp_path):
+    """sasrec (duplicate ids in every batch): 4 steps straight against 2
+    steps, a checkpoint, a fresh Trainer and 2 more — identical parameters
+    and optimizer state bit for bit."""
+    params = _recsys_params("sasrec")
+
+    def run(ckpt, max_steps=None):
+        from repro_torch.train.checkpoint import params_from_numpy
+        from repro_torch.train.tree import tree_map
+
+        cfg, trainer = _recsys_trainer(
+            "sasrec", cuda, params_from_numpy(
+                tree_map(lambda x: x.numpy(), params), cuda),
+            ckpt_dir=str(ckpt), total=4)
+        feeder = _recsys_feeder(cfg)
+        try:
+            trainer.run(feeder, max_steps=max_steps)
+        finally:
+            feeder.close()
+        return trainer
+
+    straight = run(tmp_path / "a")
+    assert run(tmp_path / "b", max_steps=2).step == 2
+    resumed = run(tmp_path / "b")
+    assert resumed.step == straight.step == 4
+    want, got = _train_leaves(straight), _train_leaves(resumed)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
