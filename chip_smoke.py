@@ -72,8 +72,8 @@ Phases:
      against an f64 argmax), the lists' lengths and what the scatter would
      allocate (``build_ivf`` itself where that fits); and the launcher's
      own build path at the largest N whose index the card holds (capped for
-     the host's numpy data), with the tiled kernel's f32 x f32 time on its
-     index;
+     the host's numpy data and at LAUNCH_BUILD_MAX_N for the run's time),
+     with the tiled kernel's f32 x f32 time on its index;
   3g. (run between 3f and 3d, on 3c's checkpoint) the sharded ring: a
      loopback ``open_sharded`` ring of 3 peers, each caching a third of
      3c's budget, the disk index's own store as the fallback, through both
@@ -131,6 +131,23 @@ Phases:
      their plain versions at D = 18, 32, 50, 64 f32 and on the retrieval's
      full-size operands (timed beside plain and bound).  The examples' and
      the retrieval's launches count into the kernels line;
+  3j. (run right after 3i) DimeNet, the LM family and the training
+     launcher: chatglm3-6b, gemma3-12b and deepseek-moe-16b at their
+     published widths and depths, and deepseek-v3-671b at its widths cut to
+     4 layers (3 dense + 1 MoE of 256 experts), bf16, drawn on the card:
+     ``prefill`` of 4 prompts of 1024 tokens (s_max 2048), 16 greedy
+     ``decode_step``s, each step's logits held against one ``forward`` over
+     the 1040 tokens (``attn_block_k`` 16) within a bf16 tolerance, timed
+     beside the FLOP and HBM bounds; ``scaled_dot_product_attention`` on
+     gemma's prefill q, k, v beside the port's ``flash_attention`` (off the
+     path); the five smoke configs on the card against the CPU (forward,
+     ``lm_loss`` and its gradients, prefill + 8 decode steps); two gloo
+     ranks on the card running the expert-parallel forward with both
+     combines; ``launch.train.main`` for the ten archs at smoke size, 3 steps
+     each, the first held against the CPU; deepseek-moe-16b at full width
+     cut to 2 layers and DimeNet at minibatch_lg's pads, 3 ``Trainer``
+     steps each; a bf16 restart bit for bit.  No kernel of the port is on
+     this path (its launch counts are read and stay 0);
   4. each kernel on one full-size batch: held against its plain version,
      timed beside its bound (and beside ``torch.matmul`` + ``torch.topk``
      for centroid_topk); filtered_scan_tiled on both of its full-size
@@ -1424,7 +1441,8 @@ def print_live(fig):
 DEVICE_CACHE_MB = 8192  # about half of the 15.8 GB of cluster records
 PART_ATTR = 1  # attr1: uniform over 16 values, one per-value entry each
 PART_MAX_SUBS = 4096  # build_partitions' default cap
-PART_WARMUP, PART_BATCHES = 1, 2  # per (executor, mix, routing) in phase 3e
+# per (executor, mix, routing) in phase 3e (1 timed: the run's time)
+PART_WARMUP, PART_BATCHES = 1, 1
 TERM_WARMUP, TERM_BATCHES = 1, 3  # per (mix, termination) in phase 3e
 EPSILON = 0.1
 
@@ -1880,6 +1898,10 @@ LAUNCH_REQUESTS = 10 * LAUNCH_BATCH  # 10 full batches
 # synthetic_embeddings' host peak a row: the f64 draw beside its f32 copy
 # and the gathered centre rows, plus an int64 attribute column
 HOST_ROW_BYTES = DIM * (8 + 4 + 4) + M_ATTRS * 2 + 8
+# the launcher's build path stops here, below what the card and the host
+# hold: its host-side data and build grow with N (171 s at 4.4M), and the
+# whole run keeps under its time budget
+LAUNCH_BUILD_MAX_N = 2_500_000
 
 
 def run_launcher(argv):
@@ -2156,7 +2178,7 @@ def build_part(args, dev, launches, reset_launches):
         n_fit += 100_000
     avail = host_available()
     n_host = int(0.85 * avail / HOST_ROW_BYTES) // 100_000 * 100_000
-    n_run = min(n_fit, n_host)
+    n_run = min(n_fit, n_host, LAUNCH_BUILD_MAX_N)
     fig.update(share=share, n_fit=n_fit, n_host=n_host, host_avail=avail,
                n_run=n_run, reckoned=need(n_run))
     torch.cuda.synchronize()
@@ -2260,9 +2282,12 @@ def print_phase_3f(sfig, bfig):
         f"{HOST_ROW_BYTES} B a row; run at N={b['n_run']} (reckoned "
         f"{b['reckoned'] / 1e9:.2f} GB on the card)")
     if b["n_run"] < b["n_fit"]:
+        why = (f"the host's MemAvailable holds its numpy data only to "
+               f"N={b['n_host']}" if b["n_run"] == b["n_host"] else
+               f"LAUNCH_BUILD_MAX_N (the run's time: the host's data and "
+               f"build took 171 s at N=4.4M)")
         log(f"phase 3f cut: the launcher's build path at N={b['n_run']}, not "
-            f"{b['n_fit']}: the host's MemAvailable holds its numpy data "
-            f"only to N={b['n_host']}")
+            f"{b['n_fit']}: {why}")
     r = b["launcher"]
     log(f"launcher build path N={b['n_run']}: {r['secs']:.2f} s with data "
         f"and build; index Vpad {r['vpad']} (max list {r['max_len']}), "
@@ -2285,8 +2310,13 @@ def print_phase_3f(sfig, bfig):
 
 RING_NODES = 3
 RING_WARMUP, RING_BATCHES = 1, 2  # per (transport, executor, mix) in 3g
+# timed batches over the socket wire (a hot batch moves 4.9 GB, ~17 s;
+# cut from RING_BATCHES for the run's time limit)
+SOCKET_BATCHES = 1
 RING_REQUESTS = 5 * Q  # the ring launcher's --requests
-RING_SOCKET_UNIFORM_S = 100.0  # socket runs uniform once if 3g is younger
+# socket runs uniform once if 3g is younger than this; 0 cuts it (a
+# uniform batch moves 6.7 GB over the wire, ~18 s: the run's time limit)
+RING_SOCKET_UNIFORM_S = 0.0
 CHAOS_LATENCY_S = 0.2  # the browned-out peer's added latency a fetch
 CHAOS_BREAKER = dict(failure_threshold=1, cooldown_s=1.0,
                      half_open_successes=1, brownout_latency_s=0.1,
@@ -2525,18 +2555,21 @@ def ring_socket_part(run, rate):
     """(b) the same over the socket wire: the sync executor on hot and
     hot_window, the pipelined one on hot_window (cut: a hot batch moves
     ~4.9 GB over the wire, ~13 s, and the sync executor already gives its
-    rate); uniform once, sync, while the phase is under
-    RING_SOCKET_UNIFORM_S old.  The fetch's own read and assembly rates on
+    rate), SOCKET_BATCHES timed batches after the warm-up; uniform once,
+    sync, while the phase is under RING_SOCKET_UNIFORM_S old (0: never).
+    The fetch's own read and assembly rates on
     the last sync batch's plan are logged beside the wire's."""
     from repro_torch.core.transport import _encode_records
 
-    n_run = RING_WARMUP + RING_BATCHES
+    n_run = RING_WARMUP + SOCKET_BATCHES
     ring = run.ring("socket")
     try:
         run.fig["wire_record"] = len(_encode_records(
             run.disk.blockstore.get([0])))
         log("phase 3g cut: the pipelined executor over the socket ring runs "
             "hot_window only (a hot batch moves ~4.9 GB over the wire)")
+        log(f"phase 3g cut: {SOCKET_BATCHES} timed socket batch a (executor, "
+            f"mix) after the warm-up, not {RING_BATCHES} (the run's time)")
         for pipeline, mixes in (("off", ("hot", "hot_window")),
                                 ("on", ("hot_window",))):
             eng = run.engine(ring, pipeline)
@@ -2560,7 +2593,8 @@ def ring_socket_part(run, rate):
                     run.fig["b", "off", "uniform"] = ring_row(rows)
                 else:
                     log(f"phase 3g cut: socket uniform not run (phase 3g "
-                        f"already {age:.1f} s old)")
+                        f"{age:.1f} s old, past RING_SOCKET_UNIFORM_S = "
+                        f"{RING_SOCKET_UNIFORM_S:g})")
             finally:
                 eng.close()
     finally:
@@ -3164,6 +3198,9 @@ RECSYS_STEPS = 3  # Trainer steps of each config on the card
 RESTART_STEPS = 4  # sasrec straight, against half, a checkpoint and half
 RECSYS_LR = 1e-3
 CPU_STEP_BYTES = 8  # host bytes a CPU step holds per parameter byte
+# runs whose first card step is not held against a CPU step (each wide_deep
+# CPU step takes 20-30 s of host work)
+CPU_STEP_CUT = {("wide_deep", "adafactor")}
 RETRIEVAL_K, RETRIEVAL_T = 100, 16
 RETRIEVAL_KC, RETRIEVAL_KMEANS = 1024, 60
 RETRIEVAL_M = 4  # category, price bucket, in stock, region
@@ -3359,6 +3396,26 @@ def recsys_step_part(dev, seed):
             del trainer
             torch.cuda.empty_cache()
             mem_before = host_available() / 2**30
+            if (arch, optimizer) in CPU_STEP_CUT:
+                cut = ("no CPU step: the run's time (its CPU parity stands "
+                       "in the card tests at smoke size)")
+                log(f"phase 3i cut: {arch} {optimizer} {cut}")
+                del host, first
+                trim_host_memory()
+                rows.append(dict(
+                    arch=arch, optimizer=optimizer, cut=cut, params=n_params,
+                    param_gib=nbytes / 2**30, losses=losses + more,
+                    step_ms=step_ms + more_ms, peak_gib=peak, cpu_s=None,
+                    cpu_loss=None, max_rel=None, outliers=None,
+                    mem_before=mem_before, mem_cpu=None))
+                log(f"recsys {arch} {optimizer}: {n_params} parameters "
+                    f"({nbytes / 2**30:.2f} GiB), losses "
+                    f"{[round(x, 6) for x in losses + more]}, step ms "
+                    f"{[round(x, 3) for x in step_ms + more_ms]}, peak "
+                    f"{peak:.2f} GiB on the card")
+                if not all(np.isfinite(losses + more)):
+                    raise AssertionError(f"{arch} {optimizer}: losses")
+                continue
             t0 = time.perf_counter()
             cpu = recsys_trainer(run_cfg, host, optimizer, "cpu")
             del host
@@ -3726,6 +3783,760 @@ def print_phase_3i(fig):
         f"start, {fig['mem_end']:.2f} at the end; {fig['secs']:.2f} s")
 
 
+# ---- phase 3j: DimeNet, the LM family and the training launcher ----
+
+LM_SERVE = ("chatglm3_6b", "gemma3_12b", "deepseek_moe_16b",
+            "deepseek_v3_671b")
+LM_SMOKE = ("chatglm3_6b", "deepseek_moe_16b", "deepseek_v3_671b",
+            "gemma3_12b", "gemma3_27b")
+LAUNCH_ARCHS = ("chatglm3-6b", "deepseek-moe-16b", "deepseek-v3-671b",
+                "gemma3-12b", "gemma3-27b", "dimenet", "bst", "din",
+                "sasrec", "wide-deep")
+V3_LAYERS = 4  # deepseek-v3 cut: its 3 dense lead layers + 1 MoE layer
+SERVE_B, SERVE_PROMPT, SERVE_SMAX, SERVE_STEPS = 4, 1024, 2048, 16
+CHECK_BLOCK_K = 16  # forward over 1040 tokens: 1040 % 16 == 0
+# Decode against forward at full width, in bf16: the tolerance is the bf16
+# rounding noise between two orders of the same sum, measured in the run:
+# the largest |prefill - forward| over the prompt's last NOISE_TAIL
+# positions (one attention block of 1024 against 64 blocks of 16, and the
+# matmuls at 1024 rows against 1040), times NOISE_FACTOR for the decode
+# path's third order (one-row matmuls, attention over the cache); never
+# below one bf16 step of the largest logit.
+NOISE_TAIL = 16
+NOISE_FACTOR = 4.0
+SMOKE_DECODE_STEPS = 8
+TRAIN_LR = 1e-3
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S = 2, 8, 1024
+DIMENET_NODES, DIMENET_DEGREE = 232_965, 50  # Reddit (minibatch_lg)
+DIMENET_SEEDS, DIMENET_FANOUTS = 512, (25, 10)
+DIMENET_PADS = (172_032, 172_032, 2_064_384)  # launch/specs.py minibatch_lg
+DIMENET_TRIP_PER_EDGE = 12
+TRAIN_STEPS = 3
+EP_RANKS = 2
+
+
+def lm_module(name):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def param_bytes(tree):
+    from repro_torch.train.tree import leaves
+
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def lm_serve_one(name, dev, seed):
+    """Phase 3j (a), one model at full width, bf16, drawn on the card:
+    prefill of SERVE_B prompts of SERVE_PROMPT tokens (s_max SERVE_SMAX),
+    SERVE_STEPS greedy decode steps, then one forward over prompt +
+    generated (attn_block_k CHECK_BLOCK_K) whose logits at the decoded
+    positions hold each step's.  MoE models run at the published capacity
+    factor unless the forward drops (token, choice) pairs there, then at the
+    smallest doubling that drops none (printed)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.models import decoding as dec
+    from repro_torch.models import transformer as tr
+
+    cfg = lm_module(name).config()
+    cut = None
+    if name == "deepseek_v3_671b":
+        cfg = dataclasses.replace(cfg, n_layers=V3_LAYERS)
+        cut = (f"n_layers 61 -> {V3_LAYERS} (the 3 dense lead layers + 1 MoE "
+               "layer of 256 experts; widths as published)")
+        log(f"phase 3j cut: deepseek-v3-671b {cut}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tr.init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                            device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve_params = {k: v for k, v in params.items() if k != "mtp"}
+    w_bytes = param_bytes(serve_params)
+    prompt = torch.from_numpy(lm_batch(seed, 0, SERVE_B, SERVE_PROMPT,
+                                       cfg.vocab_size)["tokens"]).to(dev)
+
+    def serve(cfg):
+        # a first prefill loads the kernels (the card's lazy module loading,
+        # cuBLAS's choices); the second is timed
+        dec.prefill(params, cfg, prompt, SERVE_SMAX)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, cache = dec.prefill(params, cfg, prompt, SERVE_SMAX)
+        ev[1].record()
+        tok = torch.argmax(logits[:, -1], -1).int()
+        tail = logits[:, -NOISE_TAIL:].float()
+        del logits
+        ev[1].synchronize()
+        prefill_ms = ev[0].elapsed_time(ev[1])
+        dparams = dec.decode_layout(params, cfg)
+        toks, steps, step_ms = [tok], [], []
+        for i in range(SERVE_STEPS):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            lg, cache = dec.decode_step(dparams, cfg, cache, toks[-1],
+                                        SERVE_PROMPT + i)
+            e1.record()
+            e1.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+            steps.append(lg.float())
+            toks.append(torch.argmax(lg, -1).int())
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for pair in cache.values() for x in pair)
+        del dparams, cache
+        return prefill_ms, step_ms, tail, steps, toks, cache_bytes
+
+    @torch.no_grad()
+    def check_forward(cfg, toks):
+        seq = torch.cat([prompt, torch.stack(toks[:SERVE_STEPS], 1)], 1)
+        h, aux = tr.forward(params, dataclasses.replace(
+            cfg, attn_block_k=CHECK_BLOCK_K), seq)
+        lg = tr.logits_from_hidden(params, cfg,
+                                   h[:, SERVE_PROMPT - NOISE_TAIL:])
+        dropped = int(aux["moe_dropped"]) if cfg.moe else 0
+        return lg.float(), dropped
+
+    @torch.no_grad()
+    def prompt_dropped(cfg):
+        _, aux = tr.forward(params, cfg, prompt)
+        return int(aux["moe_dropped"])
+
+    cf_note = None
+    if cfg.moe is not None:
+        cf = cfg.moe.capacity_factor
+        while True:
+            run_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cf))
+            d_prompt = prompt_dropped(run_cfg)
+            if d_prompt == 0:
+                break
+            log(f"phase 3j: {cfg.name} drops {d_prompt} (token, choice) "
+                f"pairs of the prompt at capacity factor {cf}")
+            cf *= 2
+        if cf != cfg.moe.capacity_factor:
+            cf_note = (f"capacity factor {cfg.moe.capacity_factor} -> {cf}: "
+                       "random weights route unevenly; the check needs "
+                       "prefill and forward to drop nothing")
+            log(f"phase 3j cut: {cfg.name} {cf_note}")
+        cfg = run_cfg
+    prefill_ms, step_ms, tail, steps, toks, cache_bytes = serve(cfg)
+    want, dropped = check_forward(cfg, toks)
+    if dropped:
+        raise AssertionError(f"{cfg.name}: the check forward dropped "
+                             f"{dropped} (token, choice) pairs")
+    # never below one bf16 step (2^-8 relative) of the largest logit
+    floor = max(float((tail - want[:, :NOISE_TAIL]).abs().max()),
+                2.0 ** -8 * float(want.abs().max()))
+    tol = NOISE_FACTOR * floor
+    errs, mism = [], 0
+    # position SERVE_PROMPT - 1 (prefill's next token), then each step's
+    for i, got in enumerate([tail[:, -1]] + steps):
+        w = want[:, NOISE_TAIL - 1 + i]
+        err = float((got - w).abs().max())
+        errs.append(err)
+        if i and err > tol:
+            raise AssertionError(f"{cfg.name} decode step {i - 1}: |decode - "
+                                 f"forward| {err:.4f} > {tol:.4f}")
+        top2 = torch.topk(w, 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        differ = torch.argmax(got, -1) != torch.argmax(w, -1)
+        if bool((differ & (gap >= 2 * tol)).any()):
+            raise AssertionError(f"{cfg.name} position {SERVE_PROMPT - 1 + i}"
+                                 ": greedy token differs where forward's "
+                                 f"top-two gap is above {2 * tol:.4f}")
+        mism += int(differ.sum())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = SERVE_B * SERVE_PROMPT
+    row = dict(
+        name=cfg.name, cut=cut, cf_note=cf_note, n_params=cfg.n_params(),
+        n_active=cfg.n_active_params(), layers=cfg.n_layers, init_s=init_s,
+        prefill_ms=prefill_ms,
+        prefill_bound_ms=2 * cfg.n_active_params() * tokens
+        / PEAK_OPS["bf16"] * 1e3,
+        decode_ms=statistics.median(step_ms), decode_first_ms=step_ms[0],
+        decode_bound_ms=(w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        weight_gib=w_bytes / 2**30, cache_gib=cache_bytes / 2**30,
+        peak_gib=peak, max_err=max(errs[1:]), noise_floor=floor, tol=tol,
+        token_mismatch=mism)
+    log(f"lm {cfg.name}: {row['n_params']} params ({row['weight_gib']:.2f} "
+        f"GiB served), drawn in {init_s:.2f} s; prefill {SERVE_B}x"
+        f"{SERVE_PROMPT} {prefill_ms:.3f} ms (FLOP bound "
+        f"{row['prefill_bound_ms']:.3f}); decode {row['decode_ms']:.3f} ms a "
+        f"token (first {step_ms[0]:.3f}; HBM bound "
+        f"{row['decode_bound_ms']:.3f}: weights + {row['cache_gib']:.3f} GiB "
+        f"cache); peak {peak:.2f} GiB; {SERVE_STEPS} steps against forward "
+        f"(attn_block_k {CHECK_BLOCK_K}): max |err| {max(errs[1:]):.4f} <= "
+        f"tol {tol:.4f} ({NOISE_FACTOR:g} x the bf16 noise floor "
+        f"{floor:.4f}, |prefill - forward| over the prompt's last "
+        f"{NOISE_TAIL} positions); errors by step "
+        f"{[round(e, 4) for e in errs[1:]]}; greedy tokens differ at {mism} "
+        f"of {SERVE_B * (SERVE_STEPS + 1)} (each where forward's top-two gap "
+        f"< 2 tol)")
+    if name == "gemma3_12b":
+        row["sdpa"] = sdpa_yardstick(params, cfg, prompt)
+    del params, serve_params, want, steps, tail
+    torch.cuda.empty_cache()
+    return row
+
+
+def sdpa_yardstick(params, cfg, prompt):
+    """Off the path: ``scaled_dot_product_attention`` on gemma's layer-0
+    prefill q, k, v beside the port's ``flash_attention`` (both timed on
+    the card alone)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import (
+        apply_rope, flash_attention, rms_norm, rope_tables)
+
+    torch.set_grad_enabled(False)
+    blk = tr.layer(params["blocks"], 0)
+    p = blk["attn"]
+    x = rms_norm(tr._embed(params, cfg, prompt), blk["ln1"], cfg.norm_eps)
+    b, s, _ = x.shape
+    q = rms_norm((x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head),
+                 p["q_norm"], cfg.norm_eps)
+    k = rms_norm((x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head),
+                 p["k_norm"], cfg.norm_eps)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    sin, cos = rope_tables(torch.arange(s, device=x.device), cfg.d_head,
+                           cfg.rope_theta)
+    q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+    window = int(cfg.window_pattern()[0])
+
+    def plain():
+        return flash_attention(q, k, v, window=window,
+                               block_k=min(cfg.attn_block_k, s))
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    causal = window == 0 or window >= s  # the window covers the prompt
+    pos = torch.arange(s, device=x.device)
+    dist = pos[:, None] - pos[None, :]
+    mask = None if causal else (dist >= 0) & (dist < window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal,
+            enable_gqa=True).transpose(1, 2)
+
+    err = float((plain().float() - sdpa().float()).abs().max())
+    out = dict(shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+               window=window, plain_ms=ms(plain, 5), sdpa_ms=ms(sdpa, 20),
+               max_abs_err=err)
+    log(f"yardstick (off the path): gemma3-12b layer-0 prefill attention "
+        f"q [{b}, {s}, {cfg.n_heads}, {cfg.d_head}] {q.dtype}, k/v "
+        f"{cfg.n_kv_heads} heads, window {window} ("
+        + ("is_causal" if causal else "a boolean mask") + " to SDPA): "
+        f"flash_attention {out['plain_ms']:.3f} ms, "
+        f"scaled_dot_product_attention {out['sdpa_ms']:.3f} ms; max |diff| "
+        f"{err:.4f}")
+    torch.set_grad_enabled(True)
+    return out
+
+
+def ep_rank_main(rank, work):
+    """Phase 3j (b): one of EP_RANKS gloo ranks on the card, a (data=1,
+    model=EP_RANKS) mesh: deepseek-moe-16b's smoke config, its experts split
+    over ``model``, the expert-parallel forward with both combines."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.checkpoint import params_from_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(work)
+    backend = mesh_lib.init_process_group(
+        rank, EP_RANKS, init_method=f"file://{work / 'store'}",
+        timeout_s=RANK_TIMEOUT_S)
+    try:
+        mesh = mesh_lib.make_mesh((1, EP_RANKS), ("data", "model"))
+        data = np.load(work / "inputs.npz")
+        tree = {}
+        for key in data.files:
+            if key.startswith("p/"):
+                node = tree
+                *head, last = key[2:].split("/")
+                for part in head:
+                    node = node.setdefault(part, {})
+                node[last] = data[key]
+        params = params_from_numpy(tree, "cuda")
+        tokens = torch.from_numpy(data["tokens"]).cuda()
+        cfg = lm_module("deepseek_moe_16b").smoke_config()
+        out = {"backend": np.array(backend)}
+        for combine in ("psum", "scatter"):
+            c = dataclasses.replace(cfg, moe_combine=combine)
+            with torch.no_grad():
+                h, aux = tr.forward(tr.local_params(params, c, mesh), c,
+                                    tokens, mesh=mesh)
+            out[combine] = h.cpu().numpy()
+            out[combine + "_dropped"] = aux["moe_dropped"].cpu().numpy()
+        np.savez(work / f"rank_{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_part(dev, seed):
+    """Phase 3j (b): the two-rank expert-parallel forward on the card, both
+    combines, against the single-device forward (rtol 1e-5)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.tree import leaves_with_paths
+
+    cfg = lm_module("deepseek_moe_16b").smoke_config()
+    host = tr.init_params(torch.Generator("cpu").manual_seed(seed), cfg,
+                          device="cpu")
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    with torch.no_grad():
+        want, _ = tr.forward(tr_params_to(host, dev), cfg,
+                             torch.from_numpy(tokens).to(dev))
+    want = want.cpu().numpy()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        work = Path(work)
+        np.savez(work / "inputs.npz", tokens=tokens, **{
+            "p/" + "/".join(p): x.numpy() for p, x in leaves_with_paths(host)})
+        ctx = mp.start_processes(ep_rank_main, args=(str(work),),
+                                 nprocs=EP_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 3j: the EP ranks ran past "
+                                         f"{RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        ranks = [dict(np.load(work / f"rank_{r}.npz"))
+                 for r in range(EP_RANKS)]
+    errs = {}
+    for combine in ("psum", "scatter"):
+        for r, got in enumerate(ranks):
+            if int(got[combine + "_dropped"]) != 0:
+                raise AssertionError(f"EP rank {r} {combine}: dropped pairs")
+            np.testing.assert_allclose(got[combine], want, rtol=1e-5,
+                                       atol=1e-6,
+                                       err_msg=f"EP rank {r} {combine}")
+        errs[combine] = max(float(np.abs(g[combine] - want).max())
+                            for g in ranks)
+    secs = time.perf_counter() - t0
+    log(f"expert parallelism: {EP_RANKS} {ranks[0]['backend']} ranks on the "
+        f"card, (data=1, model={EP_RANKS}), deepseek-moe-16b smoke: psum max "
+        f"|err| {errs['psum']:.3e}, scatter {errs['scatter']:.3e} against the "
+        f"single-device forward (rtol 1e-5); {secs:.2f} s")
+    return dict(errs=errs, secs=secs, backend=str(ranks[0]["backend"]))
+
+
+def tr_params_to(tree, dev):
+    from repro_torch.train.tree import tree_map
+
+    return tree_map(lambda x: x.to(dev), tree)
+
+
+def smoke_parity_part(dev, seed):
+    """Phase 3j (b): each LM smoke config (f32) on the card against the CPU
+    from the same parameters: forward, lm_loss and its gradients, prefill +
+    SMOKE_DECODE_STEPS decode steps (rtol 1e-4; gradients atol 1e-6).  The
+    router's smallest top-k gap on the CPU is logged (a tie within f32
+    rounding would route differently on the card)."""
+    import torch
+
+    from repro_torch.models import decoding as dec
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.tree import leaves, leaves_with_paths, \
+        unflatten_like
+
+    gaps = []
+    router = moe_lib.router_scores
+
+    def recording(x, w, bias, cfg):
+        out = router(x, w, bias, cfg)
+        probs_sel = torch.sort(out[2], -1, descending=True).values
+        gaps.append(float((probs_sel[..., cfg.top_k - 1]
+                           - probs_sel[..., cfg.top_k]).min()))
+        return out
+
+    rows = []
+    for name in LM_SMOKE:
+        cfg = lm_module(name).smoke_config()
+        host = tr.init_params(torch.Generator("cpu").manual_seed(seed), cfg,
+                              device="cpu")
+        rng = np.random.default_rng(seed)
+        tokens = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+        labels = np.roll(tokens, -1, 1)
+        labels[:, -1] = -1
+        res = {}
+        for d in ("cpu", dev):
+            params = tr_params_to(host, d)
+            flat = [x.clone().requires_grad_(True) for x in leaves(params)]
+            t, lab = (torch.from_numpy(a).to(d) for a in (tokens, labels))
+            gaps.clear()
+            moe_lib.router_scores = recording if d == "cpu" else router
+            try:
+                loss, _ = tr.lm_loss(unflatten_like(params, flat), cfg, t, lab)
+                grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            finally:
+                moe_lib.router_scores = router
+            gap = min(gaps) if gaps else None
+            with torch.no_grad():
+                h, _ = tr.forward(params, cfg, t)
+                pre, cache = dec.prefill(params, cfg, t[:, :24], 32)
+                dp = dec.decode_layout(params, cfg)
+                steps = [dec.decode_step(dp, cfg, cache, t[:, j], j)[0].cpu()
+                         for j in range(24, 24 + SMOKE_DECODE_STEPS)]
+            res[str(d)] = dict(loss=float(loss), h=h.cpu(), pre=pre.cpu(),
+                               steps=steps, gap=gap,
+                               grads=[None if g is None else g.cpu()
+                                      for g in grads])
+        c, g = res["cpu"], res[str(dev)]
+        np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-4)
+        err = {}
+        for key in ("h", "pre"):
+            torch.testing.assert_close(g[key], c[key], rtol=1e-4, atol=1e-5)
+            err[key] = float((g[key] - c[key]).abs().max())
+        for i, (a, b) in enumerate(zip(g["steps"], c["steps"])):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5,
+                                       msg=f"{name} decode step {i}")
+        err["decode"] = max(float((a - b).abs().max())
+                            for a, b in zip(g["steps"], c["steps"]))
+        gmax = 0.0
+        for (path, _), a, b in zip(leaves_with_paths(host), g["grads"],
+                                   c["grads"]):
+            if a is None:
+                continue
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6,
+                                       msg="/".join(path))
+            gmax = max(gmax, float((a - b).abs().max()))
+        rows.append(dict(name=cfg.name, err=err, grad_err=gmax,
+                         gap=c["gap"]))
+        log(f"smoke {cfg.name} card vs CPU: loss {g['loss']:.6f} / "
+            f"{c['loss']:.6f}, max |err| hidden {err['h']:.2e}, prefill "
+            f"{err['pre']:.2e}, {SMOKE_DECODE_STEPS} decode steps "
+            f"{err['decode']:.2e}, gradients {gmax:.2e}"
+            + (f"; smallest router top-k gap {c['gap']:.3e}"
+               if c["gap"] is not None else ""))
+    return rows
+
+
+def launcher_part(dev, seed):
+    """Phase 3j (c): ``repro_torch.launch.train.main`` for the ten archs at
+    smoke size, TRAIN_STEPS steps on the card and on the CPU from the same
+    initial parameters (drawn once on the CPU), a checkpoint a step; the
+    first step's loss rtol 1e-4, its parameters by ``step_close`` and its
+    optimizer state rtol 1e-4, atol 1e-6 (dimenet's run is the first step at
+    ``gnn_runner``'s pads)."""
+    import importlib
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as launcher
+
+    rows = []
+    for arch in LAUNCH_ARCHS:
+        if arch in launcher.LM_ARCHS:
+            from repro_torch.models.transformer import init_params
+            module = launcher.LM_ARCHS[arch]
+        elif arch == "dimenet":
+            from repro_torch.models.gnn import init_params
+            module = "dimenet"
+        else:
+            from repro_torch.models.recsys import init_params
+            module = launcher.RECSYS_ARCHS[arch]
+        cfg = importlib.import_module(
+            f"repro_torch.configs.{module}").smoke_config()
+        host = init_params(torch.Generator("cpu").manual_seed(seed), cfg,
+                           device="cpu")
+        hists, firsts = {}, {}
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            for d in ("cpu", "cuda"):
+                argv = ["--arch", arch, "--steps", str(TRAIN_STEPS),
+                        "--seed", str(seed), "--ckpt-dir", f"{work}/{d}",
+                        "--ckpt-every", "1", "--device", d]
+                t0 = time.perf_counter()
+                hists[d] = launcher.main(argv, params=host)
+                torch.cuda.synchronize()
+                hists[d]["secs"] = time.perf_counter() - t0
+                with np.load(f"{work}/{d}/step_1/arrays.npz") as z:
+                    firsts[d] = {k: torch.from_numpy(z[k]) for k in z.files}
+        c, g = hists["cpu"], hists["cuda"]
+        if not np.allclose(g["loss"][0], c["loss"][0], rtol=1e-4, atol=0):
+            raise AssertionError(f"launcher {arch}: first loss {g['loss'][0]}"
+                                 f" on the card, {c['loss'][0]} on the CPU")
+        if not all(np.isfinite(g["loss"])):
+            raise AssertionError(f"launcher {arch}: losses {g['loss']}")
+        max_rel, outliers = 0.0, 0
+        for key, want in firsts["cpu"].items():
+            got = firsts["cuda"][key]
+            if key.startswith("params/"):
+                rel, out = step_close(f"launcher {arch} {key}", got.float(),
+                                      want.float(), lr=TRAIN_LR)
+                max_rel, outliers = max(max_rel, rel), outliers + out
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6,
+                                           msg=f"launcher {arch} {key}")
+        rows.append(dict(arch=arch, losses=g["loss"], cpu_loss=c["loss"][0],
+                         card_s=g["secs"], cpu_s=c["secs"], max_rel=max_rel,
+                         outliers=outliers))
+        log(f"launcher {arch}: losses {[round(x, 6) for x in g['loss']]} on "
+            f"the card ({g['secs']:.2f} s), first {c['loss'][0]:.6f} on the "
+            f"CPU; first step's parameters max rel err {max_rel:.2e} where "
+            f"|err| > 1e-6, {outliers} past rtol 1e-4")
+    return rows
+
+
+def moe_train_part(dev, seed):
+    """Phase 3j (c): deepseek-moe-16b at full width cut to MOE_TRAIN_LAYERS
+    layers (1 dense + 1 MoE of 64 experts), TRAIN_STEPS Trainer steps of
+    AdamW at B x S = MOE_TRAIN_B x MOE_TRAIN_S; losses finite."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(lm_module("deepseek_moe_16b").config(),
+                              n_layers=MOE_TRAIN_LAYERS)
+    cut = (f"n_layers 28 -> {MOE_TRAIN_LAYERS} (1 dense + 1 MoE layer, "
+           f"{cfg.n_params()} parameters)")
+    log(f"phase 3j cut: deepseek-moe-16b training {cut}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                         device=dev)
+    trainer = lm_trainer(cfg, params, dev)
+    del params
+    feeder = lm_feeder(cfg, seed, MOE_TRAIN_B, MOE_TRAIN_S)
+    try:
+        losses, step_ms = run_steps(trainer, feeder, TRAIN_STEPS)
+    finally:
+        feeder.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del trainer
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"deepseek-moe-16b training: losses {losses}")
+    log(f"train deepseek-moe-16b ({cut}): B={MOE_TRAIN_B} S={MOE_TRAIN_S}, "
+        f"losses {[round(x, 6) for x in losses]}, step ms "
+        f"{[round(x, 3) for x in step_ms]}, peak {peak:.2f} GiB")
+    return dict(cut=cut, losses=losses, step_ms=step_ms, peak_gib=peak,
+                params=cfg.n_params())
+
+
+def lm_trainer(cfg, params, dev, ckpt_dir=None, total=TRAIN_STEPS):
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.train_loop import Trainer, TrainLoopConfig
+
+    return Trainer(lambda p, b: lm_loss(p, cfg, b["tokens"], b["labels"]),
+                   params, TrainLoopConfig(
+                       total_steps=total, ckpt_every=2, ckpt_dir=ckpt_dir,
+                       log_every=1000, lr=TRAIN_LR, warmup=0), device=dev)
+
+
+def lm_feeder(cfg, seed, batch, seq):
+    from repro_torch.data import ShardedFeeder, lm_batch
+
+    return ShardedFeeder(lambda s, i: lm_batch(s, i, batch, seq,
+                                               cfg.vocab_size), seed=seed)
+
+
+def dimenet_part(dev, seed):
+    """Phase 3j (c): DimeNet ``config(d_feat=602, d_out=47)`` at full width
+    on minibatch_lg's pads, TRAIN_STEPS Trainer steps (AdamW) on batches
+    sampled from a Reddit-sized ``random_graph``; each block recomputed in
+    the backward (its [T, 8, 128] f32 intermediate is 8.5 GB)."""
+    import torch
+
+    from repro_torch.configs import dimenet as dimenet_cfg
+    from repro_torch.data import ShardedFeeder
+    from repro_torch.models.gnn import GraphBatch, init_params, loss_fn
+    from repro_torch.models.gnn.sampler import (
+        make_graph_batch_arrays, random_graph, sample_subgraph)
+    from repro_torch.train.train_loop import Trainer, TrainLoopConfig
+
+    cfg = dimenet_cfg.config(d_feat=602, d_out=47)
+    t0 = time.perf_counter()
+    graph = random_graph(np.random.default_rng(seed), DIMENET_NODES,
+                         DIMENET_DEGREE, cfg.d_feat, cfg.d_out)
+    graph_s = time.perf_counter() - t0
+    n_pad, e_pad, t_pad = DIMENET_PADS
+    sizes = []
+
+    def gen(s, step):
+        r = np.random.default_rng((s, step))
+        seeds = r.choice(graph.n_nodes, DIMENET_SEEDS,
+                         replace=False).astype(np.int32)
+        nodes, esrc, edst = sample_subgraph(r, graph, seeds, DIMENET_FANOUTS)
+        arrs = make_graph_batch_arrays(
+            graph, nodes, esrc, edst, n_pad=n_pad, e_pad=e_pad, t_pad=t_pad,
+            max_trip_per_edge=DIMENET_TRIP_PER_EDGE)
+        # checked after the run (a raise here would stop the feeder's
+        # thread, not the run)
+        sizes.append((len(nodes), len(esrc), int(arrs["trip_mask"].sum())))
+        return arrs
+
+    def loss_wrap(p, a):
+        batch = GraphBatch(**{k: a[k] for k in (
+            "node_feat", "positions", "edge_src", "edge_dst", "edge_mask",
+            "trip_in", "trip_out", "trip_mask", "graph_id")}, n_graphs=1)
+        return loss_fn(p, cfg, batch, a["labels"], remat=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                         device=dev)
+    trainer = Trainer(loss_wrap, params, TrainLoopConfig(
+        total_steps=TRAIN_STEPS, log_every=1000, lr=TRAIN_LR, warmup=0),
+        device=dev)
+    feeder = ShardedFeeder(gen, seed=seed)
+    try:
+        losses, step_ms = run_steps(trainer, feeder, TRAIN_STEPS)
+    finally:
+        feeder.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, params
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"dimenet training: losses {losses}")
+    for nodes, edges, trips in sizes[:TRAIN_STEPS]:
+        # pad_to cuts silently: a batch must fit, triplets with room to spare
+        if nodes > n_pad or edges > e_pad or trips >= t_pad:
+            raise AssertionError(f"dimenet batch overruns the pads: {nodes} "
+                                 f"nodes, {edges} edges, {trips} triplets")
+    log(f"train dimenet full width (d_feat 602, d_out 47, 6 blocks) on "
+        f"minibatch_lg pads {DIMENET_PADS}: graph of {DIMENET_NODES} nodes "
+        f"(avg degree {DIMENET_DEGREE}) in {graph_s:.2f} s; batches "
+        f"(nodes, edges, triplets) {sizes[:TRAIN_STEPS]}; losses "
+        f"{[round(x, 6) for x in losses]}, step ms "
+        f"{[round(x, 3) for x in step_ms]} (sampling on the feeder's "
+        f"thread), peak {peak:.2f} GiB")
+    return dict(losses=losses, step_ms=step_ms, peak_gib=peak,
+                sizes=sizes[:TRAIN_STEPS], graph_s=graph_s)
+
+
+def bf16_restart_part(dev, seed):
+    """Phase 3j (c): chatglm3-6b's smoke config in bf16 (dense: no
+    scatter-add atomics), 2 steps + a checkpoint + a fresh Trainer + 2 steps
+    equal to 4 straight, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    cfg = dataclasses.replace(lm_module("chatglm3_6b").smoke_config(),
+                              dtype=torch.bfloat16)
+    init = init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                       device=dev)
+    ckpt = ROOT / "build" / "lm_restart_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        runs = []
+        for d, steps in ((None, None), (ckpt, 2), (ckpt, None)):
+            trainer = lm_trainer(cfg, tree_map(torch.clone, init), dev,
+                                 ckpt_dir=None if d is None else str(d),
+                                 total=4)
+            feeder = lm_feeder(cfg, seed, 4, 64)
+            try:
+                trainer.run(feeder, max_steps=steps)
+            finally:
+                feeder.close()
+            runs.append(trainer)
+        straight, half, resumed = runs
+        if (half.step, resumed.step, straight.step) != (2, 4, 4):
+            raise AssertionError("bf16 restart: wrong step counts")
+        want = dict(leaves_with_paths({"params": straight.params,
+                                       "opt": straight.opt_state}))
+        n = 0
+        for path, got in leaves_with_paths({"params": resumed.params,
+                                            "opt": resumed.opt_state}):
+            if got.dtype != want[path].dtype or not torch.equal(
+                    got, want[path]):
+                raise AssertionError(f"bf16 restart: {'/'.join(path)}")
+            n += 1
+        if straight.params["embed"].dtype != torch.bfloat16:
+            raise AssertionError("bf16 restart: parameters not bf16")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"bf16 restart (chatglm3-6b smoke in bf16, 4 steps straight against "
+        f"2 + checkpoint + 2): all {n} parameter and state leaves equal bit "
+        "for bit")
+    return dict(leaves=n)
+
+
+def lm_phase(dev, seed, launches, reset_launches):
+    """Phase 3j: the LM family at full width (serving), the smoke configs on
+    the card against the CPU, two-rank expert parallelism, the launcher's
+    ten archs, full-width training of deepseek-moe-16b (cut in depth) and
+    DimeNet at minibatch_lg, and a bf16 restart.  Launch counts are set to
+    0 before and read after (no kernel of the port is on this path).
+    Returns (fig, launches)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    fig = {"serve": []}
+    for name in LM_SERVE:
+        t0 = time.perf_counter()
+        row = lm_serve_one(name, dev, seed)
+        row["secs"] = time.perf_counter() - t0
+        fig["serve"].append(row)
+    fig["smoke"] = smoke_parity_part(dev, seed)
+    fig["ep"] = ep_part(dev, seed)
+    t0 = time.perf_counter()
+    fig["launcher"] = launcher_part(dev, seed)
+    fig["launcher_s"] = time.perf_counter() - t0
+    fig["moe_train"] = moe_train_part(dev, seed)
+    fig["dimenet"] = dimenet_part(dev, seed)
+    fig["restart"] = bf16_restart_part(dev, seed)
+    torch.cuda.empty_cache()
+    fig["mem_end"] = trim_host_memory()
+    fig["secs"] = time.perf_counter() - t_phase
+    return fig, launches()
+
+
+def print_phase_3j(fig):
+    for r in fig["serve"]:
+        log(f"phase 3j {r['name']}: prefill {r['prefill_ms']:.3f} ms (bound "
+            f"{r['prefill_bound_ms']:.3f}), decode {r['decode_ms']:.3f} ms a "
+            f"token (bound {r['decode_bound_ms']:.3f}), peak "
+            f"{r['peak_gib']:.2f} GiB, {r['secs']:.2f} s"
+            + (f"; cut: {r['cut']}" if r["cut"] else "")
+            + (f"; {r['cf_note']}" if r["cf_note"] else ""))
+    m, d = fig["moe_train"], fig["dimenet"]
+    log(f"phase 3j training: deepseek-moe-16b ({m['params']} params) step "
+        f"{statistics.median(m['step_ms'][1:]):.3f} ms (steps 2-"
+        f"{TRAIN_STEPS}), peak {m['peak_gib']:.2f} GiB; dimenet step "
+        f"{statistics.median(d['step_ms'][1:]):.3f} ms, peak "
+        f"{d['peak_gib']:.2f} GiB; the launcher's ten archs "
+        f"{fig['launcher_s']:.2f} s")
+    log(f"phase 3j: host MemAvailable {fig['mem_end']:.2f} GiB at the end; "
+        f"{fig['secs']:.2f} s")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3828,6 +4639,15 @@ def main(argv=None):
     log(f"phase 3i (examples, training, recsys) {time.perf_counter() - t0:.2f}"
         f" s; {time.perf_counter() - t_all:.2f} s since start; launches "
         f"{slice_launches}")
+
+    # ---- phase 3j: DimeNet, the LM family and the training launcher
+    # (right after 3i, before phase 3 allocates anything) ----
+    t0 = time.perf_counter()
+    lm_fig, lm_launches = lm_phase(dev, args.seed, launches, reset_launches)
+    print_phase_3j(lm_fig)
+    log(f"phase 3j (LM, GNN, launcher) {time.perf_counter() - t0:.2f} s; "
+        f"{time.perf_counter() - t_all:.2f} s since start; launches "
+        f"{lm_launches} (no kernel of the port is on this path)")
 
     # ---- phase 3: the main path at real size ----
     t0 = time.perf_counter()

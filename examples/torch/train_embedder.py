@@ -23,14 +23,14 @@ from repro_torch.core import HybridSpec, brute_force, build_ivf, match_all, \
 from repro_torch.core.search import search_reference
 from repro_torch.data import ShardedFeeder
 from repro_torch.device import resolve_device
-from repro_torch.models.recsys.embedding import truncated_normal
+from repro_torch.models.recsys.embedding import glorot_normal
 from repro_torch.train.train_loop import Trainer, TrainLoopConfig
 
 
 def init_tower(gen, d_in, d_out=32):
     """The reference's tower shapes; glorot-normal weights from ``gen``."""
     def glorot(shape):
-        return truncated_normal(gen, shape, (2.0 / sum(shape)) ** 0.5)
+        return glorot_normal(gen, shape)
 
     dev = gen.device
     return {"w1": glorot((d_in, 128)), "b1": torch.zeros(128, device=dev),

@@ -100,3 +100,88 @@ def dp_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
 
 def n_chips(mesh: DeviceMesh) -> int:
     return mesh.mesh.numel()
+
+
+def axis_size(mesh: DeviceMesh, name: str) -> int:
+    """The number of ranks along the mesh axis ``name``."""
+    return mesh.shape[mesh.mesh_dim_names.index(name)]
+
+
+def _on_host_for_gloo(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` where ``group``'s backend can take it: gloo's tensor
+    collectives run on host tensors."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return x.cpu()
+    return x
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce (sum) over a process group whose backward is the
+    identity: every rank of the group computes the same loss from the
+    reduced value, so a rank's share of the gradient is the incoming one
+    (the reference's ``psum`` under ``shard_map`` differentiates so).
+    ``torch.distributed.nn``'s all-reduce would sum the replicated
+    gradients again, scaling them by the group's size."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = _on_host_for_gloo(x, group).clone()
+        dist.all_reduce(y, group=group)
+        return y.to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``; the gradient passes through unchanged."""
+    return _SumOverGroup.apply(x, group)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        y = _on_host_for_gloo(x, group).contiguous()
+        parts = [torch.empty_like(y)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, y, group=group)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        rank = dist.get_rank(ctx.group)
+        return torch.chunk(grad, n, dim=ctx.dim)[rank], None, None
+
+
+class _ScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = dist.get_world_size(group)
+        y = _on_host_for_gloo(x, group)
+        chunks = [c.contiguous() for c in torch.chunk(y, n, dim=dim)]
+        out = torch.empty_like(chunks[0])
+        dist.reduce_scatter(out, chunks, group=group)
+        return out.to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherDim.apply(grad, ctx.group, ctx.dim), None, None
+
+
+def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's ``x``s concatenated along ``dim`` in group-rank order
+    (the reference's ``all_gather(..., tiled=True)``).  Its backward takes
+    this rank's chunk of the gradient, the convention of
+    :func:`all_reduce_sum` (what follows is replicated over the group)."""
+    return _GatherDim.apply(x, group, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of ``x`` summed over ``group`` (the
+    reference's ``psum_scatter(..., tiled=True)``); its backward
+    all-gathers the gradient."""
+    return _ScatterDim.apply(x, group, dim)

@@ -23,12 +23,14 @@ instead of gathering table rows across ranks.  It replaces the reference's
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import all_reduce_sum
 
 # std of a standard normal truncated to [-2, 2]: jax.nn.initializers'
 # truncated normals divide their stddev by it
@@ -37,13 +39,23 @@ _TRUNC_STD = 0.87962566103423978
 
 def truncated_normal(gen: torch.Generator, shape, stddev: float,
                      dtype=torch.float32) -> torch.Tensor:
-    """``jax.nn.initializers.truncated_normal(stddev)``'s distribution
-    (a normal cut at two of its own deviations, rescaled to ``stddev``),
-    drawn from ``gen`` on its device."""
-    s = stddev / _TRUNC_STD
+    """``jax.nn.initializers.truncated_normal(stddev)``: a normal of
+    deviation ``stddev`` cut at two of its deviations (so its own
+    deviation is ``_TRUNC_STD · stddev``), drawn from ``gen`` on its
+    device."""
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, std=s, a=-2 * s, b=2 * s, generator=gen)
+    torch.nn.init.trunc_normal_(t, std=stddev, a=-2 * stddev, b=2 * stddev,
+                                generator=gen)
     return t.to(dtype)
+
+
+def glorot_normal(gen: torch.Generator, shape, dtype=torch.float32
+                  ) -> torch.Tensor:
+    """``jax.nn.initializers.glorot_normal()``: a truncated normal whose own
+    variance is 2 / (fan_in + fan_out) (the last two axes)."""
+    fan = shape[-2] + shape[-1]
+    return truncated_normal(gen, shape, math.sqrt(2.0 / fan) / _TRUNC_STD,
+                            dtype)
 
 
 def init_table(gen: torch.Generator, vocab: int, dim: int,
@@ -114,27 +126,6 @@ def embedding_bag_ragged(
     raise ValueError(mode)
 
 
-class _SumOverGroup(torch.autograd.Function):
-    """All-reduce (sum) over a process group whose backward is the
-    identity: every rank of the group computes the same loss from the
-    reduced value, so a rank's share of the gradient is the incoming one
-    (the reference's ``psum`` under ``shard_map`` differentiates so).
-    ``torch.distributed.nn``'s all-reduce would sum the replicated
-    gradients again, scaling them by the group's size."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def sharded_embedding_bag(
     table: torch.Tensor,  # [V / n_model, D]: this rank's vocab range
     ids: torch.Tensor,  # [..., L]: this rank's rows of the batch
@@ -166,9 +157,9 @@ def sharded_embedding_bag(
     valid = (rel >= 0) & (rel < v_local) & (ids >= 0)
     rows = F.embedding(torch.clamp(rel, 0, v_local - 1).long(), table)
     rows = rows * valid[..., None].to(rows.dtype)
-    out = _SumOverGroup.apply(torch.sum(rows, dim=-2), group)
+    out = all_reduce_sum(torch.sum(rows, dim=-2), group)
     if mode == "mean":
-        n = _SumOverGroup.apply(
+        n = all_reduce_sum(
             torch.sum(valid.to(rows.dtype), dim=-1, keepdim=True), group)
         out = out / torch.clamp(n, min=1.0)
     return out

@@ -23,7 +23,6 @@ Batch contract (RecsysBatch):
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -33,8 +32,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.recsys.embedding import (
     embedding_bag,
+    glorot_normal,
     init_table,
-    truncated_normal,
 )
 
 
@@ -73,15 +72,8 @@ class RecsysBatch:
     label: torch.Tensor
 
 
-def _glorot(gen, shape, dtype):
-    """``jax.nn.initializers.glorot_normal``: a truncated normal of
-    variance 2 / (fan_in + fan_out)."""
-    return truncated_normal(gen, shape, math.sqrt(2.0 / (shape[-2]
-                                                         + shape[-1])), dtype)
-
-
 def _mlp(gen, dims, dtype):
-    return [{"w": _glorot(gen, (dims[i], dims[i + 1]), dtype),
+    return [{"w": glorot_normal(gen, (dims[i], dims[i + 1]), dtype),
              "b": torch.zeros((dims[i + 1],), dtype=dtype, device=gen.device)}
             for i in range(len(dims) - 1)]
 
@@ -99,12 +91,12 @@ def _tiny_attn_params(gen, d, dtype):
         return torch.zeros((d,), dtype=dtype, device=gen.device)
 
     return {
-        "wqkv": _glorot(gen, (d, 3 * d), dtype),
-        "wo": _glorot(gen, (d, d), dtype),
+        "wqkv": glorot_normal(gen, (d, 3 * d), dtype),
+        "wo": glorot_normal(gen, (d, d), dtype),
         "ln1": zeros(),
         "ln2": zeros(),
-        "ff1": _glorot(gen, (d, 4 * d), dtype),
-        "ff2": _glorot(gen, (4 * d, d), dtype),
+        "ff1": glorot_normal(gen, (d, 4 * d), dtype),
+        "ff2": glorot_normal(gen, (4 * d, d), dtype),
     }
 
 

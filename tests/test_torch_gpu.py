@@ -1542,3 +1542,232 @@ def test_recsys_restart_on_card_is_bit_for_bit(cuda, tmp_path):
     want, got = _train_leaves(straight), _train_leaves(resumed)
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+# ---- the LM family, DimeNet, expert parallelism and the launcher ----
+
+LM_SMOKE = ("chatglm3_6b", "deepseek_moe_16b", "deepseek_v3_671b",
+            "gemma3_12b", "gemma3_27b")
+
+
+def _lm_cfg(name):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.configs.{name}"
+                                   ).smoke_config()
+
+
+def _lm_host(cfg, seed=0):
+    from repro_torch.models.transformer import init_params
+
+    return init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+
+
+def _on(tree, dev):
+    from repro_torch.train.tree import tree_map
+
+    return tree_map(lambda x: x.to(dev), tree)
+
+
+@pytest.mark.parametrize("name", LM_SMOKE)
+def test_lm_smoke_on_card_matches_cpu(cuda, name):
+    """forward, lm_loss and its gradients, prefill + 6 decode steps of each
+    LM smoke config (f32) on the card against the CPU: rtol 1e-4, atol 1e-5
+    (gradients atol 1e-6)."""
+    from repro_torch.models import decoding as dec
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.tree import leaves, unflatten_like
+
+    cfg = _lm_cfg(name)
+    host = _lm_host(cfg)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    labels = np.roll(tokens, -1, 1)
+    labels[:, -1] = -1
+    out = []
+    for dev in ("cpu", cuda):
+        params = _on(host, dev)
+        t, lab = (torch.from_numpy(a).to(dev) for a in (tokens, labels))
+        flat = [x.clone().requires_grad_(True) for x in leaves(params)]
+        loss, _ = tr.lm_loss(unflatten_like(params, flat), cfg, t, lab)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        with torch.no_grad():
+            h, _ = tr.forward(params, cfg, t)
+            pre, cache = dec.prefill(params, cfg, t[:, :18], 24)
+            dp = dec.decode_layout(params, cfg)
+            steps = [dec.decode_step(dp, cfg, cache, t[:, j], j)[0].cpu()
+                     for j in range(18, 24)]
+        out.append((loss.item(), h.cpu(), pre.cpu(), steps,
+                    [None if g is None else g.cpu() for g in grads]))
+    (cl, ch, cp, cs, cg), (gl, gh, gp, gs, gg) = out
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    torch.testing.assert_close(gh, ch, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gp, cp, rtol=1e-4, atol=1e-5)
+    for a, b in zip(gs, cs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for a, b in zip(gg, cg):
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+def test_dimenet_step_on_card_matches_cpu(cuda):
+    """One Trainer step of DimeNet's smoke config on a sampled batch, on the
+    card against the CPU: the loss rtol 1e-4 (the scatter-adds use atomics
+    on the card), and the parameters as the recsys steps hold them."""
+    from repro_torch.configs import dimenet as dcfg
+    from repro_torch.models.gnn import GraphBatch, init_params, loss_fn
+    from repro_torch.models.gnn.sampler import (
+        make_graph_batch_arrays, random_graph, sample_subgraph)
+    from repro_torch.train.train_loop import Trainer, TrainLoopConfig
+
+    cfg = dcfg.smoke_config()
+    rng = np.random.default_rng(0)
+    g = random_graph(rng, 500, 6, cfg.d_feat, cfg.d_out)
+    nodes, es, ed = sample_subgraph(rng, g, np.arange(32, dtype=np.int32),
+                                    [5, 3])
+    arrs = make_graph_batch_arrays(g, nodes, es, ed, n_pad=512, e_pad=1024,
+                                   t_pad=4096)
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    res = []
+    for dev in ("cpu", cuda):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in arrs.items()}
+        gb = GraphBatch(**{k: batch[k] for k in (
+            "node_feat", "positions", "edge_src", "edge_dst", "edge_mask",
+            "trip_in", "trip_out", "trip_mask", "graph_id")})
+        trainer = Trainer(lambda p, b: loss_fn(p, cfg, gb, b["labels"]),
+                          _on(host, dev), TrainLoopConfig(
+                              total_steps=1, log_every=100, lr=1e-3,
+                              warmup=0), device=dev)
+        loss = trainer._train_step(trainer.params, trainer.opt_state,
+                                   {"labels": batch["labels"]}, 0, 1.0)
+        res.append(({k: v.cpu() for k, v in loss[0].items()
+                     if k != "blocks"} | {f"blocks/{k}": v.cpu() for k, v in
+                                          loss[0]["blocks"].items()},
+                    float(loss[2]["loss"])))
+    (cp, cl), (gp, gl) = res
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    for key in cp:
+        err = (gp[key] - cp[key]).abs()
+        off = err > 1e-4 * cp[key].abs() + 1e-6
+        assert int(off.sum()) <= 1e-3 * cp[key].numel(), key
+        torch.testing.assert_close(gp[key], cp[key], rtol=1e-4,
+                                   atol=1e-6 + 2e-3)
+
+
+def _ep_rank_main(rank, work):
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import transformer as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = tmesh.init_process_group(rank, 2,
+                                       init_method=f"file://{work}/store",
+                                       timeout_s=120)
+    try:
+        mesh = tmesh.make_mesh((1, 2), ("data", "model"))
+        cfg = _lm_cfg("deepseek_moe_16b")
+        params = _on(_lm_host(cfg), "cuda")
+        tokens = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (2, 16)).astype(np.int32)).cuda()
+        out = {"backend": np.array(backend)}
+        import dataclasses
+        for combine in ("psum", "scatter"):
+            c = dataclasses.replace(cfg, moe_combine=combine)
+            with torch.no_grad():
+                h, _ = tr.forward(tr.local_params(params, c, mesh), c, tokens,
+                                  mesh=mesh)
+            out[combine] = h.cpu().numpy()
+        np.savez(os.path.join(work, f"ep_{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_expert_parallel_two_ranks_on_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card, (data=1, model=2): the
+    expert-parallel forward with both combines equals the single-device
+    forward (rtol 1e-5)."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import transformer as tr
+
+    mp.start_processes(_ep_rank_main, args=(str(tmp_path),), nprocs=2,
+                       start_method="spawn")  # joins; re-raises
+    cfg = _lm_cfg("deepseek_moe_16b")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(cuda)
+    with torch.no_grad():
+        want, _ = tr.forward(_on(_lm_host(cfg), cuda), cfg, tokens)
+    for rank in range(2):
+        got = np.load(tmp_path / f"ep_{rank}.npz")
+        assert str(got["backend"]) == "gloo"
+        for combine in ("psum", "scatter"):
+            np.testing.assert_allclose(got[combine], want.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+
+
+def test_bf16_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """chatglm3-6b's smoke config in bf16 on the card: 2 steps, a
+    checkpoint, a fresh Trainer and 2 more equal 4 straight bit for bit."""
+    import dataclasses
+
+    from repro_torch.data import ShardedFeeder, lm_batch
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.train_loop import Trainer, TrainLoopConfig
+    from repro_torch.train.tree import leaves_with_paths
+
+    cfg = dataclasses.replace(_lm_cfg("chatglm3_6b"), dtype=torch.bfloat16)
+    host = _lm_host(cfg)
+
+    def run(ckpt, max_steps=None):
+        trainer = Trainer(
+            lambda p, b: lm_loss(p, cfg, b["tokens"], b["labels"]),
+            _on(host, cuda), TrainLoopConfig(
+                total_steps=4, ckpt_every=2, ckpt_dir=str(ckpt),
+                log_every=100, lr=1e-3, warmup=0), device=cuda)
+        feeder = ShardedFeeder(lambda s, i: lm_batch(s, i, 4, 32, 512),
+                               seed=0)
+        try:
+            trainer.run(feeder, max_steps=max_steps)
+        finally:
+            feeder.close()
+        return trainer
+
+    straight = run(tmp_path / "a")
+    assert run(tmp_path / "b", max_steps=2).step == 2
+    resumed = run(tmp_path / "b")
+    want = dict(leaves_with_paths({"p": straight.params,
+                                   "o": straight.opt_state}))
+    assert straight.params["embed"].dtype == torch.bfloat16
+    for path, got in leaves_with_paths({"p": resumed.params,
+                                        "o": resumed.opt_state}):
+        assert got.dtype == want[path].dtype and torch.equal(got, want[path])
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "deepseek-moe-16b",
+                                  "gemma3-12b", "dimenet", "wide-deep"])
+def test_launch_train_main_on_card(cuda, arch):
+    """``launch.train.main`` on the card (its default device) for 3 steps
+    from parameters drawn on the CPU: the first loss equals the CPU run's
+    (rtol 1e-4), every loss finite."""
+    import importlib
+
+    from repro_torch.launch import train as launcher
+
+    if arch == "dimenet":
+        from repro_torch.models.gnn import init_params
+        module = "dimenet"
+    elif arch in launcher.LM_ARCHS:
+        from repro_torch.models.transformer import init_params
+        module = launcher.LM_ARCHS[arch]
+    else:
+        from repro_torch.models.recsys import init_params
+        module = launcher.RECSYS_ARCHS[arch]
+    cfg = importlib.import_module(
+        f"repro_torch.configs.{module}").smoke_config()
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    argv = ["--arch", arch, "--steps", "3"]
+    card = launcher.main(argv, params=host)
+    cpu = launcher.main(argv + ["--device", "cpu"], params=host)
+    np.testing.assert_allclose(card["loss"][0], cpu["loss"][0], rtol=1e-4)
+    assert all(np.isfinite(card["loss"]))

@@ -411,3 +411,96 @@ def test_feeder_order_start_step_and_close():
     feeder._thread.join(timeout=5)
     assert not feeder._thread.is_alive()
     assert calls == sorted(calls) and calls[0] == 7
+
+
+# ---- bfloat16 state (the LM configs' dtype) ----
+
+def _bf16_params():
+    rng = np.random.default_rng(11)
+    return {"w": torch.from_numpy(rng.standard_normal((12, 6)).astype(
+                np.float32)).to(torch.bfloat16),
+            "b": torch.zeros(6, dtype=torch.bfloat16),
+            "scale": torch.ones(3)}
+
+
+def _bf16_loss(p, batch):
+    y = batch["x"].to(torch.bfloat16) @ p["w"] + p["b"]
+    loss = torch.mean(torch.square(y.float() - 0.5)) + torch.sum(
+        torch.square(p["scale"] - 2.0))
+    return loss, {}
+
+
+def _bf16_gen(seed, step):
+    rng = np.random.default_rng((seed, step))
+    return {"x": rng.standard_normal((16, 12)).astype(np.float32)}
+
+
+def test_bf16_trainer_state_restarts_bit_for_bit(tmp_path):
+    """A bf16 state checkpoints (as the reference's ``V2`` words), restores
+    as bf16, and 2 + checkpoint + 2 steps equal 4 straight bit for bit."""
+    def cfg(d):
+        return TrainLoopConfig(total_steps=4, ckpt_every=2,
+                               ckpt_dir=str(tmp_path / d), log_every=100,
+                               lr=3e-2, warmup=1)
+
+    def run(trainer, max_steps=None):
+        feeder = ShardedFeeder(_bf16_gen, seed=0)
+        try:
+            return trainer.run(feeder, max_steps=max_steps)
+        finally:
+            feeder.close()
+
+    straight = Trainer(_bf16_loss, _bf16_params(), cfg("a"), device="cpu")
+    h = run(straight)
+    first = Trainer(_bf16_loss, _bf16_params(), cfg("b"), device="cpu")
+    h1 = run(first, max_steps=2)
+    with np.load(tmp_path / "b" / "step_2" / "arrays.npz") as data:
+        assert data["params/w"].dtype == np.dtype("V2")
+        assert data["opt/m/w"].dtype == np.float32
+    second = Trainer(_bf16_loss, _bf16_params(), cfg("b"), device="cpu")
+    h2 = run(second)
+    assert second.step == 4 and h1["loss"] + h2["loss"] == h["loss"]
+    assert second.params["w"].dtype == torch.bfloat16
+    want = dict(leaves_with_paths({"p": straight.params,
+                                   "o": straight.opt_state}))
+    for path, got in leaves_with_paths({"p": second.params,
+                                        "o": second.opt_state}):
+        assert got.dtype == want[path].dtype, path
+        assert torch.equal(got, want[path]), path
+
+
+def test_bf16_checkpoints_cross_between_the_packages(tmp_path):
+    """The reference's bf16 leaves (``ml_dtypes.bfloat16``) carry across
+    through ``params_from_numpy``; the port's npz members are the
+    reference's byte for byte; the port restores the reference's bf16
+    checkpoint.  The reference cannot restore its own bf16 checkpoint
+    (numpy has no cast from ``V2`` to ``bfloat16``): recorded here as a
+    fact of the reference, not repaired."""
+    import zipfile
+
+    jstate = {"w": jnp.asarray(np.linspace(-3, 3, 24, dtype=np.float32)
+                               .reshape(4, 6), dtype=jnp.bfloat16),
+              "n": jnp.arange(3, dtype=jnp.int32),
+              "f": jnp.ones(2, jnp.float32)}
+    host = jax.tree.map(np.asarray, jstate)
+    tstate = tckpt.params_from_numpy(host, "cpu")
+    assert tstate["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(tstate["w"].float().numpy(),
+                                  host["w"].astype(np.float32))
+    jckpt.save_checkpoint(str(tmp_path / "ref"), 1, jstate)
+    tckpt.save_checkpoint(str(tmp_path / "port"), 1, tstate)
+    with zipfile.ZipFile(tmp_path / "ref" / "step_1" / "arrays.npz") as a, \
+            zipfile.ZipFile(tmp_path / "port" / "step_1" / "arrays.npz") as b:
+        assert b.namelist() == a.namelist()
+        for name in a.namelist():
+            assert b.read(name) == a.read(name), name
+    step, got, _ = tckpt.restore_checkpoint(str(tmp_path / "ref"), tstate)
+    assert step == 1 and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"], tstate["w"])
+    assert torch.equal(tckpt.params_from_numpy(got, "cpu")["w"], tstate["w"])
+    np.testing.assert_array_equal(got["n"], host["n"])
+    # restoring into the reference's own numpy leaves gives bf16 tensors too
+    _, got_np, _ = tckpt.restore_checkpoint(str(tmp_path / "ref"), host)
+    assert torch.equal(got_np["w"], tstate["w"])
+    with pytest.raises(ValueError, match="cast"):
+        jckpt.restore_checkpoint(str(tmp_path / "ref"), jstate)
