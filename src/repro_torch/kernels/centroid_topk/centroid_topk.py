@@ -2,9 +2,15 @@
 kernel ``csrc/centroid_topk.cu``.
 
 The port of ``repro.kernels.centroid_topk.centroid_topk.centroid_topk``.
-The path is chosen by the tensors' device alone: CPU tensors take the plain
-PyTorch version (:func:`~repro_torch.kernels.centroid_topk.ref.
-centroid_topk_ref`), CUDA tensors launch the kernel or raise.  The TPU
+The wrapper checks the operands and calls the custom op
+``repro_torch::centroid_topk`` (``torch.ops.repro_torch.centroid_topk``)
+on either device; the tensors' device alone picks the op's
+implementation: on CUDA tensors it builds and launches the kernel and
+counts the launch (or raises), on CPU tensors it is the plain PyTorch
+version (:func:`~repro_torch.kernels.centroid_topk.ref.
+centroid_topk_ref`), and under ``FakeTensorMode`` (``launch.dryrun``) its
+fake implementation gives the output shapes alone, on either device, with
+no card, no build and no count.  The TPU
 kernel's ``q_block``/``k_block`` were its tiling and have no counterpart:
 the CUDA kernel takes any Q and K, and any T up to K.
 """
@@ -12,8 +18,10 @@ the CUDA kernel takes any Q and K, and any T up to K.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.centroid_topk.ref import centroid_topk_ref
@@ -49,16 +57,13 @@ def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *, t: int,
     ``q·c`` (dot) or ``2·q·c − ‖c‖²`` (l2).  Returns (values [Q, T] f32,
     ids [Q, T] int32); ties go to the lower centroid id.
     """
-    global LAUNCHES
     if metric not in _METRICS:
         raise ValueError(metric)
     q, d = queries.shape
     k = centroids.shape[0]
     if not 1 <= t <= k:
         raise ValueError(f"t={t} must lie in [1, K={k}]")
-    if centroids.device.type == "cpu":
-        return centroid_topk_ref(queries, centroids, t=t, metric=metric)
-    if centroids.device.type != "cuda":
+    if centroids.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {centroids.device}")
     dev = centroids.device
     for name, x, shape in (("queries", queries, (q, d)),
@@ -73,6 +78,24 @@ def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *, t: int,
         if not x.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
 
+    return torch.ops.repro_torch.centroid_topk(queries, centroids, t, metric)
+
+
+@torch.library.custom_op("repro_torch::centroid_topk", mutates_args=(),
+                         device_types="cuda")
+def _centroid_topk_op(queries: torch.Tensor, centroids: torch.Tensor, t: int,
+                      metric: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    return launch(queries, centroids, t, metric)
+
+
+def launch(queries, centroids, t: int, metric: str):
+    """The op's CUDA implementation, callable without the dispatcher (so
+    that the op's call overhead can be timed beside it): one build
+    (cached) and one launch, counted."""
+    global LAUNCHES
+    q, d = queries.shape
+    k = centroids.shape[0]
+    dev = centroids.device
     vals = torch.empty((q, t), dtype=torch.float32, device=dev)
     ids = torch.empty((q, t), dtype=torch.int32, device=dev)
     if q == 0:
@@ -92,3 +115,23 @@ def centroid_topk(queries: torch.Tensor, centroids: torch.Tensor, *, t: int,
         raise RuntimeError(f"centroid_topk launch failed: cudaError {err}")
     LAUNCHES += 1
     return vals, ids
+
+
+@_centroid_topk_op.register_kernel("cpu")
+def _centroid_topk_cpu(queries, centroids, t, metric):
+    vals, ids = centroid_topk_ref(queries, centroids, t=t, metric=metric)
+    return vals.contiguous(), ids.contiguous()
+
+
+@_centroid_topk_op.register_fake
+def _centroid_topk_fake(queries, centroids, t, metric):
+    shape = (queries.shape[0], t)
+    return (queries.new_empty(shape, dtype=torch.float32),
+            queries.new_empty(shape, dtype=torch.int32))
+
+
+@register_flop_formula(torch.ops.repro_torch.centroid_topk)
+def _centroid_topk_flops(queries_shape, centroids_shape, *args, **kwargs):
+    """The scores' multiply-adds, as the plain version's ``[Q, K]`` product
+    counts them (``torch.utils.flop_counter``)."""
+    return 2 * queries_shape[0] * centroids_shape[0] * queries_shape[1]

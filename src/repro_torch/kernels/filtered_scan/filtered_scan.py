@@ -11,14 +11,23 @@ reference's is plain XLA).  The path is
 chosen by the tensors' device alone: CPU tensors take the plain PyTorch
 versions in :mod:`~repro_torch.kernels.filtered_scan.ref`, CUDA tensors
 launch the kernel or raise.
+
+The wrappers check the operands, then call a custom op on either device,
+``repro_torch::filtered_scan_tiled`` and ``repro_torch::filtered_scan``
+(``torch.ops.repro_torch.*``): its CUDA implementation builds and launches
+the kernel and counts the launch, its CPU implementation is the plain
+version, and its fake implementation gives the output shapes alone, on
+either device, so that a trace under ``FakeTensorMode`` (``launch.dryrun``)
+follows the kernels' route with no card, no build and no count.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.topk import NEG_INF, top_k
 from repro_torch.kernels import build
@@ -159,26 +168,19 @@ def filtered_scan_tiled(
     sub-partition records) the list past Vpad holds (NEG_INF, -1), as the
     reference kernel's running fold leaves it.
     """
-    global LAUNCHES
     _check_metric(metric, norms, scales)
     _check_dtypes(queries, vectors, scales is not None)
     qpad, d = queries.shape
     if qpad % q_block:
         raise ValueError(f"Qpad={qpad} not a multiple of q_block={q_block}")
-    if vectors.device.type == "cpu":
-        return filtered_scan_tiled_ref(
-            slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
-            attrs, ids, norms, scales, metric=metric, k=k, q_block=q_block)
-    if vectors.device.type != "cuda":
+    if vectors.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {vectors.device}")
     dev = vectors.device
     s = slot_cluster.shape[0]
     kc, vpad, _ = vectors.shape
     if k < 1:
         raise ValueError(f"k={k} must be >= 1")
-    k_out, k = k, min(k, vpad)  # the kernel selects at most Vpad rows
     f, m = lo.shape[1], lo.shape[2]
-    quantized = scales is not None
     i32 = torch.int32
     _check("slot_cluster", slot_cluster, i32, (s,), dev)
     _check("slot_tile", slot_tile, i32, (s,), dev)
@@ -198,11 +200,45 @@ def filtered_scan_tiled(
         _check("norms" if metric == "l2" else "scales", aux, torch.float32,
                (kc, vpad), dev)
 
+    return torch.ops.repro_torch.filtered_scan_tiled(
+        slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors, attrs,
+        ids, norms, scales, metric, k, q_block)
+
+
+@torch.library.custom_op("repro_torch::filtered_scan_tiled", mutates_args=(),
+                         device_types="cuda")
+def _filtered_scan_tiled_op(
+        slot_cluster: torch.Tensor, slot_tile: torch.Tensor,
+        n_unique: Optional[torch.Tensor], queries: torch.Tensor,
+        lo: torch.Tensor, hi: torch.Tensor, vectors: torch.Tensor,
+        attrs: torch.Tensor, ids: torch.Tensor, norms: Optional[torch.Tensor],
+        scales: Optional[torch.Tensor], metric: str, k: int, q_block: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return launch_tiled(slot_cluster, slot_tile, n_unique, queries, lo, hi,
+                        vectors, attrs, ids, norms, scales, metric, k,
+                        q_block)
+
+
+def launch_tiled(slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
+                 attrs, ids, norms, scales, metric: str, k: int,
+                 q_block: int):
+    """The tiled op's CUDA implementation, callable without the dispatcher
+    (so that the op's call overhead can be timed beside it): one build
+    (cached) and one launch, counted."""
+    global LAUNCHES
+    dev = vectors.device
+    s = slot_cluster.shape[0]
+    kc, vpad, d = vectors.shape
+    k_out, k = k, min(k, vpad)  # the kernel selects at most Vpad rows
+    f, m = lo.shape[1], lo.shape[2]
+    quantized = scales is not None
+    aux = norms if metric == "l2" else scales
+    i32 = torch.int32
     vals = torch.empty((s, q_block, k), dtype=torch.float32, device=dev)
     out_ids = torch.empty((s, q_block, k), dtype=i32, device=dev)
     npass = torch.empty((s, q_block), dtype=i32, device=dev)
     if s == 0:
-        return vals, out_ids, npass
+        return _pad_lists(vals, out_ids, k_out) + (npass,)
     fn = _lib()
     u_cap = s // n_unique.shape[0] if n_unique is not None else s
     with torch.cuda.device(dev):
@@ -221,13 +257,32 @@ def filtered_scan_tiled(
     if err != 0:
         raise RuntimeError(f"filtered_scan_tiled launch failed: cudaError {err}")
     LAUNCHES += 1
-    if k_out > k:
-        vals, out_ids = _pad_lists(vals, out_ids, k_out)
-    return vals, out_ids, npass
+    return _pad_lists(vals, out_ids, k_out) + (npass,)
+
+
+@_filtered_scan_tiled_op.register_kernel("cpu")
+def _filtered_scan_tiled_cpu(slot_cluster, slot_tile, n_unique, queries, lo,
+                             hi, vectors, attrs, ids, norms, scales, metric,
+                             k, q_block):
+    return tuple(x.contiguous() for x in filtered_scan_tiled_ref(
+        slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors, attrs,
+        ids, norms, scales, metric=metric, k=k, q_block=q_block))
+
+
+@_filtered_scan_tiled_op.register_fake
+def _filtered_scan_tiled_fake(slot_cluster, slot_tile, n_unique, queries, lo,
+                              hi, vectors, attrs, ids, norms, scales, metric,
+                              k, q_block):
+    s = slot_cluster.shape[0]
+    return (queries.new_empty((s, q_block, k), dtype=torch.float32),
+            queries.new_empty((s, q_block, k), dtype=torch.int32),
+            queries.new_empty((s, q_block), dtype=torch.int32))
 
 
 def _pad_lists(vals, ids, k):
     """Widens [..., k'] lists to k entries of (NEG_INF, -1)."""
+    if vals.shape[-1] == k:
+        return vals, ids
     shape = tuple(vals.shape[:-1]) + (k - vals.shape[-1],)
     return (torch.cat([vals, vals.new_full(shape, NEG_INF)], -1),
             torch.cat([ids, ids.new_full(shape, -1)], -1))
@@ -290,14 +345,9 @@ def filtered_scan(
     computed once: the CUDA kernel plans on the card which slots share a
     pair and reads each distinct cluster's rows once.
     """
-    global PER_PROBE_LAUNCHES
     _check_metric(metric, norms, scales)
     _check_dtypes(queries, vectors, scales is not None)
-    if vectors.device.type == "cpu":
-        return filtered_scan_ref(
-            slot_cluster, slot_query, queries, lo, hi, vectors, attrs, ids,
-            norms, scales, metric=metric)
-    if vectors.device.type != "cuda":
+    if vectors.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {vectors.device}")
 
     dev = vectors.device
@@ -305,7 +355,6 @@ def filtered_scan(
     kc, vpad, d = vectors.shape
     nq = queries.shape[0]
     f, m = lo.shape[1], lo.shape[2]
-    quantized = scales is not None
     i32 = torch.int32
     _check("slot_cluster", slot_cluster, i32, (p,), dev)
     _check("slot_query", slot_query, i32, (p,), dev)
@@ -320,12 +369,43 @@ def filtered_scan(
         _check("norms" if metric == "l2" else "scales", aux, torch.float32,
                (kc, vpad), dev)
 
+    return torch.ops.repro_torch.filtered_scan(
+        slot_cluster, slot_query, queries, lo, hi, vectors, attrs, ids, norms,
+        scales, metric)
+
+
+@torch.library.custom_op("repro_torch::filtered_scan", mutates_args=(),
+                         device_types="cuda")
+def _filtered_scan_op(
+        slot_cluster: torch.Tensor, slot_query: torch.Tensor,
+        queries: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+        vectors: torch.Tensor, attrs: torch.Tensor, ids: torch.Tensor,
+        norms: Optional[torch.Tensor], scales: Optional[torch.Tensor],
+        metric: str) -> torch.Tensor:
+    return launch_per_probe(slot_cluster, slot_query, queries, lo, hi,
+                            vectors, attrs, ids, norms, scales, metric)
+
+
+def launch_per_probe(slot_cluster, slot_query, queries, lo, hi, vectors,
+                     attrs, ids, norms, scales, metric: str):
+    """The per-probe op's CUDA implementation, callable without the
+    dispatcher: one build (cached) and one launch (the kernel's plan and
+    scan, from one entry point), counted."""
+    global PER_PROBE_LAUNCHES
+    dev = vectors.device
+    p = slot_cluster.shape[0]
+    kc, vpad, d = vectors.shape
+    nq = queries.shape[0]
+    f, m = lo.shape[1], lo.shape[2]
+    quantized = scales is not None
+    aux = norms if metric == "l2" else scales
     out = torch.empty((p, vpad), dtype=torch.float32, device=dev)
     if p == 0:
         return out
     fn, scratch_bytes = _per_probe_lib()
     # the kernel's schedule: slots grouped by cluster, pairs, chunks
-    scratch = torch.empty((scratch_bytes(p) // 4,), dtype=i32, device=dev)
+    scratch = torch.empty((scratch_bytes(p) // 4,), dtype=torch.int32,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -341,3 +421,38 @@ def filtered_scan(
         raise RuntimeError(f"filtered_scan launch failed: cudaError {err}")
     PER_PROBE_LAUNCHES += 1
     return out
+
+
+@_filtered_scan_op.register_kernel("cpu")
+def _filtered_scan_cpu(slot_cluster, slot_query, queries, lo, hi, vectors,
+                       attrs, ids, norms, scales, metric):
+    return filtered_scan_ref(slot_cluster, slot_query, queries, lo, hi,
+                             vectors, attrs, ids, norms, scales,
+                             metric=metric).contiguous()
+
+
+@_filtered_scan_op.register_fake
+def _filtered_scan_fake(slot_cluster, slot_query, queries, lo, hi, vectors,
+                        attrs, ids, norms, scales, metric):
+    return queries.new_empty((slot_cluster.shape[0], vectors.shape[1]),
+                             dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.filtered_scan_tiled)
+def _filtered_scan_tiled_flops(slot_cluster_shape, slot_tile_shape,
+                               n_unique_shape, queries_shape, lo_shape,
+                               hi_shape, vectors_shape, *args, q_block=None,
+                               **kwargs):
+    """Every slot's query tile against its cluster's rows, as the plain
+    version's product counts them (``torch.utils.flop_counter``)."""
+    q_block = args[-1] if q_block is None else q_block
+    _, vpad, d = vectors_shape
+    return 2 * slot_cluster_shape[0] * q_block * vpad * d
+
+
+@register_flop_formula(torch.ops.repro_torch.filtered_scan)
+def _filtered_scan_flops(slot_cluster_shape, slot_query_shape, queries_shape,
+                         lo_shape, hi_shape, vectors_shape, *args, **kwargs):
+    """Every slot's query against its cluster's rows."""
+    _, vpad, d = vectors_shape
+    return 2 * slot_cluster_shape[0] * vpad * d

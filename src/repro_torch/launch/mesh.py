@@ -86,10 +86,17 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
                       mesh_dim_names=tuple(axis_names))
 
 
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The production mesh's (shape, axis names)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda") -> DeviceMesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_shape(multi_pod)
     return make_mesh(shape, axes, device_type=device_type)
 
 
@@ -109,10 +116,20 @@ def axis_size(mesh: DeviceMesh, name: str) -> int:
 
 def _on_host_for_gloo(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` where ``group``'s backend can take it: gloo's tensor
-    collectives run on host tensors."""
+    collectives run on host tensors (the fake backend of a dry-run takes
+    any tensor, fake ``cuda`` ones included)."""
     if x.is_cuda and dist.get_backend(group) == "gloo":
         return x.cpu()
     return x
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over ``group`` into a new tensor on ``x``'s device (no
+    autograd: statistics, and steps that take no gradient)."""
+    y = _on_host_for_gloo(x.detach(), group).clone(
+        memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=group)
+    return y.to(x.device)
 
 
 class _SumOverGroup(torch.autograd.Function):
@@ -125,7 +142,8 @@ class _SumOverGroup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        y = _on_host_for_gloo(x, group).clone()
+        y = _on_host_for_gloo(x, group).clone(
+            memory_format=torch.contiguous_format)
         dist.all_reduce(y, group=group)
         return y.to(x.device)
 
@@ -185,3 +203,41 @@ def reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     reference's ``psum_scatter(..., tiled=True)``); its backward
     all-gathers the gradient."""
     return _ScatterDim.apply(x, group, dim)
+
+
+class _GatherSumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _GatherDim.forward(ctx, x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ScatterDim.apply(grad, ctx.group, ctx.dim), None, None
+
+
+def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """:func:`all_gather_dim` for a gathered value that each rank then uses
+    on data of its own (an FSDP shard of a weight, or an edge shard's
+    messages): its backward reduce-scatters the gradient, summing every
+    rank's share."""
+    return _GatherSumGrad.apply(x, group, dim)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.group), None
+
+
+def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; its gradient is all-reduced (sum) over ``group``.
+    Marks a value replicated over the group that each rank then uses on
+    data of its own (a weight under data parallelism): every rank's share
+    of the gradient is summed, as ``DistributedDataParallel`` sums it."""
+    return _SumGrad.apply(x, group)

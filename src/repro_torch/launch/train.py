@@ -6,8 +6,7 @@ scale (``--full``), on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch dimenet --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch din --device cpu
 
-The arch table is the port's own (the reference takes it from
-``launch/specs.py``, a dry-run module with no counterpart here): the five
+The arch tables are ``launch/specs.py``'s, as in the reference: the five
 LMs, ``dimenet`` and the four recsys configs, under the reference's names.
 Each runner may take its initial parameters (``params``, a tree of
 tensors or numpy arrays) in place of its own draw, so that a run can be
@@ -17,32 +16,18 @@ held against the reference's from the same start.
 from __future__ import annotations
 
 import argparse
-import importlib
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.specs import LM_ARCHS, RECSYS_ARCHS
 
-LM_ARCHS = {
-    "chatglm3-6b": "chatglm3_6b",
-    "deepseek-moe-16b": "deepseek_moe_16b",
-    "deepseek-v3-671b": "deepseek_v3_671b",
-    "gemma3-12b": "gemma3_12b",
-    "gemma3-27b": "gemma3_27b",
-}
-RECSYS_ARCHS = {
-    "din": "din",
-    "sasrec": "sasrec",
-    "bst": "bst",
-    "wide-deep": "wide_deep",
-}
 GNN_PADS = (2048, 4096, 16384)  # n_pad, e_pad, t_pad of the smoke batches
 
 
-def _config(module: str, smoke: bool):
-    mod = importlib.import_module(f"repro_torch.configs.{module}")
+def _config(mod, smoke: bool):
     return mod.smoke_config() if smoke else mod.config()
 
 
@@ -88,7 +73,9 @@ def gnn_runner(arch: str, args, params=None):
     )
     from repro_torch.train.train_loop import TrainLoopConfig
 
-    cfg = _config("dimenet", True)
+    from repro_torch.configs import dimenet
+
+    cfg = _config(dimenet, True)
     rng = np.random.default_rng(args.seed)
     g = random_graph(rng, 2000, 8, cfg.d_feat, cfg.d_out)
     if params is None:

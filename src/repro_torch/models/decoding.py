@@ -14,6 +14,13 @@ Cache layouts:
     is computed in latent space then expanded through ``W_uv``; the cache is
     ``[S, kv_lora + rope]`` wide.
 
+With ``kv_group`` (a process group) every cache's sequence axis is split
+over its ranks, as the reference's serving plan shards it (rank r holds
+positions ``[r·S_l, (r+1)·S_l)`` of each cache, a ring's slots alike):
+the rank that holds the write position writes it, and attention combines
+each rank's partial softmax (its max, sum and weighted values, all-reduced
+over the group).
+
 The decode step assumes a shared scalar position (synchronous batch
 decode).  It writes the new token's keys and values into the cache's
 tensors in place and returns the same cache.  A write position past the
@@ -27,8 +34,10 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import all_reduce
 from repro_torch.models.config import TransformerConfig
 from repro_torch.models.layers import (
     apply_rope,
@@ -70,7 +79,42 @@ def _ring_valid(pos: int, w: int, device) -> torch.Tensor:
     return pos - torch.remainder(pos - slots, w) >= 0
 
 
-def _attend_cache(q, k_cache, v_cache, valid, scale):
+class KVSplit:
+    """A decode cache's sequence axis split over ``group`` (None: whole);
+    ``s_local`` is this rank's share of positions or ring slots."""
+
+    def __init__(self, group, s_local: int):
+        self.group = group
+        n = 1 if group is None else dist.get_world_size(group)
+        rank = 0 if group is None else dist.get_rank(group)
+        self.s_local = s_local
+        self.offset = rank * s_local
+        self.total = s_local * n
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a [total] row (validity over slots)."""
+        return x[self.offset:self.offset + self.s_local]
+
+    def reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        return x if self.group is None else all_reduce(x, self.group, op)
+
+
+def _softmax_rows(logits, values, eq: str, split):
+    """Softmax over the last axis of ``logits`` applied to ``values``
+    (``eq``): whole, or combined from each rank's part of the axis."""
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    if split is None or split.group is None:
+        p = torch.exp(logits - m)
+        l = torch.sum(p, dim=-1, keepdim=True)
+        return torch.einsum(eq, p / torch.clamp(l, min=1e-30), values)
+    m = split.reduce(m, dist.ReduceOp.MAX)
+    p = torch.exp(logits - m)
+    l = split.reduce(torch.sum(p, dim=-1, keepdim=True))
+    out = split.reduce(torch.einsum(eq, p, values))
+    return out / torch.clamp(l, min=1e-30)
+
+
+def _attend_cache(q, k_cache, v_cache, valid, scale, split=None):
     """q [B,1,H,dh] vs cache [B,S,Hkv,dh(v)] with explicit key validity."""
     b, _, h, dh = q.shape
     hkv = k_cache.shape[2]
@@ -78,23 +122,26 @@ def _attend_cache(q, k_cache, v_cache, valid, scale):
     qg = q.reshape(b, hkv, g, dh).float() * scale
     logits = torch.einsum("bkgd,bjkd->bkgj", qg, k_cache.float())
     logits = torch.where(valid[None, None, None, :], logits, _MASKED)
-    m = torch.amax(logits, dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    l = torch.sum(p, dim=-1, keepdim=True)
-    out = torch.einsum("bkgj,bjkd->bkgd", p / torch.clamp(l, min=1e-30),
-                       v_cache.float())
+    out = _softmax_rows(logits, v_cache.float(), "bkgj,bjkd->bkgd", split)
     return out.reshape(b, 1, h, -1)
 
 
-def _write(cache: torch.Tensor, x: torch.Tensor, slot: int):
-    """``cache[:, slot] = x[:, 0]`` in place, the slot clamped into range."""
-    cache[:, min(slot, cache.shape[1] - 1)] = x[:, 0].to(cache.dtype)
+def _write(cache: torch.Tensor, x: torch.Tensor, slot: int, split=None):
+    """``cache[:, slot] = x[:, 0]`` in place, the slot clamped into range
+    (with a split cache, on the rank that holds the slot)."""
+    if split is None:
+        cache[:, min(slot, cache.shape[1] - 1)] = x[:, 0].to(cache.dtype)
+        return
+    slot = min(slot, split.total - 1) - split.offset
+    if 0 <= slot < split.s_local:
+        cache[:, slot] = x[:, 0].to(cache.dtype)
 
 
 # ----------------------------------------------------- per-layer decodes ---
 def _gqa_decode(x, p, cfg: TransformerConfig, kc, vc, pos: int, theta,
-                ring_w: int = 0):
-    """x [B,1,D]; kc/vc [B,S,Hkv,dh], written in place. Returns out."""
+                ring_w: int = 0, kv_group=None, tp=None):
+    """x [B,1,D]; kc/vc [B,S,Hkv,dh], written in place. Returns out
+    (under ``tp``: this rank's partial product, its heads' rows of wo)."""
     b = x.shape[0]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = x @ p["wq"]
@@ -102,6 +149,8 @@ def _gqa_decode(x, p, cfg: TransformerConfig, kc, vc, pos: int, theta,
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if tp is not None:  # every head: the cache holds them all
+        q, k, v = (tp.gather(t, -1) for t in (q, k, v))
     q = q.reshape(b, 1, h, dh)
     k = k.reshape(b, 1, hkv, dh)
     v = v.reshape(b, 1, hkv, dh)
@@ -113,23 +162,34 @@ def _gqa_decode(x, p, cfg: TransformerConfig, kc, vc, pos: int, theta,
     q = apply_rope(q, sin, cos, rd)
     k = apply_rope(k, sin, cos, rd)
 
+    split = None if kv_group is None else KVSplit(kv_group, kc.shape[1])
     if ring_w:
         slot = pos % ring_w
         valid = _ring_valid(pos, ring_w, x.device)
     else:
         slot = pos
-        valid = torch.arange(kc.shape[1], device=x.device) <= pos
-    _write(kc, k, slot)
-    _write(vc, v, slot)
-    out = _attend_cache(q, kc, vc, valid, dh ** -0.5)
-    return out.reshape(b, 1, h * dh).to(x.dtype) @ p["wo"]
+        n = kc.shape[1] if split is None else split.total
+        valid = torch.arange(n, device=x.device) <= pos
+    if split is not None:
+        valid = split.local(valid)
+    _write(kc, k, slot, split)
+    _write(vc, v, slot, split)
+    out = _attend_cache(q, kc, vc, valid, dh ** -0.5, split)
+    out = out.reshape(b, 1, h * dh).to(x.dtype)
+    if tp is not None:
+        width = tp.heads(h) * dh
+        out = out[..., tp.rank * width:(tp.rank + 1) * width]
+    return out @ p["wo"]
 
 
-def _mla_decode(x, p, cfg: TransformerConfig, ckv_c, kr_c, pos: int, theta):
-    """Absorbed MLA decode. ckv_c [B,S,kvr], kr_c [B,S,rope], in place."""
+def _mla_decode(x, p, cfg: TransformerConfig, ckv_c, kr_c, pos: int, theta,
+                kv_group=None, tp=None):
+    """Absorbed MLA decode. ckv_c [B,S,kvr], kr_c [B,S,rope], in place.
+    Under ``tp`` the absorbed queries of every head are gathered (the
+    cache serves them all) and this rank expands its heads."""
     m = cfg.mla
     b = x.shape[0]
-    h = cfg.n_heads
+    h = cfg.n_heads if tp is None else tp.heads(cfg.n_heads)
     qk = m.qk_nope_dim + m.qk_rope_dim
 
     cq = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
@@ -143,43 +203,54 @@ def _mla_decode(x, p, cfg: TransformerConfig, ckv_c, kr_c, pos: int, theta):
     k_rope = apply_rope(
         ckv_full[..., m.kv_lora_rank:][:, :, None, :], sin, cos
     )[:, :, 0, :]
-    _write(ckv_c, c_kv, pos)
-    _write(kr_c, k_rope, pos)
+    split = None if kv_group is None else KVSplit(kv_group, ckv_c.shape[1])
+    _write(ckv_c, c_kv, pos, split)
+    _write(kr_c, k_rope, pos, split)
 
     # absorbed scores: q̃_h = W_uk,hᵀ q_nope  →  [B,H,kvr]
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(),
                          p["wk_b"].float())
+    q_pe = q_rope[:, 0].float()
+    if tp is not None:
+        q_abs, q_pe = tp.gather(q_abs, 1), tp.gather(q_pe, 1)
     logits = (
         torch.einsum("bhr,bsr->bhs", q_abs, ckv_c.float())
-        + torch.einsum("bhe,bse->bhs", q_rope[:, 0].float(), kr_c.float())
+        + torch.einsum("bhe,bse->bhs", q_pe, kr_c.float())
     ) * (qk ** -0.5)
-    valid = torch.arange(ckv_c.shape[1], device=x.device) <= pos
+    n = ckv_c.shape[1] if split is None else split.total
+    valid = torch.arange(n, device=x.device) <= pos
+    if split is not None:
+        valid = split.local(valid)
     logits = torch.where(valid[None, None, :], logits, _MASKED)
-    mx = torch.amax(logits, dim=-1, keepdim=True)
-    pr = torch.exp(logits - mx)
-    pr = pr / torch.clamp(torch.sum(pr, -1, keepdim=True), min=1e-30)
-    o_lat = torch.einsum("bhs,bsr->bhr", pr, ckv_c.float())
+    o_lat = _softmax_rows(logits, ckv_c.float(), "bhs,bsr->bhr", split)
+    if tp is not None:
+        o_lat = o_lat[:, tp.rank * h:(tp.rank + 1) * h]
     out = torch.einsum("bhr,rhd->bhd", o_lat, p["wv_b"].float())
     return out.reshape(b, 1, h * m.v_head_dim).to(x.dtype) @ p["wo"]
 
 
 def _block_decode(h, blk, cfg: TransformerConfig, c0, c1, pos, theta,
-                  is_moe, ring_w, mesh, dp_axes):
+                  is_moe, ring_w, mesh, dp_axes, kv_group=None, tp=None):
     attn_in = rms_norm(h, blk["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
-        attn_out = _mla_decode(attn_in, blk["attn"], cfg, c0, c1, pos, theta)
+        attn_out = _mla_decode(attn_in, blk["attn"], cfg, c0, c1, pos, theta,
+                               kv_group, tp)
     else:
         attn_out = _gqa_decode(attn_in, blk["attn"], cfg, c0, c1, pos, theta,
-                               ring_w)
+                               ring_w, kv_group, tp)
+    if tp is not None:
+        attn_out = tp.reduce(attn_out)
     if cfg.sandwich_norm:
         attn_out = rms_norm(attn_out, blk["ln1_post"], cfg.norm_eps)
     h = h + attn_out
     mlp_in = rms_norm(h, blk["ln2"], cfg.norm_eps)
     if is_moe:
-        mlp_out, _, _ = _moe_ffn(mlp_in, blk["moe"], cfg, mesh, dp_axes)
+        mlp_out, _, _ = _moe_ffn(mlp_in, blk["moe"], cfg, mesh, dp_axes, tp)
     else:
         mlp_out = gated_mlp(mlp_in, blk["mlp"]["wg"], blk["mlp"]["wu"],
                             blk["mlp"]["wd"], cfg.act)
+        if tp is not None:
+            mlp_out = tp.reduce(mlp_out)
     if cfg.sandwich_norm:
         mlp_out = rms_norm(mlp_out, blk["ln2_post"], cfg.norm_eps)
     return h + mlp_out
@@ -276,18 +347,24 @@ def decode_step(
     *,
     mesh=None,
     dp_axes: Tuple[str, ...] = ("data",),
+    kv_group=None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token for the whole batch (``params`` from ``decode_layout``).
-    Returns (logits [B, V], the cache, written in place)."""
+    Returns (logits [B, V], the cache, written in place).  ``kv_group``:
+    the caches hold this rank's part of their sequence axis (module
+    docstring); ``tp``: the weights are this rank's tensor-parallel shards
+    (``transformer.TensorParallel``), the logits gathered whole."""
     pos = int(pos)
-    h = _embed(params, cfg, tokens[:, None])  # [B,1,D]
+    h = _embed(params, cfg, tokens[:, None], tp)  # [B,1,D]
     theta_l = cfg.rope_theta
     theta_g = cfg.rope_theta_global or cfg.rope_theta
 
     def run(h, stack, pair, is_moe, theta, ring_w):
         for i in range(pair[0].shape[0]):
             h = _block_decode(h, layer(stack, i), cfg, pair[0][i], pair[1][i],
-                              pos, theta, is_moe, ring_w, mesh, dp_axes)
+                              pos, theta, is_moe, ring_w, mesh, dp_axes,
+                              kv_group, tp)
         return h
 
     if not cfg.sub_quadratic:
@@ -302,16 +379,18 @@ def decode_step(
             for j in range(r * gm1, (r + 1) * gm1):
                 h = _block_decode(h, layer(params["blocks_local"], j), cfg,
                                   loc[0][j], loc[1][j], pos, theta_l, False,
-                                  cfg.window, mesh, dp_axes)
+                                  cfg.window, mesh, dp_axes, kv_group, tp)
             h = _block_decode(h, layer(params["blocks_global"], r), cfg,
                               glo[0][r], glo[1][r], pos, theta_g, False, 0,
-                              mesh, dp_axes)
+                              mesh, dp_axes, kv_group, tp)
         if "blocks_tail" in params:
             h = run(h, params["blocks_tail"], cache["tail"], False, theta_l,
                     cfg.window)
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = logits_from_hidden(params, cfg, h)[:, 0, :]  # [B, V]
+    logits = logits_from_hidden(params, cfg, h, tp)[:, 0, :]  # [B, V]
+    if tp is not None:
+        logits = tp.gather(logits, -1)
     return logits, cache
 
 
@@ -324,12 +403,15 @@ def prefill(
     *,
     mesh=None,
     dp_axes: Tuple[str, ...] = ("data",),
+    tp=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Full-prompt pass; returns (logits [B, S, V], decode cache @ s_max)."""
+    """Full-prompt pass; returns (logits [B, S, V], decode cache @ s_max).
+    Under ``tp`` the logits are this rank's vocabulary range and the cache
+    holds its heads."""
     b, s = tokens.shape
     h, aux = forward(params, cfg, tokens, mesh=mesh, dp_axes=dp_axes,
-                     collect_kv=True)
-    logits = logits_from_hidden(params, cfg, h)
+                     collect_kv=True, tp=tp)
+    logits = logits_from_hidden(params, cfg, h, tp)
     kv_stacks = aux["kv"]  # list per stack: (k|ckv [L,B,S,...], v|kr)
 
     def to_cache(pair, s_cache):

@@ -16,6 +16,13 @@ Faithfulness notes (as the reference's):
     ``[T, S·R]`` angle major, radial minor, so ``w_sbf`` carries across;
   * triplets are capped per edge (static shapes; ``sampler.py``).
 
+With ``edge_group`` (a process group) the edges and triplets are split
+over its ranks, the nodes replicated, as the reference's production cell
+lays them out: each rank computes its edges' messages, all-gathers the
+source messages its triplets read, reduce-scatters the triplet sums back
+to the edges' owners and all-reduces each block's node sums
+(:class:`EdgeSplit`).
+
 Parameters keep the reference's keys, with the blocks' leaves stacked
 ``[n_blocks, ...]``, so its ``init_params`` output carries across leaf for
 leaf (``train.checkpoint.params_from_numpy``).  Every division by a
@@ -34,6 +41,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (
+    all_reduce_sum,
+    gather_dim,
+    reduce_scatter_dim,
+    sum_grad,
+)
 from repro_torch.models.recsys.embedding import glorot_normal
 
 
@@ -214,35 +227,73 @@ def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int
     return out.index_add_(0, seg.long(), x)
 
 
-def _block(m, bp, sbf, rbf, g: GraphBatch, n: int, e: int):
+class EdgeSplit:
+    """Edges and triplets split over ``group`` (None: one rank holds all):
+    rank r holds edges ``[r·E_l, (r+1)·E_l)`` and its triplets, whose
+    ``trip_in`` / ``trip_out`` index the global edge list."""
+
+    def __init__(self, group, e_local: int):
+        self.group = group
+        n = 1 if group is None else torch.distributed.get_world_size(group)
+        self.e_total = e_local * n
+
+    def gather(self, x):
+        """Every rank's edge rows, in edge order (the gradient summed)."""
+        return x if self.group is None else gather_dim(x, self.group, 0)
+
+    def scatter(self, x):
+        """A global [E, ...] partial sum → this rank's edges, summed."""
+        return x if self.group is None else reduce_scatter_dim(
+            x, self.group, 0)
+
+    def node_sum(self, x):
+        """Node rows summed over the ranks (replicated after)."""
+        return x if self.group is None else all_reduce_sum(x, self.group)
+
+    def shared(self, x):
+        """A replicated value used on this rank's edges: its gradient is
+        summed over the ranks."""
+        return x if self.group is None else sum_grad(x, self.group)
+
+
+def _block(m, bp, sbf, rbf, g: GraphBatch, n: int, e: int,
+           split: EdgeSplit = None):
     """One interaction block: (messages', the nodes' contribution)."""
     act = F.silu
+    split = split or EdgeSplit(None, m.shape[0])
+    # w_out acts on the replicated node sums; the rest on this rank's edges
+    bp = {k: (v if k == "w_out" else split.shared(v)) for k, v in bp.items()}
     # directional aggregation over triplets
-    m_kj = _take(act(m @ bp["w_src"]), g.trip_in)  # [T, d]
+    m_kj = _take(split.gather(act(m @ bp["w_src"])), g.trip_in)  # [T, d]
     sbf_emb = sbf @ bp["w_sbf"]  # [T, n_bilinear]
     inter = torch.einsum("td,bdf->tbf", m_kj, bp["w_bil"])  # [T, B, d]
     inter = torch.einsum("tbf,tb->tf", inter, sbf_emb)  # [T, d]
     inter = torch.where(g.trip_mask[:, None], inter, 0.0)
-    agg = _segment_sum(inter, g.trip_out, e)
+    agg = split.scatter(_segment_sum(inter, g.trip_out, split.e_total))
     m2 = act(m @ bp["w_msg"]) + agg
     m2 = m2 + act(act(m2 @ bp["w_res1"]) @ bp["w_res2"])  # residual MLP
     m2 = torch.where(g.edge_mask[:, None], m2, 0.0)
     # output block: per-node contribution
-    t_i = _segment_sum(m2 * (rbf @ bp["w_rbf_out"]), g.edge_dst, n)
+    t_i = split.node_sum(
+        _segment_sum(m2 * (rbf @ bp["w_rbf_out"]), g.edge_dst, n))
     return m2, act(t_i @ bp["w_out"])
 
 
 def forward(params: Dict[str, Any], cfg: DimeNetConfig, g: GraphBatch, *,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, edge_group=None) -> torch.Tensor:
     """Returns [N, d_out] (node readout) or [n_graphs, d_out] (graph).
 
     ``remat=True`` recomputes each block in the backward
     (``torch.utils.checkpoint``) instead of keeping its ``[T, n_bilinear,
     d]`` intermediate: the values and gradients are the same.
+    ``edge_group``: the edges and triplets of ``g`` are this rank's shards
+    over that process group (:class:`EdgeSplit`); every rank returns the
+    same output.
     """
     act = F.silu
     n = g.node_feat.shape[0]
     e = g.edge_src.shape[0]
+    split = EdgeSplit(edge_group, e)
 
     h = act(g.node_feat.to(cfg.dtype) @ params["feat_proj"])  # [N, d]
 
@@ -255,21 +306,24 @@ def forward(params: Dict[str, Any], cfg: DimeNetConfig, g: GraphBatch, *,
     rbf = torch.where(g.edge_mask[:, None], rbf, 0.0).to(cfg.dtype)
 
     # triplet angle at j between (k→j) and (j→i): cosθ = -d_kj·d_ji/(|..||..|)
-    v_in = _take(dvec, g.trip_in)  # k→j
-    v_out = _take(dvec, g.trip_out)  # j→i
+    dvec_all = split.gather(dvec)
+    v_in = _take(dvec_all, g.trip_in)  # k→j
+    v_out = _take(dvec_all, g.trip_out)  # j→i
     num = torch.sum(v_in * v_out, -1)
     den = torch.clamp(torch.linalg.vector_norm(v_in, dim=-1)
                       * torch.linalg.vector_norm(v_out, dim=-1), min=1e-12)
     cos_t = torch.clamp(num / den, -1.0, 1.0)
-    d_in = _take(dist, g.trip_in)
+    d_in = _take(split.gather(dist), g.trip_in)
     sbf = spherical_basis(d_in, cos_t, cfg.n_spherical, cfg.n_radial,
                           cfg.cutoff, cfg.envelope_p)
     sbf = torch.where(g.trip_mask[:, None], sbf, 0.0).to(cfg.dtype)
 
     # embedding block: m_ji = σ(W [h_j ‖ h_i ‖ rbf_emb])
+    h = split.shared(h)
     m = act(torch.cat(
         [_take(h, g.edge_src), _take(h, g.edge_dst),
-         act(rbf @ params["rbf_embed"])], dim=-1) @ params["msg_embed"])
+         act(rbf @ split.shared(params["rbf_embed"]))], dim=-1)
+        @ split.shared(params["msg_embed"]))
     m = torch.where(g.edge_mask[:, None], m, 0.0)
 
     acc = torch.zeros((n, cfg.d_hidden), dtype=cfg.dtype,
@@ -278,10 +332,10 @@ def forward(params: Dict[str, Any], cfg: DimeNetConfig, g: GraphBatch, *,
     for i in range(blocks["w_msg"].shape[0]):
         bp = {k: v[i] for k, v in blocks.items()}
         if remat and torch.is_grad_enabled():
-            m, contrib = checkpoint(_block, m, bp, sbf, rbf, g, n, e,
+            m, contrib = checkpoint(_block, m, bp, sbf, rbf, g, n, e, split,
                                     use_reentrant=False)
         else:
-            m, contrib = _block(m, bp, sbf, rbf, g, n, e)
+            m, contrib = _block(m, bp, sbf, rbf, g, n, e, split)
         acc = acc + contrib
 
     out = acc @ params["out_proj"]  # [N, d_out]
@@ -291,10 +345,10 @@ def forward(params: Dict[str, Any], cfg: DimeNetConfig, g: GraphBatch, *,
 
 
 def loss_fn(params, cfg: DimeNetConfig, g: GraphBatch, labels: torch.Tensor,
-            label_mask: Optional[torch.Tensor] = None, *, remat: bool = False
-            ) -> Tuple[torch.Tensor, Dict]:
+            label_mask: Optional[torch.Tensor] = None, *, remat: bool = False,
+            edge_group=None) -> Tuple[torch.Tensor, Dict]:
     """Node tasks: masked softmax CE. Graph tasks: MSE regression."""
-    out = forward(params, cfg, g, remat=remat)
+    out = forward(params, cfg, g, remat=remat, edge_group=edge_group)
     if cfg.readout == "graph":
         err = (out[..., 0] - labels.float()) ** 2
         return torch.mean(err), {"mse": torch.mean(err)}

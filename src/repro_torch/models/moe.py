@@ -81,8 +81,13 @@ def aux_load_balance_loss(probs: torch.Tensor, ids: torch.Tensor,
                           n_experts: int) -> torch.Tensor:
     """Switch-style load-balancing loss: E · Σ_e f_e · P_e."""
     n, k = ids.shape
-    counts = torch.bincount(ids.reshape(-1).long(),
-                            minlength=n_experts).float()
+    # a count by index_add (exact below 2**24 a bin), not bincount, whose
+    # output length depends on the data and so cannot be traced
+    flat = ids.reshape(-1).long()
+    counts = torch.zeros((n_experts,), dtype=torch.float32,
+                         device=ids.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=ids.device))
     f = counts / torch.tensor(n * k, dtype=torch.float32,
                               device=counts.device)
     p = torch.mean(probs, dim=0)
@@ -149,6 +154,8 @@ def moe_ffn_local(
     act: str = "silu",
     capacity: Optional[int] = None,
     combine: bool = True,  # False: caller combines (e.g. reduce-scatter)
+    x_route: Optional[torch.Tensor] = None,  # the router's input (x)
+    weights_hook=None,  # applied to the routing weights before dispatch
 ) -> Tuple[torch.Tensor, dict]:
     """Routed-experts FFN. Caller adds the shared-expert branch.
 
@@ -166,8 +173,11 @@ def moe_ffn_local(
         capacity = ((capacity + 7) // 8) * 8
 
     w, ids, probs = router_scores(
-        x, params["router"], params["router_bias"], cfg
+        x if x_route is None else x_route, params["router"],
+        params["router_bias"], cfg
     )
+    if weights_hook is not None:
+        w = weights_hook(w)
     tok_tab, w_tab, v_tab, n_dropped = _dispatch_table(
         ids, w, e_lo=e_lo, e_local=e_local, capacity=capacity
     )

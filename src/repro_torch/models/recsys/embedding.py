@@ -126,6 +126,17 @@ def embedding_bag_ragged(
     raise ValueError(mode)
 
 
+def range_rows(table: torch.Tensor, ids: torch.Tensor, lo: int):
+    """Rows of a table shard holding global rows ``[lo, lo + len(table))``
+    at ``ids`` (-1 padding allowed): (rows [..., D], zero where an id is
+    out of the range, and that validity [...])."""
+    v_local = table.shape[0]
+    rel = ids.long() - lo
+    valid = (rel >= 0) & (rel < v_local) & (ids >= 0)
+    rows = F.embedding(torch.clamp(rel, 0, v_local - 1), table)
+    return rows * valid[..., None].to(rows.dtype), valid
+
+
 def sharded_embedding_bag(
     table: torch.Tensor,  # [V / n_model, D]: this rank's vocab range
     ids: torch.Tensor,  # [..., L]: this rank's rows of the batch
@@ -151,12 +162,8 @@ def sharded_embedding_bag(
     if mode not in ("sum", "mean"):
         raise ValueError(mode)
     group = mesh.get_group("model")
-    v_local = table.shape[0]
-    lo = mesh.get_local_rank("model") * v_local
-    rel = ids - lo
-    valid = (rel >= 0) & (rel < v_local) & (ids >= 0)
-    rows = F.embedding(torch.clamp(rel, 0, v_local - 1).long(), table)
-    rows = rows * valid[..., None].to(rows.dtype)
+    rows, valid = range_rows(table, ids,
+                             mesh.get_local_rank("model") * table.shape[0])
     out = all_reduce_sum(torch.sum(rows, dim=-2), group)
     if mode == "mean":
         n = all_reduce_sum(

@@ -15,6 +15,10 @@ params_from_numpy``).  ``user_embedding`` is each model's retrieval vector:
 ``retrieval_scores`` scores it against a candidate table, and
 ``examples/torch/recsys_retrieval.py`` queries the hybrid IVF index with it.
 
+Every function that looks tables up takes ``bag`` (default
+``embedding_bag``): the dry-run's production layout passes one that looks
+up tables split by row over the mesh (``launch.layouts.ShardedBags``).
+
 Batch contract (RecsysBatch):
   dense [B, n_dense] f32 · sparse [B, n_sparse] int32 · hist [B, L] int32
   (-1 pad) · target [B] int32 · label [B] f32
@@ -182,17 +186,17 @@ def _last_valid(h, hist):
     return torch.gather(h, 1, idx)[:, 0]
 
 
-def user_embedding(params, cfg: RecsysConfig, batch: RecsysBatch
-                   ) -> torch.Tensor:
+def user_embedding(params, cfg: RecsysConfig, batch: RecsysBatch, *,
+                   bag=embedding_bag) -> torch.Tensor:
     """The retrieval vector (for `retrieval_cand` / IVF candidate gen)."""
     if cfg.arch in ("din", "wide_deep"):
-        return embedding_bag(params["item_table"], batch.hist, mode="mean")
+        return bag(params["item_table"], batch.hist, mode="mean")
     # sequence models: hidden state at the last valid position
-    return _last_valid(_seq_hidden(params, cfg, batch), batch.hist)
+    return _last_valid(_seq_hidden(params, cfg, batch, bag), batch.hist)
 
 
-def _seq_hidden(params, cfg, batch) -> torch.Tensor:
-    e = embedding_bag(params["item_table"], batch.hist[..., None])  # [B,L,D]
+def _seq_hidden(params, cfg, batch, bag=embedding_bag) -> torch.Tensor:
+    e = bag(params["item_table"], batch.hist[..., None])  # [B,L,D]
     s = e.shape[1]
     e = e + params["pos_embed"][None, :s]
     mask = batch.hist >= 0
@@ -201,14 +205,15 @@ def _seq_hidden(params, cfg, batch) -> torch.Tensor:
     return e
 
 
-def forward(params, cfg: RecsysConfig, batch: RecsysBatch) -> torch.Tensor:
+def forward(params, cfg: RecsysConfig, batch: RecsysBatch, *,
+            bag=embedding_bag) -> torch.Tensor:
     """Pointwise CTR logit [B] (din/bst/wide_deep) or next-item score [B]
     against the batch target (sasrec)."""
     b = batch.target.shape[0]
-    tgt = embedding_bag(params["item_table"], batch.target[:, None])  # [B,D]
+    tgt = bag(params["item_table"], batch.target[:, None])  # [B,D]
 
     if cfg.arch == "din":
-        hist = embedding_bag(params["item_table"], batch.hist[..., None])
+        hist = bag(params["item_table"], batch.hist[..., None])
         mask = (batch.hist >= 0)[..., None]  # [B, L, 1]
         tq = torch.broadcast_to(tgt[:, None], hist.shape)
         a_in = torch.cat([hist, tq, hist - tq, hist * tq], dim=-1)  # [B,L,4D]
@@ -220,11 +225,11 @@ def forward(params, cfg: RecsysConfig, batch: RecsysBatch) -> torch.Tensor:
         return _apply_mlp(params["head"], x)[:, 0]
 
     if cfg.arch == "sasrec":
-        u = _last_valid(_seq_hidden(params, cfg, batch), batch.hist)
+        u = _last_valid(_seq_hidden(params, cfg, batch, bag), batch.hist)
         return torch.sum(u * tgt, -1)  # dot score
 
     if cfg.arch == "bst":
-        e = embedding_bag(params["item_table"], batch.hist[..., None])
+        e = bag(params["item_table"], batch.hist[..., None])
         seq = torch.cat([e, tgt[:, None]], dim=1)  # [B, L+1, D]
         s = seq.shape[1]
         seq = seq + params["pos_embed"][None, :s]
@@ -238,20 +243,21 @@ def forward(params, cfg: RecsysConfig, batch: RecsysBatch) -> torch.Tensor:
 
     if cfg.arch == "wide_deep":
         fused = _field_offsets(cfg, batch.sparse)
-        fields = embedding_bag(params["field_tables"], fused[..., None],
+        fields = bag(params["field_tables"], fused[..., None],
                                mode="sum")  # [B, F, D]
         deep_in = torch.cat([fields.reshape(b, -1),
                              batch.dense.to(fields.dtype)], -1)
         deep = _apply_mlp(params["head"], deep_in)[:, 0]
-        wide = embedding_bag(params["wide"], fused, mode="sum")[:, 0]
+        wide = bag(params["wide"], fused, mode="sum")[:, 0]
         return deep + wide + params["wide_bias"]
 
     raise ValueError(cfg.arch)
 
 
-def loss_fn(params, cfg: RecsysConfig, batch: RecsysBatch
+def loss_fn(params, cfg: RecsysConfig, batch: RecsysBatch, *,
+            bag=embedding_bag
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logit = forward(params, cfg, batch).float()
+    logit = forward(params, cfg, batch, bag=bag).float()
     y = batch.label.float()
     loss = torch.mean(torch.clamp(logit, min=0) - logit * y
                       + torch.log1p(torch.exp(-torch.abs(logit))))
@@ -260,13 +266,14 @@ def loss_fn(params, cfg: RecsysConfig, batch: RecsysBatch
 
 
 def retrieval_scores(params, cfg: RecsysConfig, batch: RecsysBatch,
-                     candidates: torch.Tensor, k: int = 100
+                     candidates: torch.Tensor, k: int = 100, *,
+                     bag=embedding_bag
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`retrieval_cand`: score users against [N_cand, D] item rows — one
     batched matmul + top-k (ties to the lower row, as ``lax.top_k``).  The
     IVF-index path for the same operation is
     ``examples/torch/recsys_retrieval.py``."""
-    u = user_embedding(params, cfg, batch)  # [B, D]
+    u = user_embedding(params, cfg, batch, bag=bag)  # [B, D]
     scores = u.float() @ candidates.float().T
     vals, ids = topk_lib.top_k(scores, k)
     return vals, ids.int()

@@ -21,11 +21,20 @@ changes no value.
 With a ``DeviceMesh`` the MoE FFN runs expert-parallel (``_moe_ffn``):
 each rank holds its experts (``local_params``), the activations stay
 replicated over ``model`` and split over the data axes, and the expert
-weights are all-gathered over ``fsdp_axis`` inside the layer.  Everything
-else runs replicated: the port has no tensor- or sequence-parallel layout.
+weights are all-gathered over ``fsdp_axis`` inside the layer.  With a
+:class:`TensorParallel` (``tp=``) the rest runs Megatron-style over
+``model``: every weight that ``param_pspecs`` splits over ``model`` is this
+rank's shard (column-parallel Q/K/V, gate and up; row-parallel output and
+down projections, all-reduced after; a vocab-parallel embedding and
+cross-entropy), so a rank holds its heads and its share of the MLP, and the
+activations between layers stay replicated over ``model``.  Where a
+rank's columns of K/V cut a head (fewer KV heads than ranks), it
+all-gathers those weights and takes the KV head its query heads read.
 Gradients through the mesh path follow the reference's unchecked
 ``shard_map``: the combine's all-reduce passes the gradient through (each
-rank's share); the port's ``Trainer`` trains without a mesh.
+rank's share), and the experts' FSDP all-gather reduce-scatters it (the
+transpose of ``all_gather``); the port's ``Trainer`` trains without a
+mesh.
 
 Sharding plan (``param_pspecs``, DTensor placements of the reference's
 PartitionSpecs; Megatron TP on "model", DP/FSDP on "data"):
@@ -41,15 +50,19 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (
     all_gather_dim,
+    all_reduce,
     all_reduce_sum,
     axis_size,
+    gather_dim,
     reduce_scatter_dim,
+    sum_grad,
 )
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import TransformerConfig
@@ -61,6 +74,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_tables,
 )
+from repro_torch.models.recsys.embedding import range_rows
 from repro_torch.train.optimizer import to_placements
 from repro_torch.train.tree import tree_map
 
@@ -271,22 +285,93 @@ def local_params(params: Dict[str, Any], cfg: TransformerConfig, mesh
     return out
 
 
-# --------------------------------------------------------------- forward ---
-def _gqa_attention(x, p, cfg: TransformerConfig, sin, cos, window,
-                   q_offset=0):
+# ------------------------------------------------------ tensor parallel ---
+class TensorParallel:
+    """Megatron tensor parallelism over one mesh axis (``model``): this
+    rank's index and group, and the four collectives of the layout.
+
+    ``enter`` marks a replicated activation (or weight) that this rank's
+    split weights then use: identity forward, all-reduce of the gradient
+    (each rank holds a share); ``reduce`` sums a row-parallel product's
+    partial outputs (identity backward: what follows is replicated);
+    ``gather`` concatenates the ranks' pieces (this rank's chunk of the
+    gradient back); ``gather_sum`` the same for a weight whose every piece
+    this rank then uses on its own heads (the gradient summed)."""
+
+    def __init__(self, mesh, axis: str = "model"):
+        self.group = mesh.get_group(axis)
+        self.size = axis_size(mesh, axis)
+        self.rank = mesh.get_local_rank(axis)
+
+    def enter(self, x):
+        return sum_grad(x, self.group)
+
+    def reduce(self, x):
+        return all_reduce_sum(x, self.group)
+
+    def gather(self, x, dim: int):
+        return all_gather_dim(x, self.group, dim)
+
+    def gather_sum(self, x, dim: int):
+        return gather_dim(x, self.group, dim)
+
+    def max(self, x):
+        """The elementwise max over the group (no gradient)."""
+        return all_reduce(x, self.group, dist.ReduceOp.MAX)
+
+    def heads(self, n: int) -> int:
+        if n % self.size:
+            raise ValueError(f"{n} heads do not split over {self.size} "
+                             "tensor-parallel ranks")
+        return n // self.size
+
+
+def _gqa_qkv(x, p, cfg: TransformerConfig, tp):
+    """Q, K, V projections ``[B, S, heads, dh]`` (with bias and qk-norm)
+    for this rank's heads; returns (q, k, v, heads, kv_heads)."""
     b, s, d = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if tp is not None:
+        h = tp.heads(h)
+        if hkv % tp.size:
+            # a rank's columns cut a KV head: gather the K/V weights and
+            # keep the one KV head this rank's query heads read
+            group = cfg.n_heads // hkv
+            if group % h:
+                raise ValueError(f"{h} query heads a rank span KV heads")
+            cols = slice((tp.rank * h // group) * dh,
+                         (tp.rank * h // group + 1) * dh)
+            wk, wv = (tp.gather_sum(w, -1)[..., cols] for w in (wk, wv))
+            if cfg.qkv_bias:
+                bk, bv = (tp.gather_sum(t, -1)[..., cols] for t in (bk, bv))
+            hkv = 1
+        else:
+            hkv //= tp.size
+        if cfg.qk_norm:  # replicated gains acting on this rank's heads
+            q_norm, k_norm = tp.enter(q_norm), tp.enter(k_norm)
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ wk
+    v = x @ wv
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + bk, v + bv
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
+    return q, k, v, h, hkv
+
+
+# --------------------------------------------------------------- forward ---
+def _gqa_attention(x, p, cfg: TransformerConfig, sin, cos, window,
+                   q_offset=0, tp=None):
+    b, s, d = x.shape
+    dh = cfg.d_head
+    q, k, v, h, _ = _gqa_qkv(x, p, cfg, tp)
     rd = int(dh * cfg.rotary_pct)
     q = apply_rope(q, sin, cos, rd)
     k = apply_rope(k, sin, cos, rd)
@@ -298,14 +383,16 @@ def _gqa_attention(x, p, cfg: TransformerConfig, sin, cos, window,
 
 
 def _mla_attention(x, p, cfg: TransformerConfig, sin, cos, window,
-                   q_offset=0):
-    """MLA training/prefill path (expanded); decode uses the absorbed path."""
+                   q_offset=0, tp=None):
+    """MLA training/prefill path (expanded); decode uses the absorbed path.
+    Under ``tp`` the latents are replicated and the heads split."""
     m = cfg.mla
     b, s, d = x.shape
-    h = cfg.n_heads
+    h = cfg.n_heads if tp is None else tp.heads(cfg.n_heads)
+    enter = (lambda t: t) if tp is None else tp.enter
     qk = m.qk_nope_dim + m.qk_rope_dim
     cq = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
-    q = (cq @ p["wq_b"]).reshape(b, s, h, qk)
+    q = (enter(cq) @ p["wq_b"]).reshape(b, s, h, qk)
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
 
     ckv_full = x @ p["wkv_a"]  # [B,S,kvr+rope]
@@ -315,10 +402,11 @@ def _mla_attention(x, p, cfg: TransformerConfig, sin, cos, window,
     q_rope = apply_rope(q_rope, sin, cos)
     k_rope = apply_rope(k_rope, sin, cos)
 
-    k_nope = torch.einsum("bsr,rhd->bshd", c_kv, p["wk_b"])
-    v = torch.einsum("bsr,rhd->bshd", c_kv, p["wv_b"])
+    c_kv_h = enter(c_kv)  # the latent this rank's heads expand
+    k_nope = torch.einsum("bsr,rhd->bshd", c_kv_h, p["wk_b"])
+    v = torch.einsum("bsr,rhd->bshd", c_kv_h, p["wv_b"])
     k = torch.cat(
-        [k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)], -1
+        [k_nope, enter(k_rope).expand(b, s, h, m.qk_rope_dim)], -1
     )
     q_full = torch.cat([q_nope, q_rope], -1)
     out = flash_attention(
@@ -331,7 +419,7 @@ def _mla_attention(x, p, cfg: TransformerConfig, sin, cos, window,
 
 
 def _moe_ffn(x, moe_params, cfg: TransformerConfig, mesh,
-             dp_axes: Tuple[str, ...]):
+             dp_axes: Tuple[str, ...], tp=None):
     """Expert FFN + shared expert. x: [B, S, D].
 
     With a mesh: experts split over ``moe_ep_axes`` (``local_params``);
@@ -341,7 +429,9 @@ def _moe_ffn(x, moe_params, cfg: TransformerConfig, mesh,
     carries data (and the rank's own rows taken back after).  The combine
     is an all-reduce over the EP axes ("psum") or, with ``moe_combine=
     "scatter"``, a reduce-scatter over ``model`` on the sequence dim,
-    all-gathered back to the replicated layout the port keeps.
+    all-gathered back to the replicated layout the port keeps.  Under
+    ``tp`` the shared expert is split over ``model`` too, and its partial
+    output joins the routed combine where that runs over ``model`` alone.
     """
     b, s, d = x.shape
     mcfg = cfg.moe
@@ -353,12 +443,17 @@ def _moe_ffn(x, moe_params, cfg: TransformerConfig, mesh,
         cfg.moe_combine == "scatter" and mesh is not None
         and ep_axes == ("model",) and s % axis_size(mesh, "model") == 0
     )
+    # under tp the shared expert's partial sum rides the routed combine
+    fuse = tp is not None and ep_axes == ("model",)
+    x_route = x
+    if tp is not None:  # the experts below are this rank's share
+        x = tp.enter(x)
     wg, wu, wd = moe_params["wg"], moe_params["wu"], moe_params["wd"]
-    if fsdp is not None:
+    if fsdp is not None:  # the gradient reduce-scattered back to the shards
         group = mesh.get_group(fsdp)
-        wg = all_gather_dim(wg, group, 1)
-        wu = all_gather_dim(wu, group, 1)
-        wd = all_gather_dim(wd, group, 2)
+        wg = gather_dim(wg, group, 1)
+        wu = gather_dim(wu, group, 1)
+        wd = gather_dim(wd, group, 2)
     # tokens must be replicated over any EP axis that is also a dp axis
     rep = [a for a in dp_axes if a in ep_axes]
     xl = x
@@ -367,34 +462,56 @@ def _moe_ffn(x, moe_params, cfg: TransformerConfig, mesh,
     n = xl.shape[0] * xl.shape[1]
     p_local = {"wg": wg, "wu": wu, "wd": wd, "router": moe_params["router"],
                "router_bias": moe_params["router_bias"]}
+    xr = xl
+    if tp is not None:  # the router's replicated input, gathered alike
+        xr = x_route
+        for a in rep:
+            xr = all_gather_dim(xr, mesh.get_group(a), 0)
     out, metrics = moe_lib.moe_ffn_local(
         xl.reshape(n, d), p_local, mcfg, mesh=mesh, ep_axes=ep_axes,
-        act=cfg.act, combine=not use_scatter,
+        act=cfg.act, combine=not (use_scatter or fuse),
+        x_route=xr.reshape(n, d),
+        # each rank weighs its own experts: the weights' gradient is summed
+        weights_hook=None if tp is None else tp.enter,
     )
     out = out.reshape(xl.shape)
     dropped = metrics["n_dropped"]
+    shared = None
+    if mcfg.n_shared:
+        shared = gated_mlp(
+            x, moe_params["shared_wg"], moe_params["shared_wu"],
+            moe_params["shared_wd"], cfg.act,
+        )
+    if fuse and shared is not None:
+        out, shared = out + shared, None
     if use_scatter:  # combine partial expert outputs, sequence-sharded
         group = mesh.get_group("model")
         out = all_gather_dim(reduce_scatter_dim(out, group, 1), group, 1)
         dropped = all_reduce_sum(dropped, group)
+    elif fuse:
+        out = tp.reduce(out)
+        dropped = tp.reduce(dropped)
     for a in reversed(rep):
         out = torch.chunk(out, axis_size(mesh, a), dim=0)[
             mesh.get_local_rank(a)]
-    if mcfg.n_shared:
-        out = out + gated_mlp(
-            x, moe_params["shared_wg"], moe_params["shared_wu"],
-            moe_params["shared_wd"], cfg.act,
-        )
+    if shared is not None:
+        out = out + (shared if tp is None else tp.reduce(shared))
     return out, metrics["aux_loss"], dropped
 
 
 def _block_apply(h, blk_params, cfg: TransformerConfig, sin, cos, window,
-                 is_moe: bool, mesh, dp_axes, q_offset=0):
+                 is_moe: bool, mesh, dp_axes, q_offset=0, tp=None):
     """One transformer block. Returns (h, kv_payload, aux, dropped)."""
     attn_in = rms_norm(h, blk_params["ln1"], cfg.norm_eps)
-    attn_fn = _mla_attention if cfg.mla is not None else _gqa_attention
-    attn_out, kv = attn_fn(attn_in, blk_params["attn"], cfg, sin, cos,
-                           window, q_offset)
+    if cfg.mla is not None:
+        attn_out, kv = _mla_attention(attn_in, blk_params["attn"], cfg, sin,
+                                      cos, window, q_offset, tp)
+    else:
+        attn_in = attn_in if tp is None else tp.enter(attn_in)
+        attn_out, kv = _gqa_attention(attn_in, blk_params["attn"], cfg, sin,
+                                      cos, window, q_offset, tp)
+    if tp is not None:
+        attn_out = tp.reduce(attn_out)
     if cfg.sandwich_norm:
         attn_out = rms_norm(attn_out, blk_params["ln1_post"], cfg.norm_eps)
     h = h + attn_out
@@ -402,11 +519,14 @@ def _block_apply(h, blk_params, cfg: TransformerConfig, sin, cos, window,
     mlp_in = rms_norm(h, blk_params["ln2"], cfg.norm_eps)
     if is_moe:
         mlp_out, aux, dropped = _moe_ffn(mlp_in, blk_params["moe"], cfg,
-                                         mesh, dp_axes)
+                                         mesh, dp_axes, tp)
     else:
-        mlp_out = gated_mlp(mlp_in, blk_params["mlp"]["wg"],
+        mlp_out = gated_mlp(mlp_in if tp is None else tp.enter(mlp_in),
+                            blk_params["mlp"]["wg"],
                             blk_params["mlp"]["wu"],
                             blk_params["mlp"]["wd"], cfg.act)
+        if tp is not None:
+            mlp_out = tp.reduce(mlp_out)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         dropped = torch.zeros((), dtype=torch.int32, device=h.device)
     if cfg.sandwich_norm:
@@ -420,11 +540,11 @@ def layer(stack: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 
 def _run_stack(h, stack, cfg, windows, sin_l, cos_l, sin_g, cos_g,
-               is_moe, mesh, dp_axes, collect_kv=False, q_offset=0):
+               is_moe, mesh, dp_axes, collect_kv=False, q_offset=0, tp=None):
     """The layers of a stacked block in order. windows: [L] per-layer."""
     def apply(hc, blk, sin, cos, w):
         return _block_apply(hc, blk, cfg, sin, cos, w, is_moe, mesh,
-                            dp_axes, q_offset)
+                            dp_axes, q_offset, tp)
 
     kvs, aux, dropped = [], [], []
     for i, w in enumerate(int(x) for x in windows):
@@ -449,11 +569,20 @@ def _rope_dim(cfg: TransformerConfig) -> int:
             else int(cfg.d_head * cfg.rotary_pct))
 
 
-def _embed(params, cfg: TransformerConfig, tokens: torch.Tensor):
+def _vocab_lookup(table, ids, tp):
+    """Rows of ``table`` at ``ids``: whole, or (``tp``) this rank's vocab
+    range, masked and summed over the group."""
+    if tp is None:
+        return F.embedding(ids.long(), table)
+    rows, _ = range_rows(table, ids, tp.rank * table.shape[0])
+    return tp.reduce(rows)
+
+
+def _embed(params, cfg: TransformerConfig, tokens: torch.Tensor, tp=None):
     """Token embeddings (``F.embedding``: its backward on the card sorts
     the ids rather than adding with atomics, so a step repeats bit for
-    bit)."""
-    h = F.embedding(tokens.long(), params["embed"])
+    bit); vocab-parallel under ``tp``."""
+    h = _vocab_lookup(params["embed"], tokens, tp)
     if cfg.scale_embed:
         h = h * torch.tensor(np.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
@@ -469,15 +598,17 @@ def forward(
     dp_axes: Tuple[str, ...] = ("data",),
     collect_kv: bool = False,
     q_offset: int = 0,
+    tp: Optional[TensorParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence forward. Returns (hidden [B,S,D], aux dict).
 
     aux carries moe metrics and (if collect_kv) the per-layer cache payloads
     for prefill.  With a ``DeviceMesh``, ``tokens`` are this rank's rows
-    and ``params`` its ``local_params``.
+    and ``params`` its ``local_params``; with ``tp`` too, the weights that
+    ``param_pspecs`` splits over ``model`` are this rank's shards.
     """
     b, s = tokens.shape
-    h = _embed(params, cfg, tokens)  # [B,S,D]
+    h = _embed(params, cfg, tokens, tp)  # [B,S,D]
     positions = q_offset + torch.arange(s, device=h.device)
     rd = _rope_dim(cfg)
     sin_l, cos_l = rope_tables(positions, rd, cfg.rope_theta)
@@ -490,7 +621,7 @@ def forward(
     if cfg.n_dense_layers:
         h, kv, aux_l, drop = _run_stack(
             h, params["blocks"], cfg, wp[: cfg.n_dense_layers], sin_l, cos_l,
-            sin_g, cos_g, False, mesh, dp_axes, collect_kv, q_offset,
+            sin_g, cos_g, False, mesh, dp_axes, collect_kv, q_offset, tp,
         )
         kv_all.append(kv)
         aux["moe_aux_loss"] = aux_l
@@ -499,6 +630,7 @@ def forward(
         h, kv, aux_l, drop = _run_stack(
             h, params["moe_blocks"], cfg, wp[cfg.n_dense_layers:], sin_l,
             cos_l, sin_g, cos_g, True, mesh, dp_axes, collect_kv, q_offset,
+            tp,
         )
         kv_all.append(kv)
         aux["moe_aux_loss"] = aux.get("moe_aux_loss", 0.0) + aux_l
@@ -509,8 +641,11 @@ def forward(
     return h, aux
 
 
-def logits_from_hidden(params, cfg, h):
+def logits_from_hidden(params, cfg, h, tp=None):
+    """Logits over the vocabulary (under ``tp``: this rank's range)."""
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    if tp is not None:
+        h = tp.enter(h)
     logits = h @ head.to(h.dtype)
     if cfg.logit_softcap > 0:
         c = torch.tensor(cfg.logit_softcap, dtype=logits.dtype,
@@ -519,12 +654,25 @@ def logits_from_hidden(params, cfg, h):
     return logits
 
 
-def _ce(params, cfg, hid, lab):
-    """(summed token CE over labels >= 0, their count)."""
-    lg = logits_from_hidden(params, cfg, hid).float()
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, torch.clamp(lab, min=0).long()[..., None]
-                        )[..., 0]
+def _ce(params, cfg, hid, lab, tp=None):
+    """(summed token CE over labels >= 0, their count); vocab-parallel
+    under ``tp`` (the max, the sum of exponentials and the gold logit
+    reduced over the group)."""
+    lg = logits_from_hidden(params, cfg, hid, tp).float()
+    if tp is None:
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, torch.clamp(lab, min=0).long()[..., None]
+                            )[..., 0]
+    else:
+        m = tp.max(torch.amax(lg, dim=-1, keepdim=True))
+        lse = (torch.log(tp.reduce(torch.sum(torch.exp(lg - m), -1)))
+               + m[..., 0])
+        v_local = lg.shape[-1]
+        rel = torch.clamp(lab, min=0).long() - tp.rank * v_local
+        ok = (rel >= 0) & (rel < v_local)
+        gold = torch.gather(lg, -1, torch.clamp(rel, 0, v_local - 1)[..., None]
+                            )[..., 0]
+        gold = tp.reduce(torch.where(ok, gold, 0.0))
     mask = (lab >= 0).float()
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
@@ -537,17 +685,18 @@ def lm_loss(
     *,
     mesh=None,
     dp_axes: Tuple[str, ...] = ("data",),
+    tp: Optional[TensorParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Causal LM loss (+ MTP auxiliary loss + MoE balance loss)."""
-    h, aux = forward(params, cfg, tokens, mesh=mesh, dp_axes=dp_axes)
-    total, denom = _ce(params, cfg, h, labels)
+    h, aux = forward(params, cfg, tokens, mesh=mesh, dp_axes=dp_axes, tp=tp)
+    total, denom = _ce(params, cfg, h, labels, tp)
     metrics = {"ce_tokens": denom}
 
     if cfg.mtp_depth:
         # predict t+2: combine h_t with embedding of token t+1 (=labels_t)
         mtp = params["mtp"]
-        e_next = F.embedding(torch.clamp(labels, min=0).long(),
-                             params["embed"])
+        e_next = _vocab_lookup(params["embed"], torch.clamp(labels, min=0),
+                               tp)
         comb = torch.cat(
             [rms_norm(h, mtp["norm_h"], cfg.norm_eps),
              rms_norm(e_next, mtp["norm_e"], cfg.norm_eps)], -1
@@ -557,13 +706,13 @@ def lm_loss(
         sin, cos = rope_tables(torch.arange(s, device=comb.device),
                                _rope_dim(cfg), cfg.rope_theta)
         h2, _kv, _aux, _drop = _block_apply(
-            comb, blk, cfg, sin, cos, 0, False, mesh, dp_axes
+            comb, blk, cfg, sin, cos, 0, False, mesh, dp_axes, tp=tp
         )
         h2 = rms_norm(h2, mtp["final_norm"], cfg.norm_eps)
         labels_mtp = torch.cat(
             [labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1
         )
-        mtp_total, mtp_denom = _ce(params, cfg, h2, labels_mtp)
+        mtp_total, mtp_denom = _ce(params, cfg, h2, labels_mtp, tp)
         total = total + cfg.mtp_loss_weight * mtp_total
         metrics["mtp_tokens"] = mtp_denom
 

@@ -160,17 +160,36 @@ def adafactor_init(params, cfg: OptimizerConfig) -> AdafactorState:
 
 
 def adafactor_update(grads, state: AdafactorState, params, lr: torch.Tensor,
-                     cfg: OptimizerConfig):
+                     cfg: OptimizerConfig, *, shapes=None, psum=None):
+    """One Adafactor step.  On local shards (``launch.layouts``): ``shapes``
+    is a tree like ``params`` whose leaves have the global ``.shape``
+    (factoring is decided on it and each mean divides by it), and
+    ``psum(x, leaf, dims)`` sums the partial sum ``x`` over the ranks that
+    split the dimensions ``dims`` of that leaf of ``shapes``.  By default
+    every leaf is whole."""
     c = state.count + 1
     beta2 = 1.0 - c.to(torch.float32) ** _f32(-cfg.decay_rate, c)
 
-    def upd(p, g, vr, vc):
+    def upd(p, g, vr, vc, whole=None):
+        shape = tuple(p.shape) if whole is None else tuple(whole.shape)
+        nd = len(shape)
+
+        def mean(x, dim, pdim):
+            # over tensor dim ``dim`` (every dim: None), the parameter's
+            # dim ``pdim`` (every dim: None)
+            if whole is None:
+                return torch.mean(x) if dim is None else torch.mean(x, dim)
+            dims = range(nd) if pdim is None else (pdim,)
+            n = math.prod(shape) if pdim is None else shape[pdim]
+            s = torch.sum(x) if dim is None else torch.sum(x, dim)
+            return psum(s, whole, tuple(dims)) / _f32(float(n or 1), x)
+
         g32 = g.float()
         g2 = g32 * g32 + 1e-30
-        if _factored(p.shape, cfg.factored_min_dim):
-            vr2 = beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1)
-            vc2 = beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2)
-            r = vr2 / torch.clamp(torch.mean(vr2, dim=-1, keepdim=True),
+        if _factored(shape, cfg.factored_min_dim):
+            vr2 = beta2 * vr + (1 - beta2) * mean(g2, -1, nd - 1)
+            vc2 = beta2 * vc + (1 - beta2) * mean(g2, -2, nd - 2)
+            r = vr2 / torch.clamp(mean(vr2, -1, nd - 2)[..., None],
                                   min=1e-30)
             step = g32 / (torch.sqrt(r)[..., None]
                           * torch.sqrt(vc2)[..., None, :] + cfg.eps)
@@ -179,12 +198,14 @@ def adafactor_update(grads, state: AdafactorState, params, lr: torch.Tensor,
             vc2 = vc
             step = g32 / (torch.sqrt(vr2) + cfg.eps)
         # update clipping (Adafactor's RMS-1 rule)
-        rms = torch.sqrt(torch.mean(step * step) + 1e-30)
+        rms = torch.sqrt(mean(step * step, None, None) + 1e-30)
         step = step / torch.clamp(rms, min=1.0)
         step = step + cfg.weight_decay * p.float()
         return _Updated((p.float() - lr * step).to(p.dtype), vr2, vc2)
 
-    out = tree_map(upd, params, grads, state.v_row, state.v_col)
+    trees = (params, grads, state.v_row, state.v_col)
+    out = tree_map(upd, *trees) if shapes is None else tree_map(
+        upd, *trees, shapes)
     return _pick(out, 0), AdafactorState(_pick(out, 1), _pick(out, 2), c)
 
 

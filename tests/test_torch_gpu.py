@@ -1756,18 +1756,91 @@ def test_launch_train_main_on_card(cuda, arch):
 
     if arch == "dimenet":
         from repro_torch.models.gnn import init_params
-        module = "dimenet"
+        module = importlib.import_module("repro_torch.configs.dimenet")
     elif arch in launcher.LM_ARCHS:
         from repro_torch.models.transformer import init_params
         module = launcher.LM_ARCHS[arch]
     else:
         from repro_torch.models.recsys import init_params
         module = launcher.RECSYS_ARCHS[arch]
-    cfg = importlib.import_module(
-        f"repro_torch.configs.{module}").smoke_config()
+    cfg = module.smoke_config()
     host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     argv = ["--arch", arch, "--steps", "3"]
     card = launcher.main(argv, params=host)
     cpu = launcher.main(argv + ["--device", "cpu"], params=host)
     np.testing.assert_allclose(card["loss"][0], cpu["loss"][0], rtol=1e-4)
     assert all(np.isfinite(card["loss"]))
+
+
+# ---- the kernels' custom ops (the dry-run's trace passes through them) ----
+def _op_case(dev, seed=3, kc=7, vpad=150, d=97, m=3, f=2, q=40, p=29):
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return dict(
+        queries=t(rng.standard_normal((q, d)).astype(np.float32)),
+        vectors=t(rng.standard_normal((kc, vpad, d)).astype(np.float32)),
+        attrs=t(rng.integers(0, 6, (kc, vpad, m)).astype(np.int16)),
+        ids=t(np.arange(kc * vpad, dtype=np.int32).reshape(kc, vpad)),
+        lo=t(np.zeros((q, f, m), np.int16)),
+        hi=t(rng.integers(2, 6, (q, f, m)).astype(np.int16)),
+        slot_cluster=t(rng.integers(0, kc, p).astype(np.int32)),
+        slot_query=t(rng.integers(0, q, p).astype(np.int32)),
+    )
+
+
+def test_centroid_topk_op_on_the_card(cuda):
+    """``torch.ops.repro_torch.centroid_topk`` on CUDA tensors launches the
+    kernel (one count) and agrees with the plain version."""
+    x = _op_case(cuda)
+    cents = x["vectors"][:, 0].contiguous()
+    before = tct.LAUNCHES
+    vals, ids = torch.ops.repro_torch.centroid_topk(x["queries"], cents, 3,
+                                                    "dot")
+    torch.cuda.synchronize()
+    assert tct.LAUNCHES == before + 1
+    wv, wi = centroid_topk_ref(x["queries"], cents, t=3)
+    torch.testing.assert_close(vals, wv, rtol=1e-5, atol=1e-5)
+    assert torch.equal(ids, wi)
+
+
+def test_filtered_scan_op_on_the_card(cuda):
+    """``torch.ops.repro_torch.filtered_scan`` launches the per-probe kernel
+    and agrees with the plain version."""
+    x = _op_case(cuda)
+    args = (x["slot_cluster"], x["slot_query"], x["queries"], x["lo"],
+            x["hi"], x["vectors"], x["attrs"], x["ids"], None, None, "dot")
+    before = tfs.PER_PROBE_LAUNCHES
+    got = torch.ops.repro_torch.filtered_scan(*args)
+    torch.cuda.synchronize()
+    assert tfs.PER_PROBE_LAUNCHES == before + 1
+    want = filtered_scan_ref(*args[:-1], metric="dot")
+    live = want > NEG_INF / 2
+    assert torch.equal(got > NEG_INF / 2, live)
+    torch.testing.assert_close(got[live], want[live], rtol=1e-5,
+                               atol=1e-5 * float(want[live].abs().max()))
+
+
+def test_filtered_scan_tiled_op_on_the_card(cuda):
+    """``torch.ops.repro_torch.filtered_scan_tiled`` launches the tiled
+    kernel and agrees with the plain version (k past Vpad included)."""
+    x = _op_case(cuda)
+    qb = 8
+    s = x["slot_cluster"].shape[0]
+    tile = (torch.arange(s, device=cuda) % 5).int()
+    args = (x["slot_cluster"], tile, None, x["queries"], x["lo"], x["hi"],
+            x["vectors"], x["attrs"], x["ids"], None, None, "dot", 160, qb)
+    before = tfs.LAUNCHES
+    vals, ids, npass = torch.ops.repro_torch.filtered_scan_tiled(*args)
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES == before + 1
+    wv, wi, wn = filtered_scan_tiled_ref(*args[:11], metric="dot", k=160,
+                                         q_block=qb)
+    assert vals.shape == wv.shape and ids.dtype == wi.dtype
+    assert torch.equal(npass, wn)
+    live = wv > NEG_INF / 2
+    assert torch.equal(vals > NEG_INF / 2, live)
+    torch.testing.assert_close(vals[live], wv[live], rtol=1e-5,
+                               atol=1e-5 * float(wv[live].abs().max()))
