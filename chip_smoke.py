@@ -6,7 +6,8 @@
 Phases:
   1. environment and build: the card, the versions, one ``nvcc`` per CUDA
      source (all started together), and the count of tensor-core
-     instructions (HGMMA, HMMA) in each library's SASS;
+     instructions (HGMMA, HMMA) in each library's SASS, and in the tiled
+     scan's tensor-core instantiations of each dtype pair;
   2. every kernel against its plain PyTorch version on the card, at small
      ragged shapes: filtered_scan_tiled and the per-probe filtered_scan
      over their dtype pairs and metrics (F = 1 and 2 DNF terms; the tiled
@@ -20,6 +21,14 @@ Phases:
      to 0 just before and read just after; results are checked against the
      port's ``search_reference`` and scored for recall against an exact
      brute-force oracle;
+  3l. (run right after phase 3's checks) SQ8 on the main path:
+     ``quantize_index`` of phase 3's index served by ``SearchEngine`` on
+     the same batches of the three mixes, N_CHECK queries a mix held
+     against ``search_reference`` on the quantized index, recall@10
+     against phase 3's exact brute force beside the bf16 index's, and the
+     hot plan's tiled scan (f32 queries x int8) beside the f32 FMA body's
+     entry point on the same operands, both held against the plain
+     version.  Its launches count into the kernels line;
   3b. the one-shard sharded search (``make_sharded_search``, per-probe and
      tiled backends) on the same batches, and ``search_fused`` on one batch
      per mix, with the launch counts set to 0 just before and read just
@@ -73,7 +82,8 @@ Phases:
      allocate (``build_ivf`` itself where that fits); and the launcher's
      own build path at the largest N whose index the card holds (capped for
      the host's numpy data and at LAUNCH_BUILD_MAX_N for the run's time),
-     with the tiled kernel's f32 x f32 time on its index;
+     with the tiled kernel's f32 x f32 time on its index beside the f32
+     FMA body's on the same operands;
   3g. (run between 3f and 3d, on 3c's checkpoint) the sharded ring: a
      loopback ``open_sharded`` ring of 3 peers, each caching a third of
      3c's budget, the disk index's own store as the fallback, through both
@@ -129,7 +139,8 @@ Phases:
      ``search_fused`` and ``SearchEngine``, each held against
      ``search_reference`` and ``brute_force`` and timed; both scans against
      their plain versions at D = 18, 32, 50, 64 f32 and on the retrieval's
-     full-size operands (timed beside plain and bound).  The examples' and
+     full-size operands (timed beside plain, bound and, for the tiled
+     scan, the f32 FMA body).  The examples' and
      the retrieval's launches count into the kernels line;
   3j. (run right after 3i) DimeNet, the LM family and the training
      launcher: chatglm3-6b, gemma3-12b and deepseek-moe-16b at their
@@ -311,36 +322,122 @@ def plain_scan(args, kw):
             filtered_scan_tiled_ref(*args, **{**kw, "k": kw["k"] + 1}))
 
 
-def sass_counts(lib):
-    """Tensor-core instructions in a built library's SASS (cuobjdump)."""
+def sass_of(lib):
+    """A built library's SASS (cuobjdump -sass)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+
+
+def sass_counts(sass):
+    """Tensor-core instructions in a library's SASS."""
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
 
 
+# the tiled library's tensor-core instantiations, by the mangled prefix of
+# their first two template arguments (query, vector type)
+TC_PAIRS = {"bf16 x bf16": "scan_tc_kernelI13__nv_bfloat16",
+            "f32 x bf16": "scan_tc_kernelIf13__nv_bfloat16",
+            "f32 x f32": "scan_tc_kernelIff",
+            "f32 x int8 (SQ8)": "scan_tc_kernelIfa"}
+
+
+def hmma_by_pair(sass):
+    """HMMA instructions in the tiled library's tensor-core body for each
+    dtype pair, summed over its instantiations (the SASS's functions),
+    and the number of instantiations."""
+    out = {pair: dict(hmma=0, kernels=0) for pair in TC_PAIRS}
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = next((p for p, key in TC_PAIRS.items() if key in m.group(1)),
+                       None)
+            if cur:
+                out[cur]["kernels"] += 1
+        elif cur and re.search(r"\bHMMA\b", line):
+            out[cur]["hmma"] += 1
+    return out
+
+
 def tiled_bound(slot_cluster, live, queries, lo, n_unique, qb, vpad,
-                k=K_TOP, v_bytes=2, peak="bf16", d=DIM):
-    """filtered_scan_tiled's least time on the card for these operands:
-    (bound_ms, byte_ms, op_ms, n_live, n_clusters).  Bytes: the distinct
-    clusters' rows (vectors of ``v_bytes`` a value, int16 attributes,
-    int32 ids) read once, the queries, bounds and slot tables, and the
-    outputs; operations: 2·QB·Vpad·D per live slot at the ``peak`` rate
-    (bf16 vectors: the bf16 tensor cores; f32: f32 FMA)."""
+                k=K_TOP, v_bytes=2, products=1, aux=False, d=DIM):
+    """filtered_scan_tiled's least time on the card for these operands, a
+    dict: ``bound_ms`` = max(byte_ms, min(fma_ms, kept_ms)) and its parts.
+    byte_ms: the distinct clusters' rows (vectors of ``v_bytes`` a value,
+    a norm or scale where ``aux``, int16 attributes, int32 ids) read once,
+    the queries, bounds and slot tables, and the outputs.  fma_ms:
+    2·QB·Vpad·D operations per live slot at the f32 FMA peak; kept_ms: the
+    same times ``products`` (the bf16 products the tensor-core body keeps:
+    1 for bf16 x bf16, 3 for f32 queries against bf16 or int8 rows, 6 for
+    f32 x f32) at the bf16 tensor-core peak.  streamed_ms: the rows every
+    live slot reads for itself (the slot-by-slot grid, where the clusters
+    outgrow L2), beside the rest of byte_ms."""
     import torch
 
     n_live = int(live.sum())
     n_clusters = int(torch.unique(slot_cluster[live]).numel())
     s = slot_cluster.shape[0]
     m = lo.shape[2]
-    row_bytes = d * v_bytes + m * 2 + 4
-    nbytes = (n_clusters * vpad * row_bytes
-              + queries.numel() * queries.element_size() + 2 * lo.numel() * 2
-              + 2 * s * 4 + (0 if n_unique is None else n_unique.numel() * 4)
-              + s * qb * (k * 8 + 4))
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = 2 * qb * vpad * d * n_live / PEAK_OPS[peak] * 1e3
-    return max(byte_ms, op_ms), byte_ms, op_ms, n_live, n_clusters
+    row_bytes = d * v_bytes + (4 if aux else 0) + m * 2 + 4
+    small = (queries.numel() * queries.element_size() + 2 * lo.numel() * 2
+             + 2 * s * 4 + (0 if n_unique is None else n_unique.numel() * 4)
+             + s * qb * (k * 8 + 4))
+    byte_ms = (n_clusters * vpad * row_bytes + small) / HBM_BYTES_PER_S * 1e3
+    streamed_ms = (n_live * vpad * row_bytes + small) / HBM_BYTES_PER_S * 1e3
+    flops = 2 * qb * vpad * d * n_live
+    fma_ms = flops / PEAK_OPS["f32"] * 1e3
+    kept_ms = products * flops / PEAK_OPS["bf16"] * 1e3
+    op_ms = min(fma_ms, kept_ms)
+    return dict(bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                byte_ms=byte_ms, streamed_ms=streamed_ms, fma_ms=fma_ms,
+                kept_ms=kept_ms, products=products, live_slots=n_live,
+                clusters=n_clusters)
+
+
+def body_beside_fma(name, args, kw, bound, reps=10):
+    """filtered_scan_tiled on ``args`` through its shipped body and through
+    the f32 FMA body's entry point, each held against the plain version
+    and timed (the card's time alone), beside the plain version's time and
+    ``bound`` (:func:`tiled_bound`).  Launches here are comparisons and
+    count nowhere."""
+    from repro_torch.kernels.filtered_scan import filtered_scan as fs_mod
+    from repro_torch.kernels.filtered_scan.ref import filtered_scan_tiled_ref
+
+    vectors = args[6]
+    d, m, f = vectors.shape[2], args[4].shape[2], args[4].shape[1]
+    body = fs_mod.tiled_body(d, m, f, kw["metric"], args[3].dtype,
+                             vectors.dtype)
+    want = plain_scan(args, kw)
+    err = check_scan(f"{name} ({body} body)",
+                     fs_mod.filtered_scan_tiled(*args, **kw), *want)
+    fma_args = args + (kw["metric"], kw["k"], kw["q_block"])
+    fma_err = check_scan(f"{name} (fma entry point)",
+                         fs_mod.launch_tiled_fma(*fma_args), *want)
+    del want
+    k_ms = ms(lambda: fs_mod.filtered_scan_tiled(*args, **kw), reps)
+    fma_ms = ms(lambda: fs_mod.launch_tiled_fma(*fma_args),
+                max(3, reps // 3))
+    plain_ms = ms(lambda: filtered_scan_tiled_ref(*args, **kw), 3)
+    return dict(bound, body=body, ms=k_ms, fma_body_ms=fma_ms,
+                plain_ms=plain_ms, max_abs_err=err, fma_max_abs_err=fma_err,
+                k=kw["k"])
+
+
+def body_line(r):
+    """One log line of :func:`body_beside_fma`'s figures."""
+    return (f"{r['live_slots']} live slots over {r['clusters']} clusters, "
+            f"k={r['k']}; kernel ({r['body']} body) {r['ms']:.3f} ms, FMA "
+            f"body {r['fma_body_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}: distinct "
+            f"clusters' bytes {r['byte_ms']:.3f} ms, f32 FMA ops "
+            f"{r['fma_ms']:.3f} ms, {r['products']} kept bf16 products "
+            f"{r['kept_ms']:.3f} ms); bytes the slots stream "
+            f"{r['streamed_ms']:.3f} ms; kernel / bound "
+            f"{r['ms'] / r['bound_ms']:.2f}, kernel / streamed "
+            f"{r['ms'] / r['streamed_ms']:.2f}; max |err| "
+            f"{r['max_abs_err']:.3e} (FMA body {r['fma_max_abs_err']:.3e})")
 
 
 def per_probe_bound(slot_cluster, slot_query, queries, lo, n_clusters, vpad,
@@ -2107,7 +2204,8 @@ def build_part(args, dev, launches, reset_launches):
     at the largest N whose index the card holds (reckoned from the
     launcher's k-means lists at BUILD_PROBE_N rows, scaled) and whose
     data the host's MemAvailable holds, its responses held against a RAM
-    engine, and the tiled kernel's f32 x f32 time on its index.  Draws
+    engine, and the tiled kernel's f32 x f32 time on its index beside the
+    f32 FMA body's on the same operands.  Draws
     from its own generator, so the phases after it see ``gen`` as before.
     Returns the figures."""
     import torch
@@ -2117,9 +2215,7 @@ def build_part(args, dev, launches, reset_launches):
     from repro_torch.core import match_all
     from repro_torch.core.ivf import default_n_clusters, round_up
     from repro_torch.data import synthetic_embeddings
-    from repro_torch.kernels.filtered_scan import filtered_scan as fs_mod
-    from repro_torch.kernels.filtered_scan.ref import (
-        filtered_scan_tiled_ref, live_slots)
+    from repro_torch.kernels.filtered_scan.ref import live_slots
 
     fig = {}
     bgen = torch.Generator(dev).manual_seed(args.seed + 1)
@@ -2237,22 +2333,12 @@ def build_part(args, dev, launches, reset_launches):
           plan.lo_pad, plan.hi_pad, lidx.vectors, lidx.attrs, lidx.ids,
           None, None)
     kw = dict(metric="dot", k=K_TOP, q_block=plan.q_block)
-    body = fs_mod.tiled_body(DIM, M_ATTRS, 1, "dot", torch.float32,
-                             torch.float32)
-    f_err = check_scan("launcher index f32 x f32",
-                       fs_mod.filtered_scan_tiled(*ka, **kw),
-                       *plain_scan(ka, kw))
-    f_ms = ms(lambda: fs_mod.filtered_scan_tiled(*ka, **kw), 10)
-    f_plain = ms(lambda: filtered_scan_tiled_ref(*ka, **kw), 3)
-    f_bound, f_byte, f_op, f_live, f_cl = tiled_bound(
-        plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
-        plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
-        lidx.vpad, v_bytes=4, peak="f32")
-    fig["f32"] = dict(ms=f_ms, plain_ms=f_plain, bound_ms=f_bound,
-                      bound_by="bytes" if f_byte >= f_op else "operations",
-                      max_abs_err=f_err, body=body, live_slots=f_live,
-                      clusters=f_cl, vpad=lidx.vpad, q_block=qb,
-                      byte_ms=f_byte, op_ms=f_op)
+    fig["f32"] = body_beside_fma(
+        "launcher index f32 x f32", ka, kw, tiled_bound(
+            plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
+            plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
+            lidx.vpad, v_bytes=4, products=6), reps=10)
+    fig["f32"].update(vpad=lidx.vpad, q_block=qb)
     eng.close()
     eng32.close()
     del out, lidx, eng, eng32, plan, ka
@@ -2318,12 +2404,8 @@ def print_phase_3f(sfig, bfig):
         f"max |err| vs the RAM engine {r['err']:.3e}")
     f = b["f32"]
     log(f"filtered_scan_tiled on the launcher's index, f32 queries x f32 "
-        f"vectors ({f['body']} body), q_block {f['q_block']}, Vpad "
-        f"{f['vpad']}: {f['live_slots']} live slots over {f['clusters']} "
-        f"clusters; kernel {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, "
-        f"bound {f['bound_ms']:.3f} ms (bytes {f['byte_ms']:.3f} ms, f32 FMA "
-        f"ops {f['op_ms']:.3f} ms), kernel / bound "
-        f"{f['ms'] / f['bound_ms']:.2f}; max |err| {f['max_abs_err']:.3e}")
+        f"vectors, q_block {f['q_block']}, Vpad {f['vpad']}: "
+        + body_line(f))
 
 
 # ---- phase 3g: the sharded ring ----
@@ -3692,13 +3774,14 @@ def slice_kernels(dev, gen, operands):
     """Phase 3i (c): both scans against their plain versions at the
     slice's f32 widths (small shapes) and on the retrieval's full-size
     D = 50 operands, k = 100, each timed beside its plain version and its
-    bound (the card's time alone).  Launches here are comparisons and
-    count nowhere."""
+    bound (the card's time alone), the tiled one also beside the f32 FMA
+    body on the same operands.  Launches here are comparisons and count
+    nowhere."""
     import torch
 
     from repro_torch.kernels.filtered_scan import filtered_scan as fs_mod
     from repro_torch.kernels.filtered_scan.ref import (
-        filtered_scan_ref, filtered_scan_tiled_ref, live_slots)
+        filtered_scan_ref, live_slots)
 
     for kind, name, a, kw in width_cases(dev, gen):
         if kind == "tiled":
@@ -3716,27 +3799,14 @@ def slice_kernels(dev, gen, operands):
     out = {}
     a, kw = operands["tiled"]
     d, vpad = operands["d"], operands["vpad"]
-    body = fs_mod.tiled_body(d, RETRIEVAL_M, 1, "dot", torch.float32,
-                             torch.float32)
-    err = check_scan("retrieval full size, tiled, D=50 k=100",
-                     fs_mod.filtered_scan_tiled(*a, **kw), *plain_scan(a, kw))
-    k_ms = ms(lambda: fs_mod.filtered_scan_tiled(*a, **kw), 10)
-    p_ms = ms(lambda: filtered_scan_tiled_ref(*a, **kw), 3)
-    plan_live = live_slots(a[1], a[2])
-    b_ms, byte_ms, op_ms, n_live, n_cl = tiled_bound(
-        a[0], plan_live, a[3], a[4], a[2], kw["q_block"], vpad,
-        k=RETRIEVAL_K, v_bytes=4, peak="f32", d=d)
-    out["filtered_scan_tiled"] = dict(
-        d=d, k=RETRIEVAL_K, body=body, live_slots=n_live, clusters=n_cl,
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by="bytes" if byte_ms >= op_ms else "operations",
-        max_abs_err=err)
-    log(f"filtered_scan_tiled retrieval full size (D={d} f32 x f32, "
-        f"{body} body, k={RETRIEVAL_K}): {n_live} live slots over {n_cl} "
-        f"clusters, Vpad {vpad}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-        f"bound {b_ms:.3f} ms (bytes {byte_ms:.3f}, f32 FMA ops "
-        f"{op_ms:.3f}), kernel / bound {k_ms / b_ms:.2f}; max |err| "
-        f"{err:.3e}")
+    out["filtered_scan_tiled"] = r = body_beside_fma(
+        f"retrieval full size, tiled, D={d} k={RETRIEVAL_K}", a, kw,
+        tiled_bound(a[0], live_slots(a[1], a[2]), a[3], a[4], a[2],
+                    kw["q_block"], vpad, k=RETRIEVAL_K, v_bytes=4,
+                    products=6, d=d))
+    r["d"] = d
+    log(f"filtered_scan_tiled retrieval full size (D={d} f32 x f32, Vpad "
+        f"{vpad}): " + body_line(r))
     a, kw = operands["per_probe"]
     err = check_scores("retrieval full size, per-probe, D=50",
                        fs_mod.filtered_scan(*a), filtered_scan_ref(*a))
@@ -4901,6 +4971,101 @@ def print_phase_3k(fig, card):
         "the end of the wait after the build")
 
 
+# ---- phase 3l: SQ8 on the main path ----
+
+def sq8_phase(index, batches, oracles, bf16_recalls, launches,
+              reset_launches):
+    """Phase 3l: ``quantize_index`` of phase 3's index (attributes, ids and
+    summaries shared; int8 rows and their scales added) served by
+    ``SearchEngine(k=10, n_probes=7, q_block=64, prune="auto")`` on phase
+    3's batches of each mix (medians of BATCHES after WARMUP); N_CHECK
+    queries a mix held against ``search_reference`` on the quantized
+    index; recall@10 against phase 3's exact brute force (``oracles``),
+    beside the bf16 index's; the hot plan's kernel time on its body beside
+    the f32 FMA body's, both held against the plain version.  Launch counts
+    are set to 0 before the engine's batches and read after them.  Returns
+    (fig, launches)."""
+    import torch
+
+    from repro_torch.core import SearchEngine, quantize_index, recall_at_k
+    from repro_torch.core.search import SearchResult
+    from repro_torch.kernels.filtered_scan.ref import live_slots
+
+    t0 = time.perf_counter()
+    qindex = quantize_index(index)
+    torch.cuda.synchronize()
+    fig = dict(quantize_s=time.perf_counter() - t0, vpad=qindex.vpad,
+               gib=(qindex.vectors.numel() + 4 * qindex.scales.numel())
+               / 2**30, mixes={})
+    engine = SearchEngine(qindex, k=K_TOP, n_probes=N_PROBES, q_block=64,
+                          prune="auto")
+    reset_launches()
+    last = {}
+    for mix, blist in batches.items():
+        rows = []
+        for i, (queries, fspec) in enumerate(blist):
+            before = launches()["filtered_scan_tiled"]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            plan = engine.plan(queries, fspec)
+            ev[1].record()
+            res = engine.execute(plan)
+            ev[2].record()
+            ev[2].synchronize()
+            if launches()["filtered_scan_tiled"] == before:
+                raise AssertionError(f"sq8 {mix} batch {i}: no kernel launch")
+            if i >= WARMUP:
+                rows.append((ev[0].elapsed_time(ev[1]),
+                             ev[1].elapsed_time(ev[2]),
+                             ev[0].elapsed_time(ev[2])))
+        last[mix] = res, plan
+        plan_ms, scan_ms, batch_ms = (statistics.median(c) for c in zip(*rows))
+        fig["mixes"][mix] = dict(plan_ms=plan_ms, scan_ms=scan_ms,
+                                 batch_ms=batch_ms,
+                                 live_slots=int(plan.n_unique.sum()))
+    n_launches = launches()
+    for mix, (res, plan) in last.items():
+        queries, fspec = batches[mix][-1]
+        if (res.scores.shape != (Q, K_TOP)
+                or not bool(torch.isfinite(res.scores).all())):
+            raise AssertionError(f"sq8 {mix}: malformed scores")
+        check_against_reference(f"sq8 {mix}", qindex, queries, fspec, res)
+        oracle = oracles[mix]
+        fig["mixes"][mix].update(
+            recall=recall_at_k(res, SearchResult(oracle[0], oracle[1], None,
+                                                 None)),
+            bf16_recall=bf16_recalls[mix])
+    _, plan = last["hot"]
+    a = (plan.slot_cluster, plan.slot_tile, plan.n_unique, plan.queries_pad,
+         plan.lo_pad, plan.hi_pad, qindex.vectors, qindex.attrs, qindex.ids,
+         None, qindex.scales)
+    kw = dict(metric="dot", k=K_TOP, q_block=plan.q_block)
+    fig["kernel"] = body_beside_fma(
+        "sq8 hot plan", a, kw, tiled_bound(
+            plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
+            plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
+            qindex.vpad, v_bytes=1, products=3, aux=True))
+    engine.close()
+    del engine, qindex, last, plan, a
+    torch.cuda.empty_cache()
+    return fig, n_launches
+
+
+def print_phase_3l(fig):
+    """Phase 3l's figures."""
+    log(f"sq8 index: quantize_index {fig['quantize_s']:.2f} s, int8 rows "
+        f"and scales {fig['gib']:.2f} GiB, Vpad {fig['vpad']}")
+    for mix, r in fig["mixes"].items():
+        log(f"sq8 {mix}: plan {r['plan_ms']:.3f} ms, scan+merge "
+            f"{r['scan_ms']:.3f} ms, batch {r['batch_ms']:.3f} ms (medians of "
+            f"{BATCHES}), QPS {Q / r['batch_ms'] * 1e3:.1f}; live slots "
+            f"{r['live_slots']}; {N_CHECK} queries match search_reference; "
+            f"recall@{K_TOP} vs exact brute force over the bf16 rows "
+            f"{r['recall']:.4f} (bf16 index {r['bf16_recall']:.4f})")
+    log("filtered_scan_tiled sq8 hot plan (f32 queries x int8): "
+        + body_line(fig["kernel"]))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4964,16 +5129,28 @@ def main(argv=None):
     for name, rep in build.build_all().items():
         ptxas = [ln.strip() for ln in rep["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
-        tc = sass_counts(rep["path"])
+        sass = sass_of(rep["path"])
+        tc = sass_counts(sass)
         log(f"built {name} in {rep['seconds']:.2f} s; SASS tensor-core "
             f"instructions {tc}; " + " | ".join(ptxas))
         if name == "filtered_scan_tiled" and not tc["HGMMA"] + tc["HMMA"]:
             raise AssertionError("filtered_scan_tiled has no tensor-core "
                                  "instructions")
-    for qdt in (torch.bfloat16, torch.float32):  # the two full-size pairs
-        body = fs_mod.tiled_body(DIM, M_ATTRS, 1, "dot", qdt, torch.bfloat16)
+        if name == "filtered_scan_tiled":
+            hmma = hmma_by_pair(sass)
+            log("filtered_scan_tiled tensor-core body, HMMA by dtype pair: "
+                + json.dumps(hmma))
+            for pair, c in hmma.items():
+                if not (c["kernels"] and c["hmma"]):
+                    raise AssertionError(f"filtered_scan_tiled {pair}: no "
+                                         "HMMA in its instantiations")
+    for qdt, vdt in ((torch.bfloat16, torch.bfloat16),
+                     (torch.float32, torch.bfloat16),
+                     (torch.float32, torch.float32),
+                     (torch.float32, torch.int8)):  # the full-size pairs
+        body = fs_mod.tiled_body(DIM, M_ATTRS, 1, "dot", qdt, vdt)
         if body != "tensor_cores":
-            raise AssertionError(f"filtered_scan_tiled {qdt} x bf16 at "
+            raise AssertionError(f"filtered_scan_tiled {qdt} x {vdt} at "
                                  f"D={DIM} runs on the {body} body")
     log(f"phase 1 (build) {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -5095,16 +5272,29 @@ def main(argv=None):
         f"{len(mixes) * (WARMUP + BATCHES)} batches, {t_main:.2f} s; peak "
         f"memory while serving {serve_peak:.2f} GiB")
 
+    oracles, recalls = {}, {}
     for mix in mixes:
         (queries, fspec), res, _ = results[mix]
         if res.scores.shape != (Q, K_TOP) or not bool(torch.isfinite(res.scores).all()):
             raise AssertionError(f"{mix}: malformed scores")
         check_against_reference(mix, index, queries, fspec, res)
-        oracle = exact_oracle(index, queries, fspec)
-        rec = recall_at_k(res, SearchResult(oracle[0], oracle[1], None, None))
+        oracle = oracles[mix] = exact_oracle(index, queries, fspec)
+        rec = recalls[mix] = recall_at_k(
+            res, SearchResult(oracle[0], oracle[1], None, None))
         log(f"{mix}: {N_CHECK} queries match search_reference; recall@{K_TOP} "
             f"vs exact brute force over all {stats.n_vectors} rows: {rec:.4f}")
     log(f"phase 3 (main path) {time.perf_counter() - t_all:.2f} s since start")
+
+    # ---- phase 3l: SQ8 on the main path (phase 3's index quantized) ----
+    t0 = time.perf_counter()
+    sq8_fig, sq8_launches = sq8_phase(
+        index, {mix: batches[mix] for mix in mixes}, oracles, recalls,
+        launches, reset_launches)
+    del oracles
+    print_phase_3l(sq8_fig)
+    log(f"phase 3l (SQ8 on the main path) {time.perf_counter() - t0:.2f} s; "
+        f"{time.perf_counter() - t_all:.2f} s since start; launches "
+        f"{sq8_launches}")
 
     # ---- phase 3b: the one-shard sharded search and search_fused ----
     t0 = time.perf_counter()
@@ -5326,19 +5516,20 @@ def main(argv=None):
     max_err = check_scan("full-size uniform batch", got, *plain_scan(a, kw))
     kernel_ms = ms(lambda: fs_mod.filtered_scan_tiled(*a, **kw), 10)
     plain_ms = ms(lambda: filtered_scan_tiled_ref(*a, **kw), 3)
-    bound_ms, byte_ms, op_ms, n_live, n_clusters = tiled_bound(
+    eb = tiled_bound(
         plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
         plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
         index.vpad)
-    ops = op_ms * PEAK_OPS["bf16"] / 1e3
+    ops = eb["kept_ms"] * PEAK_OPS["bf16"] / 1e3
     log(f"filtered_scan_tiled full size, engine operands "
-        f"({plan.queries_pad.dtype} queries x bf16): {n_live} live slots "
-        f"over {n_clusters} clusters; kernel {kernel_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms (bytes {byte_ms:.3f} ms, "
-        f"bf16 ops {op_ms:.3f} ms; f32 FMA ops "
-        f"{ops / PEAK_OPS['f32'] * 1e3:.3f} ms); "
-        f"{ops / kernel_ms / 1e9:.1f} TFLOP/s achieved, kernel / bound "
-        f"{kernel_ms / bound_ms:.2f}; max |err| {max_err:.3e}")
+        f"({plan.queries_pad.dtype} queries x bf16): {eb['live_slots']} live "
+        f"slots over {eb['clusters']} clusters; kernel {kernel_ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {eb['bound_ms']:.3f} ms (bytes "
+        f"{eb['byte_ms']:.3f} ms, bf16 ops {eb['kept_ms']:.3f} ms; f32 FMA "
+        f"ops {eb['fma_ms']:.3f} ms; the slots stream "
+        f"{eb['streamed_ms']:.3f} ms); {ops / kernel_ms / 1e9:.1f} TFLOP/s "
+        f"achieved, kernel / bound {kernel_ms / eb['bound_ms']:.2f}; max "
+        f"|err| {max_err:.3e}")
     # the same operands at the paper's k = 100 (four list slots a lane)
     kw100 = dict(kw, k=K_WIDE)
     w_err = check_scan(f"full-size uniform batch, k={K_WIDE}",
@@ -5346,15 +5537,15 @@ def main(argv=None):
                        *plain_scan(a, kw100))
     w_ms = ms(lambda: fs_mod.filtered_scan_tiled(*a, **kw100), 10)
     w_plain = ms(lambda: filtered_scan_tiled_ref(*a, **kw100), 3)
-    w_bound, w_byte, w_op, _, _ = tiled_bound(
+    wb = tiled_bound(
         plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
         plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
         index.vpad, k=K_WIDE)
     log(f"filtered_scan_tiled full size, engine operands, k={K_WIDE}: kernel "
         f"{w_ms:.3f} ms (k={K_TOP}: {kernel_ms:.3f} ms), plain {w_plain:.3f} "
-        f"ms, bound {w_bound:.3f} ms (bytes {w_byte:.3f} ms, bf16 ops "
-        f"{w_op:.3f} ms), kernel / bound {w_ms / w_bound:.2f}; max |err| "
-        f"{w_err:.3e}")
+        f"ms, bound {wb['bound_ms']:.3f} ms (bytes {wb['byte_ms']:.3f} ms, "
+        f"bf16 ops {wb['kept_ms']:.3f} ms), kernel / bound "
+        f"{w_ms / wb['bound_ms']:.2f}; max |err| {w_err:.3e}")
     t_op, t_launch = op_overhead(
         torch.ops.repro_torch.filtered_scan_tiled, fs_mod.launch_tiled,
         a + ("dot", K_TOP, plan.q_block))
@@ -5373,17 +5564,16 @@ def main(argv=None):
                   + sum(ring_launches.values())
                   + shard_launches["filtered_scan_tiled"]
                   + live_launches["filtered_scan_tiled"]
-                  + slice_launches["filtered_scan_tiled"]),
+                  + slice_launches["filtered_scan_tiled"]
+                  + sq8_launches["filtered_scan_tiled"]),
         max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms,
-        bound_by="bytes" if byte_ms >= op_ms else "operations",
+        bound_ms=eb["bound_ms"], bound_by=eb["bound_by"],
         library_ms=None, op_call_ms=t_op, launch_call_ms=t_launch,
-        wide=dict(k=K_WIDE, ms=w_ms, plain_ms=w_plain, bound_ms=w_bound,
-                  bound_by="bytes" if w_byte >= w_op else "operations",
+        wide=dict(k=K_WIDE, ms=w_ms, plain_ms=w_plain,
+                  bound_ms=wb["bound_ms"], bound_by=wb["bound_by"],
                   max_abs_err=w_err),
-        f32={k: build_fig["f32"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "vpad")},
-        recsys=slice_fig["kernels"]["filtered_scan_tiled"],
+        f32=build_fig["f32"], recsys=slice_fig["kernels"]["filtered_scan_tiled"],
+        sq8=sq8_fig["kernel"], hmma=hmma,
     )]
 
     # the sharded tiled backend's own operands: f32 queries against the
@@ -5401,15 +5591,15 @@ def main(argv=None):
                        *plain_scan(ta, tkw))
     t_ms = ms(lambda: fs_mod.filtered_scan_tiled(*ta, **tkw), 10)
     t_plain = ms(lambda: filtered_scan_tiled_ref(*ta, **tkw), 3)
-    t_bound, t_byte, t_op, t_live, t_clusters = tiled_bound(
-        ta[0], u_live, tplan.queries_in, tplan.lo_in, None,
-        tsearch.scan_q_block, index.vpad)
+    tb = tiled_bound(ta[0], u_live, tplan.queries_in, tplan.lo_in, None,
+                     tsearch.scan_q_block, index.vpad, products=3)
     log(f"filtered_scan_tiled full size, sharded tiled operands "
-        f"({tplan.queries_in.dtype} queries x bf16): {t_live} live of "
-        f"{ta[0].shape[0]} slots over {t_clusters} clusters; kernel "
-        f"{t_ms:.3f} ms, plain {t_plain:.3f} ms, bound {t_bound:.3f} ms "
-        f"(bytes {t_byte:.3f} ms, bf16 ops {t_op:.3f} ms), kernel / bound "
-        f"{t_ms / t_bound:.2f}; max |err| {t_err:.3e}")
+        f"({tplan.queries_in.dtype} queries x bf16): {tb['live_slots']} live "
+        f"of {ta[0].shape[0]} slots over {tb['clusters']} clusters; kernel "
+        f"{t_ms:.3f} ms, plain {t_plain:.3f} ms, bound {tb['bound_ms']:.3f} "
+        f"ms (bytes {tb['byte_ms']:.3f} ms, 3 kept bf16 products "
+        f"{tb['kept_ms']:.3f} ms), kernel / bound {t_ms / tb['bound_ms']:.2f}"
+        f"; max |err| {t_err:.3e}")
 
     # centroid_topk: the uniform batch's queries against every centroid
     queries = batches["uniform"][-1][0]

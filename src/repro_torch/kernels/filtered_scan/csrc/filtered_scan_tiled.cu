@@ -14,36 +14,79 @@
 // the vectors' dtype, or f32 against bf16 vectors (the sharded search passes
 // its f32 queries uncast, as the TPU kernel accepts).
 //
-// What bounds it on the H100: each live slot streams its cluster's
-// Vpad*D*2 bytes of bf16 vectors (4.9 MB at Vpad=3200, D=768) and spends
-// 2*QB*Vpad*D flops on them, 64 flop/byte at QB=64.  On the bf16 tensor
-// cores (989 TFLOP/s, ridge ~295 flop/byte) that is bound by bytes: the
-// kernel needs ~260 TFLOP/s to keep up with HBM.  In f32 FMA (67 TFLOP/s)
-// it was bound by operations at 23x its bytes bound, so the design is:
+// What bounds it on the H100.  Each live slot streams its cluster's rows
+// (Vpad*D values) and spends 2*QB*Vpad*D flops on them.  Slots are ordered
+// slot by slot, so where clusters outgrow the 50 MB L2 every slot reads
+// its own copy: the bytes streamed are live slots x Vpad x row bytes, above
+// the distinct clusters' bytes.  The design is the same for every dtype
+// pair:
 //
-// - Tensor cores for bf16 vectors (scan_tc_kernel).  One CTA per (live
-//   slot, group of 64 query rows) walks the cluster in chunks of 128 rows.
-//   The score tile S = Q_tile . V_chunk^T (both operands K-major, a "TN"
-//   product) is mma.sync.m16n8k16 bf16 with f32 accumulators, each of 8
-//   MMA warps 16 query rows x 64 vector rows, operands read with ldmatrix
-//   from padded (conflict-free) shared memory.  mma.sync and not wgmma: at
-//   64 flop/byte the bytes bound needs about a quarter of the tensor-core
-//   peak, which mma.sync reaches, and its fragment layouts are fixed and
-//   documented.
+// - Tensor cores (scan_tc_kernel).  One CTA per (live slot, group of 64
+//   query rows) walks the cluster in chunks of 128 rows.  The score tile
+//   S = Q_tile . V_chunk^T (both operands K-major, a "TN" product) is
+//   mma.sync.m16n8k16 bf16 with f32 accumulators, each of 8 MMA warps 16
+//   query rows x 64 vector rows, operands read with ldmatrix from padded
+//   (conflict-free) shared memory.  mma.sync and not wgmma: the pairs below
+//   are bound by bytes, or near the ridge, at rates mma.sync reaches, and
+//   its fragment layouts are fixed and documented.
 // - Warp specialization.  The epilogue (mask and top-k fold) took as long
 //   as streaming the chunk, and stalled it.  So 8 more warps run it: the
 //   MMA warps hand each chunk's scores over in one shared tile (named
 //   barriers: full / free) and go on streaming and multiplying the next
 //   chunk while the epilogue warps mask and fold this one.
-// - Asynchronous copies.  Vector tiles of 128 rows x 64 depth (16 KB) flow
-//   through a 4-stage cp.async ring that runs across chunk edges, so three
-//   tiles are in flight while a tile is multiplied.  bf16 queries are
-//   loaded once per CTA and stay resident (64 x D bf16, 97 KB at D=768).
-// - f32 queries x bf16 vectors run on the same body: each ring stage also
+// - Asynchronous copies.  Vector tiles of 128 rows flow through a 4-stage
+//   cp.async ring that runs across chunk edges, so three tiles are in
+//   flight while a tile is multiplied.
+//
+// The dtype pairs, each on that body (the error bounds are per product
+// q_i * v_i, before the f32 sums inside the tensor cores):
+//
+// - bf16 x bf16 (the engine).  64-deep tiles of bf16 rows (16 KB); the
+//   query tile stays resident (64 x D bf16, 97 KB at D=768).  32 flop a
+//   streamed byte at QB=64 against the bf16 ridge of ~295: bound by bytes.
+//   Products exact.
+// - f32 queries x bf16 vectors (the sharded search).  Each ring stage also
 //   carries the 64-row f32 query slice, split at fragment load into three
-//   bf16 terms h = bf16(q), m = bf16(q - h), l = bf16(q - h - m), all
-//   multiplied into one f32 accumulator.  The products of bf16 are exact in
-//   f32 and |q - h - m - l| <= 2^-27 |q|, so the f32 tolerance holds.
+//   bf16 terms h = bf16(q), m = bf16(q - h), l = bf16(q - h - m) (round to
+//   nearest), all multiplied into one f32 accumulator.  The split is exact
+//   (h, m and l each hold 8 of q's 24 significant bits) and bf16 products
+//   are exact in f32: the products are exact.
+// - f32 x f32 (the launcher's build, the recsys retrieval).  Both operands
+//   split so, and the six products whose terms' orders sum to at most 2
+//   (hh, hm, hl, mh, mm, lh) kept: 6 x 2*QB*Vpad*D bf16 flops against
+//   Vpad*D*4 streamed bytes, 96 flop a byte at QB=32 and 192 at QB=64,
+//   below the bf16 ridge.  The products dropped (ml, lm, ll) are below
+//   2^-23 |q_i v_i| together, about f32's own rounding of a product: on
+//   Gaussian, unit-row, six-decade and near-cancelling rows the split is as
+//   close to the plain version as f32 FMA (split_scan_ref, which the CPU
+//   tests hold against the TPU kernel).  Three products (hh, hm, mh) would
+//   drop 2^-16 |q_i v_i| and break the f32 tolerance on cancelling dots;
+//   3xTF32 would need TF32 MMAs at half the bf16 rate for the same
+//   accuracy.  Each vector tile is split once into bf16 planes in shared
+//   memory (to_planes), not at every fragment load: each row feeds 4 MMA
+//   warps.  The raw f32 tile, three planes and the f32 query slice fit 4
+//   stages only at 32-deep tiles (26 KB a stage, 181 KB in all at M=10,
+//   F=2); 64-deep tiles would leave 3 stages without room for the planes.
+// - SQ8, f32 queries x int8 vectors (quantize_index).  int8 rows stage at
+//   a byte a value (64-deep tiles, 8 KB, 16-byte copies) and are widened to
+//   one bf16 plane once a tile, exactly (|v| <= 128 has 8 significant
+//   bits); the query is split into h, m, l as above.  Products exact.  The
+//   epilogue multiplies the dot by the row scale, the row constant l2's
+//   norms ride in too, as the plain version does.  16 flop a streamed byte
+//   per product term at QB=64: bound by bytes.
+// - The sums of these two pairs.  The tensor cores add a product's terms
+//   to the accumulator rounding toward zero at the larger operand's scale,
+//   so each MMA into a running dot costs up to an ulp of the dot: with the
+//   six products (288 MMAs a dot at D=768) in one accumulator the error on
+//   the card grew with the count of MMAs, past the bf16 body's.  So each
+//   k-step's products are summed apart from zero, smallest first, and that
+//   sum is added to the dot in f32 (round to nearest), as 48 f32 adds a
+//   dot at D=768 would be.
+// - Query rows.  A CTA takes 64 query rows, 8 MMA warps of 16 rows x 64
+//   vector rows; for f32 and int8 vectors a CTA with at most 32 rows (the
+//   launcher's QB=32, a tile's ragged end) tiles its warps 16 x 32 instead,
+//   so no warp multiplies empty rows.
+//
 // - The epilogue stays exact.  The accumulators are staged through the
 //   shared score tile (their fragment layout is not row-major).  Each
 //   epilogue warp owns 8 query rows; lane j holds candidate j of each
@@ -60,23 +103,24 @@
 // - Any k.  Both bodies keep each row's list in registers, R = 1, 2, 4 or
 //   8 slots a lane (lane j holds ranks j, j+32, ...; an insert shifts every
 //   slot one rank, lane 0 of slot s taking lane 31 of slot s-1), so
-//   k <= 256 is the same streaming fold (R = 1, k <= 32, is the first
-//   design's code unchanged; the tensor-core epilogue masks 4 / 2 / 1 rows
-//   at once as R grows, to bound its registers).  k > 256 (up to Vpad)
-//   takes a third body, scan_sort_kernel: one CTA per (slot, query row)
-//   scores the whole cluster into shared memory and bitonic-sorts it by
-//   (value descending, row ascending), the same order as the fold.  It
-//   reads a cluster once per query row, so it is slow; no full-size path
-//   asks for k > 256.
-// - D not a multiple of 8, or unaligned operands, take scalar staging loads
-//   into the same ring (the tests' D = 97 and 100); Vpad and D are walked
-//   in whole tiles with the ragged edge zero-filled and masked.
+//   k <= 256 is the same streaming fold (the tensor-core epilogue masks
+//   4 / 2 / 1 rows at once as R grows, to bound its registers).  k > 256
+//   (up to Vpad) takes a third body, scan_sort_kernel: one CTA per (slot,
+//   query row) scores the whole cluster into shared memory and
+//   bitonic-sorts it by (value descending, row ascending), the same order
+//   as the fold.  It reads a cluster once per query row, so it is slow; no
+//   full-size path asks for k > 256.
+// - D not a multiple of 16 bytes of a vector row (the recsys D = 50 f32,
+//   the tests' D = 97 and 100), or unaligned operands, take scalar staging
+//   loads into the same ring; Vpad and D are walked in whole tiles with
+//   the ragged edge zero-filled and masked.
 //
-// f32 x f32 and SQ8 (f32 x int8) run on no full-size path; they keep the
-// first design's f32 FMA body (scan_fma_kernel: 64x64 score tiles from
-// 64x32 staging slices, each thread a 4x4 micro-tile), as do bf16 shapes
-// whose resident query tile would not fit in shared memory (D > ~1000) or
-// with M > 16 attributes.
+// The first design's f32 FMA body (scan_fma_kernel: 64x64 score tiles from
+// 64x32 staging slices, each thread a 4x4 micro-tile, the epilogue after
+// each tile) serves only the shapes the tensor-core body cannot take: more
+// than 16 attributes, or shared memory that does not fit (bf16 queries at
+// D > ~1000).  The choice rests on the shapes alone;
+// filtered_scan_tiled_fma_launch runs it on any pair, for comparison.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -204,8 +248,8 @@ __device__ __forceinline__ void write_pad(float* out_vals, int* out_ids,
 }
 
 // ---------------------------------------------------------------------------
-// f32 FMA body: f32 x f32, SQ8, and the bf16 shapes the tensor-core body
-// does not take.
+// f32 FMA body: the shapes the tensor-core body does not take (M > 16,
+// shared memory), and the comparison entry point.
 // ---------------------------------------------------------------------------
 
 namespace ffma {
@@ -383,31 +427,51 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
 }  // namespace ffma
 
 // ---------------------------------------------------------------------------
-// Tensor-core body: bf16 vectors against bf16 or f32 queries.
+// Tensor-core body: bf16 vectors against bf16 or f32 queries, f32 vectors
+// against f32 queries, SQ8 int8 vectors against f32 queries.
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
 constexpr int VT = 128;      // cluster rows per chunk
-constexpr int KS = 64;       // depth per ring stage
 constexpr int STAGES = 4;    // ring depth: STAGES - 1 tiles in flight
-constexpr int BLD = KS + 8;  // bf16 row stride of a vector tile (144 B)
-constexpr int FLD = KS + 8;  // f32 row stride of a query slice (288 B)
 constexpr int SLD = VT + 8;  // f32 row stride of the score tile
 constexpr int MAX_M = 16;    // attributes per row the epilogue stages
 constexpr int MPT = VT * MAX_M / NT;  // attribute values staged per thread
 constexpr int RB = 4;        // query rows an epilogue warp masks at once
 
-struct Layout {  // byte offsets into dynamic shared memory
-  size_t stage, a_res, ss, idss, auxs, bnd, act, attrs, total;
+// A ring tile for vectors of type TV.  bf16 rows are multiplied from the
+// tile itself (row stride BLD, padded for conflict-free ldmatrix).  f32 and
+// int8 rows land unpadded ("raw") and become TERMS bf16 planes of stride
+// BLD once per tile, which the MMA warps then read as they read a bf16
+// tile: f32 split into h, m, l (32-deep tiles, so that the ring, the
+// planes and the score tile fit), int8 widened exactly.
+template <typename TV>
+struct Ring {
+  static constexpr bool BF16 = sizeof(TV) == 2;
+  static constexpr int KS = sizeof(TV) == 4 ? 32 : 64;  // depth per tile
+  static constexpr int TERMS = sizeof(TV) == 4 ? 3 : 1;  // bf16 terms a value
+  static constexpr int BLD = KS + 8;  // bf16 row stride of a tile or plane
+  static constexpr int FLD = KS + 8;  // f32 row stride of a query slice
+  static constexpr size_t RAW =
+      BF16 ? (size_t)VT * BLD * 2 : (size_t)VT * KS * sizeof(TV);
+  static constexpr size_t PLANES = BF16 ? 0 : (size_t)TERMS * VT * BLD * 2;
 };
 
-__host__ __device__ inline Layout layout(bool f32q, int d, int m, int f) {
+struct Layout {  // byte offsets into dynamic shared memory
+  size_t stage, a_res, planes, ss, idss, auxs, bnd, act, attrs, total;
+};
+
+template <typename TQ, typename TV>
+__host__ __device__ inline Layout layout(int d, int m, int f) {
+  using RG = Ring<TV>;
+  constexpr bool F32Q = sizeof(TQ) == 4;
   Layout L;
-  const size_t dp = (size_t)(d + KS - 1) / KS * KS;
-  L.stage = (size_t)VT * BLD * 2 + (f32q ? (size_t)QT * FLD * 4 : 0);
+  const size_t dp = (size_t)(d + RG::KS - 1) / RG::KS * RG::KS;
+  L.stage = RG::RAW + (F32Q ? (size_t)QT * RG::FLD * 4 : 0);
   L.a_res = STAGES * L.stage;  // resident bf16 query tile [QT][dp + 8]
-  L.ss = L.a_res + (f32q ? 0 : (size_t)QT * (dp + 8) * 2);
+  L.planes = L.a_res + (F32Q ? 0 : (size_t)QT * (dp + 8) * 2);
+  L.ss = L.planes + RG::PLANES;
   L.idss = L.ss + (size_t)QT * SLD * 4;
   L.auxs = L.idss + VT * 4;
   L.bnd = L.auxs + VT * 4;
@@ -460,7 +524,9 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
-// Two f32 values as three bf16x2 terms h + m + l (each difference is exact).
+// Two f32 values as three bf16x2 terms h + m + l, each rounded to nearest.
+// Each difference is exact, and so is the split: h holds a value's leading
+// 8 significant bits, m the next 8 and l the last 8 of its 24.
 __device__ __forceinline__ void split3(float2 x, uint32_t& h, uint32_t& m,
                                        uint32_t& l) {
   const __nv_bfloat162 bh = __floats2bfloat162_rn(x.x, x.y);
@@ -472,22 +538,53 @@ __device__ __forceinline__ void split3(float2 x, uint32_t& h, uint32_t& m,
   m = bits(bm);
   l = bits(__floats2bfloat162_rn(rx - fm.x, ry - fm.y));
 }
+// Four int8 values (one word) as two bf16x2 words, exactly: byte b biased
+// to u = b + 128 is the low byte of 2^23 + u (f32 bits 0x4b0000uu), less
+// 2^23 + 128 that is b; |b| <= 128 has at most 8 significant bits, so the
+// upper half of its f32 bits is its bf16 value.  Integer and f32 adds
+// only, no conversion instructions.
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    x[j] = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440 + j)) -
+        8388736.f);
+  lo = __byte_perm(x[0], x[1], 0x7632);
+  hi = __byte_perm(x[2], x[3], 0x7632);
+}
 
-// Stages ring tile (v0, d0): VT x KS bf16 vector rows and, for f32 queries,
-// the QT x KS f32 query slice.  VEC: 16-byte cp.async (zero-filled past the
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// Stages ring tile (v0, d0): VT x KS vector rows and, for f32 queries, the
+// QT x KS f32 query slice.  VEC: 16-byte cp.async (zero-filled past the
 // edge); else scalar loads and stores (ragged D or unaligned operands).
-template <typename TQ, bool VEC>
+template <typename TQ, typename TV, bool VEC>
 __device__ __forceinline__ void issue_tile(unsigned char* stage,
-                                           const __nv_bfloat16* vb,
-                                           const TQ* qg, int nq, int vpad,
-                                           int v0, int d0, int d, int tid) {
-  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(stage);
+                                           const TV* vb, const TQ* qg, int nq,
+                                           int vpad, int v0, int d0, int d,
+                                           int tid) {
+  using RG = Ring<TV>;
+  constexpr int KS = RG::KS;
+  constexpr int LD = RG::BF16 ? RG::BLD : KS;  // row stride of the tile
+  constexpr int EPC = 16 / sizeof(TV);         // values a 16-byte copy
+  TV* vs = reinterpret_cast<TV*>(stage);
   if constexpr (VEC) {
 #pragma unroll
-    for (int i = 0; i < VT * KS / 8 / NT; ++i) {
-      const int e = tid + NT * i, row = e >> 3, c = (e & 7) * 8;
+    for (int i = 0; i < VT * KS / EPC / NT; ++i) {
+      const int e = tid + NT * i, row = e / (KS / EPC);
+      const int c = e % (KS / EPC) * EPC;
       const bool in = v0 + row < vpad && d0 + c < d;
-      cp16(bs + row * BLD + c, in ? vb + (size_t)(v0 + row) * d + d0 + c : vb,
+      cp16(vs + row * LD + c, in ? vb + (size_t)(v0 + row) * d + d0 + c : vb,
            in);
     }
   } else {
@@ -495,16 +592,16 @@ __device__ __forceinline__ void issue_tile(unsigned char* stage,
     for (int i = 0; i < VT * KS / NT; ++i) {
       const int e = tid + NT * i, row = e / KS, c = e % KS;
       const bool in = v0 + row < vpad && d0 + c < d;
-      bs[row * BLD + c] =
-          in ? vb[(size_t)(v0 + row) * d + d0 + c] : __float2bfloat16(0.f);
+      vs[row * LD + c] = in ? vb[(size_t)(v0 + row) * d + d0 + c] : zero<TV>();
     }
   }
   if constexpr (sizeof(TQ) == 4) {
-    float* fs = reinterpret_cast<float*>(stage + VT * BLD * 2);
+    constexpr int FLD = RG::FLD;
+    float* fs = reinterpret_cast<float*>(stage + RG::RAW);
     if constexpr (VEC) {
 #pragma unroll
       for (int i = 0; i < QT * KS / 4 / NT; ++i) {
-        const int e = tid + NT * i, row = e >> 4, c = (e & 15) * 4;
+        const int e = tid + NT * i, row = e / (KS / 4), c = e % (KS / 4) * 4;
         const bool in = row < nq && d0 + c < d;
         cp16(fs + row * FLD + c, in ? qg + (size_t)row * d + d0 + c : qg, in);
       }
@@ -517,6 +614,59 @@ __device__ __forceinline__ void issue_tile(unsigned char* stage,
       }
     }
   }
+}
+
+// The bf16 planes of a raw ring tile ([VT][KS] f32 or int8): f32 values
+// split into h, m, l (plane t at planes + t * VT * BLD), int8 values
+// widened.  Each value is read by the 4 MMA warps that share its rows, so
+// doing this once per tile, and not at every fragment load, saves 3/4 of
+// the ALU work.
+template <typename TV>
+__device__ __forceinline__ void to_planes(const unsigned char* raw,
+                                          __nv_bfloat16* planes, int tid) {
+  using RG = Ring<TV>;
+  constexpr int KS = RG::KS, BLD = RG::BLD;
+  if constexpr (sizeof(TV) == 4) {
+#pragma unroll
+    for (int i = 0; i < VT * KS / 4 / NT; ++i) {
+      const int e = tid + NT * i, row = e / (KS / 4), c = e % (KS / 4) * 4;
+      const float4 x = *reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(raw) + row * KS + c);
+      uint32_t h[2], m[2], l[2];
+      split3(make_float2(x.x, x.y), h[0], m[0], l[0]);
+      split3(make_float2(x.z, x.w), h[1], m[1], l[1]);
+      __nv_bfloat16* p = planes + row * BLD + c;
+      *reinterpret_cast<uint2*>(p) = make_uint2(h[0], h[1]);
+      *reinterpret_cast<uint2*>(p + VT * BLD) = make_uint2(m[0], m[1]);
+      *reinterpret_cast<uint2*>(p + 2 * VT * BLD) = make_uint2(l[0], l[1]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VT * KS / 16 / NT; ++i) {
+      const int e = tid + NT * i, row = e / (KS / 16), c = e % (KS / 16) * 16;
+      const uint4 x = *reinterpret_cast<const uint4*>(raw + row * KS + c);
+      uint32_t o[8];
+      widen4(x.x, o[0], o[1]);
+      widen4(x.y, o[2], o[3]);
+      widen4(x.z, o[4], o[5]);
+      widen4(x.w, o[6], o[7]);
+      __nv_bfloat16* p = planes + row * BLD + c;
+      *reinterpret_cast<uint4*>(p) = make_uint4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<uint4*>(p + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+  }
+}
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// A row's score from its dot: l2 as 2·dot - ||v||^2, SQ8 as dot · scale
+// (aux holds the row constant).
+template <int MODE>
+__device__ __forceinline__ float row_score(float dot, float aux) {
+  return MODE == kL2 ? 2.f * dot - aux : MODE == kSq8 ? dot * aux : dot;
 }
 
 // Whether attribute row `av` (m int16) passes a query row's DNF: `act` holds
@@ -538,19 +688,21 @@ __device__ __forceinline__ bool dnf_pass(const unsigned* act,
   return false;
 }
 
-template <typename TQ, int MODE, bool VEC, int R>
+template <typename TQ, typename TV, int MODE, int R>
 __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     const int* __restrict__ slot_cluster, const int* __restrict__ slot_tile,
     const int* __restrict__ n_unique, int u_cap, int n_clusters,
     const TQ* __restrict__ queries, const int16_t* __restrict__ lo,
-    const int16_t* __restrict__ hi, const __nv_bfloat16* __restrict__ vectors,
+    const int16_t* __restrict__ hi, const TV* __restrict__ vectors,
     const int16_t* __restrict__ attrs, const int* __restrict__ ids,
     const float* __restrict__ aux, float* __restrict__ out_vals,
     int* __restrict__ out_ids, int* __restrict__ out_npass, int qb, int d,
-    int vpad, int m, int f, int k) {
+    int vpad, int m, int f, int k, bool vec) {
+  using RG = Ring<TV>;
   constexpr bool F32Q = sizeof(TQ) == 4;
+  constexpr int KS = RG::KS, BLD = RG::BLD, FLD = RG::FLD;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(F32Q, d, m, f);
+  const Layout L = layout<TQ, TV>(d, m, f);
   float* ss = reinterpret_cast<float*>(smem + L.ss);        // [QT][SLD]
   int* idss = reinterpret_cast<int*>(smem + L.idss);        // [VT]
   float* auxs = reinterpret_cast<float*>(smem + L.auxs);    // [VT]
@@ -577,14 +729,18 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
   const int nks = dp / KS;
   const int nch = (vpad + VT - 1) / VT;
 
-  if (threadIdx.x < NT) {
-    // ---- the MMA warps: stream the cluster, multiply, hand over tiles ----
+  // ---- the MMA warps: stream the cluster, multiply, hand over tiles ----
+  // (compiled twice, for 16-byte copies and for scalar staging, and
+  // entered once: one kernel a list width, the epilogue compiled once)
+  auto mma_warps = [&](auto flag) {
+    constexpr bool VEC = decltype(flag)::value;
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const TQ* qg = queries + qrow0 * d;
-    const __nv_bfloat16* vb = vectors + crow0 * d;
+    const TV* vb = vectors + crow0 * d;
     const __nv_bfloat16* a_res =
         reinterpret_cast<const __nv_bfloat16*>(smem + L.a_res);
+    __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(smem + L.planes);
     const int ald = dp + 8;  // row stride of the resident query tile
     const int total = nch * nks;  // ring tiles
 
@@ -608,13 +764,19 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
 #pragma unroll
     for (int p = 0; p < STAGES - 1; ++p) {
       if (p < total)
-        issue_tile<TQ, VEC>(smem + p * L.stage, vb, qg, nq, vpad,
-                            (p / nks) * VT, (p % nks) * KS, d, tid);
+        issue_tile<TQ, TV, VEC>(smem + p * L.stage, vb, qg, nq, vpad,
+                                (p / nks) * VT, (p % nks) * KS, d, tid);
       cp_commit();
     }
 
-    const int wm = warp & 3;   // query rows wm*16 .. +15
-    const int wn = warp >> 2;  // vector rows wn*64 .. +63 of the chunk
+    // Warp tiling: 4 x 16 query rows by 2 x 64 vector rows, or, for f32
+    // and int8 vectors where the CTA holds at most 32 query rows (the
+    // launcher's QB = 32, a tile's ragged end), 2 x 16 by 4 x 32: no warp
+    // multiplies empty rows.
+    const bool narrow = !RG::BF16 && nq <= 32;
+    const int npw = narrow ? 2 : 4;  // 16-row vector groups a warp
+    const int wm = narrow ? warp & 1 : warp & 3;  // query rows wm*16 .. +15
+    const int vr0 = narrow ? (warp >> 1) * 32 : (warp >> 2) * 64;
     const int g = lane >> 2, tq = lane & 3;
     float acc[8][4];
     int meta_id = -1;
@@ -634,7 +796,7 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
         meta_id = -1;
         meta_aux = 0.f;
         if (tid < nv) meta_id = ids[crow0 + v0 + tid];
-        if (MODE == kL2 && tid >= VT && tid - VT < nv)
+        if (MODE != kDot && tid >= VT && tid - VT < nv)
           meta_aux = aux[crow0 + v0 + tid - VT];
 #pragma unroll
         for (int j = 0; j < MPT; ++j) {
@@ -648,45 +810,86 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
       {
         const int p = t + STAGES - 1;
         if (p < total)
-          issue_tile<TQ, VEC>(smem + (p % STAGES) * L.stage, vb, qg, nq,
-                              vpad, (p / nks) * VT, (p % nks) * KS, d, tid);
+          issue_tile<TQ, TV, VEC>(smem + (p % STAGES) * L.stage, vb, qg, nq,
+                                  vpad, (p / nks) * VT, (p % nks) * KS, d,
+                                  tid);
         cp_commit();
       }
 
       const unsigned char* stage = smem + (t % STAGES) * L.stage;
-      const __nv_bfloat16* bs = reinterpret_cast<const __nv_bfloat16*>(stage);
+      if constexpr (!RG::BF16) {  // every warp is past the last tile's MMAs
+        to_planes<TV>(stage, planes, tid);
+        bar_sync(kBarRing, NT);
+      }
+      const __nv_bfloat16* bs =
+          RG::BF16 ? reinterpret_cast<const __nv_bfloat16*>(stage) : planes;
 #pragma unroll
       for (int kk = 0; kk < KS / 16; ++kk) {
-        constexpr int TERMS = F32Q ? 3 : 1;
-        uint32_t a[TERMS][4];
+        constexpr int TA = F32Q ? 3 : 1;  // bf16 terms of a query value
+        uint32_t a[TA][4];
         if constexpr (F32Q) {
-          const float* fs =
-              reinterpret_cast<const float*>(stage + VT * BLD * 2);
+          const float* fs = reinterpret_cast<const float*>(stage + RG::RAW);
           const float* f0 = fs + (wm * 16 + g) * FLD + kk * 16 + 2 * tq;
-          split3(*reinterpret_cast<const float2*>(f0), a[0][0], a[1][0],
-                 a[2][0]);
-          split3(*reinterpret_cast<const float2*>(f0 + 8 * FLD), a[0][1],
-                 a[1][1], a[2][1]);
-          split3(*reinterpret_cast<const float2*>(f0 + 8), a[0][2], a[1][2],
-                 a[2][2]);
-          split3(*reinterpret_cast<const float2*>(f0 + 8 * FLD + 8), a[0][3],
-                 a[1][3], a[2][3]);
+          const float2 x[4] = {*reinterpret_cast<const float2*>(f0),
+                               *reinterpret_cast<const float2*>(f0 + 8 * FLD),
+                               *reinterpret_cast<const float2*>(f0 + 8),
+                               *reinterpret_cast<const float2*>(f0 + 8 * FLD +
+                                                                8)};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) split3(x[j], a[0][j], a[1][j], a[2][j]);
         } else {
           ldsm_x4(a_res + (wm * 16 + (lane & 15)) * ald + ks * KS + kk * 16 +
                       (lane >> 4) * 8,
                   a[0]);
         }
+        if constexpr (RG::BF16) {
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          ldsm_x4(bs + (wn * 64 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
-                           BLD +
-                      kk * 16 + ((lane >> 3) & 1) * 8,
-                  b);
+          for (int np = 0; np < 4; ++np) {
+            uint32_t b[4];
+            ldsm_x4(bs + (vr0 + np * 16 + (lane & 7) + (lane >> 4) * 8) * BLD +
+                        kk * 16 + ((lane >> 3) & 1) * 8,
+                    b);
 #pragma unroll
-          for (int tm = 0; tm < TERMS; ++tm) {
-            mma(acc[2 * np], a[tm], b[0], b[1]);
-            mma(acc[2 * np + 1], a[tm], b[2], b[3]);
+            for (int ta = 0; ta < TA; ++ta) {
+              mma(acc[2 * np], a[ta], b[0], b[1]);
+              mma(acc[2 * np + 1], a[ta], b[2], b[3]);
+            }
+          }
+        } else {
+          // The products whose terms' orders sum to at most 2, smallest
+          // first: h, m, l against an int8 value; hh, hm, hl, mh, mm, lh
+          // for f32 x f32 (ml, lm, ll lie below 2^-23 of the product).  A
+          // k-step's products are summed apart, then added to the chunk's
+          // sums in f32: the tensor cores' sums round toward zero at the
+          // larger operand's scale, so they meet the k-step's own sum and
+          // never the whole dot.
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            if (np >= npw) break;  // uniform over the warp
+            uint32_t b[RG::TERMS][4];
+#pragma unroll
+            for (int tb = 0; tb < RG::TERMS; ++tb)
+              ldsm_x4(bs + tb * VT * BLD +
+                          (vr0 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                              BLD +
+                          kk * 16 + ((lane >> 3) & 1) * 8,
+                      b[tb]);
+            float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int o = 2; o >= 0; --o)
+#pragma unroll
+              for (int ta = 0; ta < TA; ++ta) {
+                const int tb = o - ta;
+                if (tb >= 0 && tb < RG::TERMS) {
+                  mma(t0, a[ta], b[tb][0], b[tb][1]);
+                  mma(t1, a[ta], b[tb][2], b[tb][3]);
+                }
+              }
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[2 * np][c] += t0[c];
+              acc[2 * np + 1][c] += t1[c];
+            }
           }
         }
       }
@@ -695,7 +898,8 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
         if (chunk > 0) bar_sync(kBarFree, 2 * NT);  // they are done with ss
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int col = wn * 64 + j * 8 + 2 * tq;
+          if (j >= 2 * npw) break;  // uniform over the warp
+          const int col = vr0 + j * 8 + 2 * tq;
           const int row = wm * 16 + g;
           *reinterpret_cast<float2*>(ss + row * SLD + col) =
               make_float2(acc[j][0], acc[j][1]);
@@ -715,6 +919,12 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
       }
     }
     cp_wait<0>();
+  };
+  if (threadIdx.x < NT) {
+    if (vec)
+      mma_warps(Flag<true>{});
+    else
+      mma_warps(Flag<false>{});
     return;
   }
 
@@ -769,7 +979,7 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
 #pragma unroll
     for (int h = 0; h < VT / 32; ++h) {
       idc[h] = idss[h * 32 + lane];  // -1 past the list end
-      auxc[h] = MODE == kL2 ? auxs[h * 32 + lane] : 0.f;
+      auxc[h] = MODE != kDot ? auxs[h * 32 + lane] : 0.f;
       live[h] = __ballot_sync(FULL, idc[h] >= 0);
       n_live += __popc(live[h]);
     }
@@ -790,8 +1000,8 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
           npass[i0 + i] += n_live;
 #pragma unroll
           for (int h = 0; h < VT / 32; ++h) {
-            float sc = ss[r * SLD + h * 32 + lane];
-            if (MODE == kL2) sc = 2.f * sc - auxc[h];
+            const float sc = row_score<MODE>(ss[r * SLD + h * 32 + lane],
+                                             auxc[h]);
             cand[i][h] = sc;
             sel[i][h] = __ballot_sync(FULL, sc > kth[i]) & live[h];
           }
@@ -801,8 +1011,7 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
 #pragma unroll
         for (int h = 0; h < VT / 32; ++h) {
           const int c = h * 32 + lane;
-          float sc = ss[r * SLD + c];
-          if (MODE == kL2) sc = 2.f * sc - auxc[h];
+          const float sc = row_score<MODE>(ss[r * SLD + c], auxc[h]);
           bool ok = r < nq && idc[h] >= 0;
           if (ok)
             ok = dnf_pass(act_s + r * f, bnd + r * fm, attrs_s + c * m, f, m);
@@ -1062,48 +1271,40 @@ cudaError_t launch_fma(FS_PARAMS) {
   }
 }
 
-template <typename TQ, int MODE, bool VEC, int R>
-cudaError_t launch_tc_r(FS_PARAMS) {
-  auto kernel = tc::scan_tc_kernel<TQ, MODE, VEC, R>;
-  const size_t smem = tc::layout(sizeof(TQ) == 4, d, m, f).total;
+template <typename TQ, typename TV, int MODE, int R>
+cudaError_t launch_tc_r(FS_PARAMS, bool vec) {
+  auto kernel = tc::scan_tc_kernel<TQ, TV, MODE, R>;
+  const size_t smem = tc::layout<TQ, TV>(d, m, f).total;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(n_slots, (qb + QT - 1) / QT);
-  kernel<<<grid, 2 * NT, smem, stream>>>(FS_KERNEL_ARGS(TQ, __nv_bfloat16));
+  kernel<<<grid, 2 * NT, smem, stream>>>(FS_KERNEL_ARGS(TQ, TV), vec);
   return cudaGetLastError();
 }
 
-template <typename TQ, int MODE, bool VEC>
-cudaError_t launch_tc(FS_PARAMS) {
-  switch (list_slots(k)) {
-    case 1: return launch_tc_r<TQ, MODE, VEC, 1>(FS_FWD);
-    case 2: return launch_tc_r<TQ, MODE, VEC, 2>(FS_FWD);
-    case 4: return launch_tc_r<TQ, MODE, VEC, 4>(FS_FWD);
-    default: return launch_tc_r<TQ, MODE, VEC, 8>(FS_FWD);
-  }
-}
-
-// Whether the tensor-core body takes bf16 vectors at these shapes: at most
+// Whether the tensor-core body takes a dtype pair at these shapes: at most
 // MAX_M attributes, and its shared memory fits.
-bool tc_fits(bool f32q, int d, int m, int f) {
-  return m <= tc::MAX_M && tc::layout(f32q, d, m, f).total <= SMEM_MAX;
+template <typename TQ, typename TV>
+bool tc_fits(int d, int m, int f) {
+  return m <= tc::MAX_M && tc::layout<TQ, TV>(d, m, f).total <= SMEM_MAX;
 }
 
-// bf16 vectors: the tensor-core body where it fits (k <= 256), else the
-// FMA or sort body.
-template <typename TQ, int MODE>
-cudaError_t launch_bf16(FS_PARAMS) {
-  if (!tc_fits(sizeof(TQ) == 4, d, m, f) || k > 32 * MAX_R)
-    return launch_fma<TQ, __nv_bfloat16, MODE>(
-        n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters,
-        queries, lo, hi, vectors, attrs, ids, aux, out_vals, out_ids,
-        out_npass, qb, d, vpad, m, f, k, stream);
-  const bool vec = d % 8 == 0 && (uintptr_t)queries % 16 == 0 &&
+// A dtype pair: the tensor-core body where it fits (k <= 256), else the FMA
+// or sort body; the choice rests on the shapes alone.  vec: 16-byte copies,
+// where rows and operands are 16-byte aligned.
+template <typename TQ, typename TV, int MODE>
+cudaError_t launch_pair(FS_PARAMS) {
+  if (!tc_fits<TQ, TV>(d, m, f) || k > 32 * MAX_R)
+    return launch_fma<TQ, TV, MODE>(FS_FWD);
+  const bool vec = d % (16 / sizeof(TV)) == 0 &&
+                   (uintptr_t)queries % 16 == 0 &&
                    (uintptr_t)vectors % 16 == 0;
-  return (vec ? launch_tc<TQ, MODE, true> : launch_tc<TQ, MODE, false>)(
-      n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters, queries,
-      lo, hi, vectors, attrs, ids, aux, out_vals, out_ids, out_npass, qb, d,
-      vpad, m, f, k, stream);
+  switch (list_slots(k)) {
+    case 1: return launch_tc_r<TQ, TV, MODE, 1>(FS_FWD, vec);
+    case 2: return launch_tc_r<TQ, TV, MODE, 2>(FS_FWD, vec);
+    case 4: return launch_tc_r<TQ, TV, MODE, 4>(FS_FWD, vec);
+    default: return launch_tc_r<TQ, TV, MODE, 8>(FS_FWD, vec);
+  }
 }
 
 }  // namespace
@@ -1112,14 +1313,40 @@ cudaError_t launch_bf16(FS_PARAMS) {
 // 0 = f32 FMA, -1 = refused.  For the tests and the timing script.
 extern "C" int filtered_scan_tiled_body(int d, int m, int f, int mode,
                                         int q_dtype, int v_dtype) {
-  if (v_dtype == kBF16 && (q_dtype == kBF16 || q_dtype == kF32) &&
-      (mode == kDot || mode == kL2))
-    return tc_fits(q_dtype == kF32, d, m, f);
-  if ((mode == kDot || mode == kL2) && q_dtype == kF32 && v_dtype == kF32)
-    return 0;
-  if (mode == kSq8 && q_dtype == kF32 && v_dtype == kI8) return 0;
+  const bool dot_l2 = mode == kDot || mode == kL2;
+  if (dot_l2 && q_dtype == kBF16 && v_dtype == kBF16)
+    return tc_fits<__nv_bfloat16, __nv_bfloat16>(d, m, f);
+  if (dot_l2 && q_dtype == kF32 && v_dtype == kBF16)
+    return tc_fits<float, __nv_bfloat16>(d, m, f);
+  if (dot_l2 && q_dtype == kF32 && v_dtype == kF32)
+    return tc_fits<float, float>(d, m, f);
+  if (mode == kSq8 && q_dtype == kF32 && v_dtype == kI8)
+    return tc_fits<float, int8_t>(d, m, f);
   return -1;
 }
+
+#define FS_ARGS                                                               \
+  n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters, queries, lo, \
+      hi, vectors, attrs, ids, aux, out_vals, out_ids, out_npass, qb, d,      \
+      vpad, m, f, k, (cudaStream_t)stream
+// Returns LAUNCH<TQ, TV, MODE>(FS_ARGS) for the operands' pair: bf16 or f32
+// queries against bf16 vectors (f32: the sharded search), f32 x f32, SQ8.
+#define FS_DISPATCH(LAUNCH)                                         \
+  if (mode == kDot && q_dtype == kBF16 && v_dtype == kBF16)         \
+    return LAUNCH<__nv_bfloat16, __nv_bfloat16, kDot>(FS_ARGS);     \
+  if (mode == kDot && q_dtype == kF32 && v_dtype == kBF16)          \
+    return LAUNCH<float, __nv_bfloat16, kDot>(FS_ARGS);             \
+  if (mode == kL2 && q_dtype == kBF16 && v_dtype == kBF16)          \
+    return LAUNCH<__nv_bfloat16, __nv_bfloat16, kL2>(FS_ARGS);      \
+  if (mode == kL2 && q_dtype == kF32 && v_dtype == kBF16)           \
+    return LAUNCH<float, __nv_bfloat16, kL2>(FS_ARGS);              \
+  if (mode == kDot && q_dtype == kF32 && v_dtype == kF32)           \
+    return LAUNCH<float, float, kDot>(FS_ARGS);                     \
+  if (mode == kL2 && q_dtype == kF32 && v_dtype == kF32)            \
+    return LAUNCH<float, float, kL2>(FS_ARGS);                      \
+  if (mode == kSq8 && q_dtype == kF32 && v_dtype == kI8)            \
+    return LAUNCH<float, int8_t, kSq8>(FS_ARGS);                    \
+  return cudaErrorInvalidValue
 
 // Plain C entry point (bound with ctypes).  n_unique may be null (every
 // slot live); aux is the norms (mode 1) or scales (mode 2) pointer, null for
@@ -1134,25 +1361,22 @@ extern "C" int filtered_scan_tiled_launch(
   if (n_slots <= 0) return cudaSuccess;
   if (k < 1 || k > vpad || qb < 1 || d < 1 || f < 1 || m < 0)
     return cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define FS_ARGS                                                               \
-  n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters, queries, lo, \
-      hi, vectors, attrs, ids, aux, out_vals, out_ids, out_npass, qb, d,      \
-      vpad, m, f, k, st
-  if (mode == kDot && q_dtype == kBF16 && v_dtype == kBF16)
-    return launch_bf16<__nv_bfloat16, kDot>(FS_ARGS);
-  if (mode == kDot && q_dtype == kF32 && v_dtype == kBF16)  // sharded search
-    return launch_bf16<float, kDot>(FS_ARGS);
-  if (mode == kL2 && q_dtype == kBF16 && v_dtype == kBF16)
-    return launch_bf16<__nv_bfloat16, kL2>(FS_ARGS);
-  if (mode == kL2 && q_dtype == kF32 && v_dtype == kBF16)
-    return launch_bf16<float, kL2>(FS_ARGS);
-  if (mode == kDot && q_dtype == kF32 && v_dtype == kF32)
-    return launch_fma<float, float, kDot>(FS_ARGS);
-  if (mode == kL2 && q_dtype == kF32 && v_dtype == kF32)
-    return launch_fma<float, float, kL2>(FS_ARGS);
-  if (mode == kSq8 && q_dtype == kF32 && v_dtype == kI8)
-    return launch_fma<float, int8_t, kSq8>(FS_ARGS);
-#undef FS_ARGS
-  return cudaErrorInvalidValue;
+  FS_DISPATCH(launch_pair);
+}
+
+// The same contract on the f32 FMA body whatever the shapes (k <= 256):
+// the body the tensor-core one replaced for f32 x f32 and SQ8, launched
+// only to be timed and checked beside it.
+extern "C" int filtered_scan_tiled_fma_launch(
+    int n_slots, const void* slot_cluster, const void* slot_tile,
+    const void* n_unique, int u_cap, int n_clusters, const void* queries,
+    const void* lo, const void* hi, const void* vectors, const void* attrs,
+    const void* ids, const void* aux, void* out_vals, void* out_ids,
+    void* out_npass, int qb, int d, int vpad, int m, int f, int k, int mode,
+    int q_dtype, int v_dtype, void* stream) {
+  if (n_slots <= 0) return cudaSuccess;
+  if (k < 1 || k > vpad || k > 32 * MAX_R || qb < 1 || d < 1 || f < 1 ||
+      m < 0)
+    return cudaErrorInvalidValue;
+  FS_DISPATCH(launch_fma);
 }

@@ -60,8 +60,10 @@ def _bind(src, name, argtypes):
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 
 
-def _lib():
-    return _bind(SOURCE, "filtered_scan_tiled_launch",
+def _entry(name):
+    """A launch entry point of the tiled kernel's library: the shipped
+    bodies' or the FMA body's (the same arguments)."""
+    return _bind(SOURCE, name,
                  [_CI, _VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP,
                   _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _CI,
                   _CI, _VP])
@@ -70,9 +72,13 @@ def _lib():
 def tiled_body(d: int, m: int, f: int, metric: str, q_dtype: torch.dtype,
                v_dtype: torch.dtype) -> str:
     """Which body of the CUDA ``filtered_scan_tiled`` serves these operands:
-    "tensor_cores" (bf16 vectors: mma.sync, f32 queries split into three
-    bf16 terms) or "fma" (f32 x f32, SQ8, and bf16 shapes whose resident
-    query tile does not fit in shared memory).  Builds the kernel."""
+    "tensor_cores" (mma.sync bf16: bf16 x bf16; f32 queries split into
+    three bf16 terms against bf16 vectors, against f32 vectors split so too
+    (six products) or against SQ8 int8 vectors widened to bf16) wherever M
+    <= 16 and its shared memory fits, else "fma" (the first design's f32
+    FMA body: M > 16, or bf16 queries at D > ~1000).  The choice rests on
+    the shapes alone; k > 256 takes the sort body either way.  Builds the
+    kernel."""
     fn = _bind(SOURCE, "filtered_scan_tiled_body", [_CI] * 6)
     mode = "sq8" if v_dtype == torch.int8 else metric
     body = fn(d, m, f, _MODES[mode], _DTYPES[q_dtype], _DTYPES[v_dtype])
@@ -226,6 +232,32 @@ def launch_tiled(slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
     (so that the op's call overhead can be timed beside it): one build
     (cached) and one launch, counted."""
     global LAUNCHES
+    out, launched = _launch(_entry("filtered_scan_tiled_launch"),
+                            slot_cluster, slot_tile, n_unique, queries, lo,
+                            hi, vectors, attrs, ids, norms, scales, metric, k,
+                            q_block)
+    LAUNCHES += launched
+    return out
+
+
+def launch_tiled_fma(slot_cluster, slot_tile, n_unique, queries, lo, hi,
+                     vectors, attrs, ids, norms, scales, metric: str, k: int,
+                     q_block: int):
+    """:func:`launch_tiled` on the f32 FMA body whatever the shapes (k <=
+    256): the body the tensor-core one replaced for f32 x f32 and SQ8, run
+    only to be checked and timed beside it on the same operands.  Counts
+    nowhere: no search path calls it."""
+    if k > 256:
+        raise ValueError(f"k={k}: the FMA body keeps at most 256")
+    return _launch(_entry("filtered_scan_tiled_fma_launch"), slot_cluster,
+                   slot_tile, n_unique, queries, lo, hi, vectors, attrs, ids,
+                   norms, scales, metric, k, q_block)[0]
+
+
+def _launch(fn, slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
+            attrs, ids, norms, scales, metric, k, q_block):
+    """Allocates the outputs and launches C entry ``fn`` on the current
+    stream; returns (outputs, whether it launched)."""
     dev = vectors.device
     s = slot_cluster.shape[0]
     kc, vpad, d = vectors.shape
@@ -238,8 +270,7 @@ def launch_tiled(slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
     out_ids = torch.empty((s, q_block, k), dtype=i32, device=dev)
     npass = torch.empty((s, q_block), dtype=i32, device=dev)
     if s == 0:
-        return _pad_lists(vals, out_ids, k_out) + (npass,)
-    fn = _lib()
+        return _pad_lists(vals, out_ids, k_out) + (npass,), False
     u_cap = s // n_unique.shape[0] if n_unique is not None else s
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -256,8 +287,7 @@ def launch_tiled(slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
         )
     if err != 0:
         raise RuntimeError(f"filtered_scan_tiled launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return _pad_lists(vals, out_ids, k_out) + (npass,)
+    return _pad_lists(vals, out_ids, k_out) + (npass,), True
 
 
 @_filtered_scan_tiled_op.register_kernel("cpu")

@@ -3,7 +3,8 @@
 The CPU paths of :func:`repro_torch.kernels.filtered_scan.filtered_scan.
 filtered_scan_tiled` and :func:`~repro_torch.kernels.filtered_scan.
 filtered_scan.filtered_scan`, and what the CUDA kernels are held against on
-the card.
+the card; and :func:`split_scan_ref`, the tiled tensor-core body's split
+arithmetic in plain PyTorch, which only the tests call.
 """
 
 from __future__ import annotations
@@ -114,6 +115,72 @@ def filtered_scan_tiled_ref(
     Works ``chunk`` live slots at a time, so it never holds more than one
     chunk's ``[chunk, Vpad, D]`` gather.
     """
+    return _tiled(lambda q, v: torch.bmm(q.float(), v.float().transpose(1, 2)),
+                  slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
+                  attrs, ids, norms, scales, metric, k, q_block, chunk)
+
+
+def bf16_terms(x: torch.Tensor, n: int) -> list:
+    """``x`` as ``n`` bf16 terms rounded to nearest, each held in f32: h =
+    bf16(x), m = bf16(x - h), l = bf16(x - h - m).  Each difference is
+    exact; three terms hold all 24 significant bits of an f32 value."""
+    terms, r = [], x.float()
+    for _ in range(n):
+        t = r.to(torch.bfloat16).float()
+        terms.append(t)
+        r = r - t
+    return terms
+
+
+def split_scan_ref(
+    slot_cluster: torch.Tensor,
+    slot_tile: torch.Tensor,
+    n_unique: Optional[torch.Tensor],
+    queries: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    vectors: torch.Tensor,
+    attrs: torch.Tensor,
+    ids: torch.Tensor,
+    norms: Optional[torch.Tensor] = None,
+    scales: Optional[torch.Tensor] = None,
+    *,
+    metric: str = "dot",
+    k: int = 10,
+    q_block: int = 64,
+    max_order: int = 2,
+    chunk: int = 16,
+):
+    """:func:`filtered_scan_tiled_ref` with the tensor-core body's
+    arithmetic: f32 queries split into three bf16 terms (:func:`bf16_terms`),
+    f32 vectors too, bf16 and int8 vectors taken whole (both exact in
+    bf16); the products of a query term of order i (h 0, m 1, l 2) and a
+    vector term of order j with ``i + j <= max_order`` (2: hh, hm, hl, mh,
+    mm, lh for f32 x f32; 1: hh, hm, mh), each exact in f32, summed in
+    f32.  Then the same row constants, mask and top-k.  What the CUDA body
+    computes, up to the order of its sums; nothing on the search path
+    calls it."""
+
+    def dots(q, v):
+        qt = bf16_terms(q, 3) if q.dtype == torch.float32 else [q.float()]
+        vt = bf16_terms(v, 3) if v.dtype == torch.float32 else [v.float()]
+        out = None
+        for i, a in enumerate(qt):
+            for j, b in enumerate(vt):
+                if i + j <= max_order:
+                    p = torch.bmm(a, b.transpose(1, 2))
+                    out = p if out is None else out + p
+        return out
+
+    return _tiled(dots, slot_cluster, slot_tile, n_unique, queries, lo, hi,
+                  vectors, attrs, ids, norms, scales, metric, k, q_block,
+                  chunk)
+
+
+def _tiled(dots, slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
+           attrs, ids, norms, scales, metric, k, q_block, chunk):
+    """The tiled scan's contract around ``dots(q [c, QB, D], v [c, Vpad,
+    D]) -> [c, QB, Vpad]`` f32."""
     s = slot_cluster.shape[0]
     d = queries.shape[-1]
     dev = queries.device
@@ -131,9 +198,7 @@ def filtered_scan_tiled_ref(
         sl = live[c0:c0 + chunk]
         sc = slot_cluster[sl].long()
         st = slot_tile[sl].long()
-        v = vectors[sc].float()  # [c, V, D]
-        q = qt[st].float()  # [c, QB, D]
-        scores = torch.bmm(q, v.transpose(1, 2))  # [c, QB, V]
+        scores = dots(qt[st], vectors[sc])  # [c, QB, V]
         if scales is not None:
             scores = scores * scales[sc][:, None, :]
         if metric == "l2":

@@ -39,6 +39,7 @@ from repro_torch.kernels.filtered_scan.ref import (
     filtered_scan_ref,
     filtered_scan_tiled_ref,
     live_slots,
+    split_scan_ref,
 )
 
 pytestmark = pytest.mark.gpu
@@ -208,8 +209,8 @@ def test_tiled_kernel_mostly_pads(cuda):
     ("dot-bf16", 768, 10, 2, "tensor_cores"),
     ("l2-bf16", 97, 3, 1, "tensor_cores"),
     ("dot-f32q-bf16v", 768, 10, 2, "tensor_cores"),
-    ("dot-f32", 768, 10, 2, "fma"),
-    ("sq8", 768, 10, 2, "fma"),
+    ("dot-f32", 768, 10, 2, "tensor_cores"),
+    ("sq8", 768, 10, 2, "tensor_cores"),
     ("dot-bf16", 1100, 10, 2, "fma"),  # the resident query tile is too large
     ("dot-bf16", 128, 17, 1, "fma"),   # more attributes than it stages
 ])
@@ -224,6 +225,105 @@ def test_tiled_kernel_body_choice(cuda, variant, d, m, f, body):
     got = tfs.filtered_scan_tiled(*args, **kw)
     torch.cuda.synchronize()
     _assert_close(got, *_plain_with_next(args, kw))
+
+
+# the f32 x f32 and SQ8 tensor-core bodies: each (QB, D) meets every k
+NEW_PAIRS = ["dot-f32", "l2-f32", "sq8"]
+SPLIT_SHAPES = [(qb, d) for qb in (32, 40, 72) for d in (50, 64, 97, 100, 768)]
+
+
+def _split_with_next(args, kw):
+    """split_scan_ref's output, and its run for k + 1."""
+    return (split_scan_ref(*args, **kw),
+            split_scan_ref(*args, **{**kw, "k": kw["k"] + 1}))
+
+
+@pytest.mark.parametrize("qb,d", SPLIT_SHAPES)
+@pytest.mark.parametrize("variant", NEW_PAIRS)
+def test_tensor_core_f32_and_sq8_bodies(cuda, variant, qb, d):
+    """f32 x f32 (dot, l2) and SQ8 on the tensor cores against the plain
+    version and against the split they compute: QB at, above and across
+    the 32-row warp tiling, D ragged (50, 97, 100: scalar staging) and
+    whole (64, 768: 16-byte copies), k over 1, 2, 4 and 8 list slots."""
+    args, kw = _case(variant, 2, cuda, seed=qb + d, n_tiles=2, q_block=qb,
+                     kc=5, vpad=333, d=d, u_cap=4)
+    metric, vdt, quantized = VARIANTS[variant]
+    assert tfs.tiled_body(d, 3, 2, metric, torch.float32,
+                          torch.int8 if quantized else vdt) == "tensor_cores"
+    for k in (1, 10, 33, 100, 256):
+        kw["k"] = k
+        before = tfs.LAUNCHES
+        got = tfs.filtered_scan_tiled(*args, **kw)
+        torch.cuda.synchronize()
+        assert tfs.LAUNCHES == before + 1
+        _assert_close(got, *_plain_with_next(args, kw))
+        _assert_close(got, *_split_with_next(args, kw))
+
+
+def _unaligned(t):
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    off = 4 // t.element_size()
+    out = flat[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("which", ["queries", "vectors"])
+@pytest.mark.parametrize("variant", NEW_PAIRS)
+def test_tensor_core_bodies_unaligned_operands(cuda, variant, which):
+    """An operand off a 16-byte boundary takes the scalar staging, to the
+    same lists bit for bit as the 16-byte copies."""
+    args, kw = _case(variant, 1, cuda, seed=7, q_block=40, vpad=300, d=64,
+                     k=33)
+    aligned = tfs.filtered_scan_tiled(*args, **kw)
+    args = list(args)
+    i = 3 if which == "queries" else 6
+    args[i] = _unaligned(args[i])
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    for j in range(3):
+        assert torch.equal(got[j], aligned[j])
+    _assert_close(got, *_plain_with_next(args, kw))
+
+
+@pytest.mark.parametrize("variant", NEW_PAIRS)
+def test_tensor_core_bodies_pads_and_out_of_range(cuda, variant):
+    """Dedup pads, cluster -1 and cluster K among live slots: every pad is
+    (NEG_INF, -1, 0), every live slot equal to the plain version's."""
+    args, kw = _case(variant, 2, cuda, seed=5, n_tiles=4, q_block=32, kc=6,
+                     vpad=256, d=768, u_cap=20, k=10)
+    args = list(args)
+    args[2] = torch.tensor([1, 3, 2, 1], dtype=torch.int32, device=cuda)
+    sc = args[0].clone()
+    sc[1::20] = -1
+    sc[2::40] = 6  # == K: out of range
+    args[0] = sc
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, *_plain_with_next(args, kw))
+    pad = ~live_slots(args[1], args[2]) | (sc < 0) | (sc >= 6)
+    assert int(pad.sum()) > 60
+    assert (got[0][pad] == NEG_INF).all() and (got[1][pad] == -1).all()
+    assert (got[2][pad] == 0).all()
+
+
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_fma_entry_point_matches_plain_version(cuda, variant, k):
+    """The FMA body, which still serves M > 16 and bf16 queries at D >
+    ~1000, through its own entry point on every pair: the plain version's
+    lists, and no count on the search path's counter."""
+    args, kw = _case(variant, 2, cuda, seed=k, q_block=72, vpad=300, d=97,
+                     k=k)
+    before = tfs.LAUNCHES
+    got = tfs.launch_tiled_fma(*args, kw["metric"], k, kw["q_block"])
+    torch.cuda.synchronize()
+    assert tfs.LAUNCHES == before
+    _assert_close(got, *_plain_with_next(args, kw))
+    with pytest.raises(ValueError):
+        tfs.launch_tiled_fma(*args, kw["metric"], 257, kw["q_block"])
 
 
 ANY_K_VPAD = 300
@@ -1298,8 +1398,9 @@ def test_launcher_on_card(cuda, tmp_path):
 @pytest.mark.parametrize("k", [10, 100])
 @pytest.mark.parametrize("d", [18, 32, 50])
 def test_tiled_kernel_f32_at_the_recsys_widths(cuda, d, k):
-    """The f32 x f32 body at the recsys embedding widths (D = 50 is no
-    multiple of 8: the scalar staging) and the retrieval's k = 100."""
+    """The f32 x f32 body at the recsys embedding widths (D = 50 rows are
+    no multiple of 16 bytes: the scalar staging) and the retrieval's
+    k = 100."""
     args, kw = _case("dot-f32", 1, cuda, d=d, k=k, vpad=260)
     before = tfs.LAUNCHES
     got = tfs.filtered_scan_tiled(*args, **kw)
