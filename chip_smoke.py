@@ -17,10 +17,11 @@ Phases:
   3. the main path at real size: a 10M x 768 bf16 index with 10 int16
      attributes built on the card from given assignments, served by
      ``SearchEngine(k=10, n_probes=7, q_block=64, prune="auto")`` in batches
-     of 256 queries under three traffic mixes.  Kernel launch counts are set
-     to 0 just before and read just after; results are checked against the
-     port's ``search_reference`` and scored for recall against an exact
-     brute-force oracle;
+     of 256 queries under three traffic mixes, then at the paper's k = 100
+     on the same batches.  Kernel launch counts are set to 0 just before
+     and read just after; results are checked against the port's
+     ``search_reference`` (at both k) and scored for recall against an
+     exact brute-force oracle;
   3l. (run right after phase 3's checks) SQ8 on the main path:
      ``quantize_index`` of phase 3's index served by ``SearchEngine`` on
      the same batches of the three mixes, N_CHECK queries a mix held
@@ -182,8 +183,10 @@ Phases:
      for centroid_topk); filtered_scan_tiled on both of its full-size
      operand sets: the engine's (bf16 queries) and the sharded tiled
      backend's (f32 queries against the bf16 index), and on the engine's
-     at k = 100; centroid_topk at T = n_probes and at T = 56 (the widest
-     plan of ``t_max="auto"``), and timed at T = 8, 32, 128 and K; the
+     at k = 1, 10, 32, 64, 100, 128 and 256 (K_SWEEP: every list width's
+     edge), each beside its bound; centroid_topk at T = n_probes and at
+     T = 56 (the widest plan of ``t_max="auto"``), and timed at T = 8, 32,
+     128 and K; the
      per-probe filtered_scan on the per-probe slot table of each mix, pads
      included (with ``--variants``, also its compile-time variants,
      FS_VARIANT_DEFINES); and each op's call from an idle card through
@@ -230,6 +233,7 @@ LIVE_WARMUP, LIVE_BATCHES = 1, 2  # per (executor, mix) in phase 3d
 DELTA_BUDGET_MB = 256  # the reference's --delta-budget-mb
 TOMB_SHARE = ADD_SHARE = 0.01  # of the base rows: 100,000 each at N = 10M
 K_WIDE = 100  # the paper's Table 1 k
+K_SWEEP = (1, K_TOP, 32, 64, K_WIDE, 128, 256)  # phase 4's tiled scan
 T_WIDE = 8 * N_PROBES  # the widest t_max="auto" plan
 N_CHECK = 16  # queries per batch held against search_reference
 SPIN_CYCLES = 200_000_000  # ~0.1 s at ~2 GHz: longer than a timed run takes to issue
@@ -715,7 +719,7 @@ def mix_batch(mix, centers, dev, gen):
     return queries, fspec
 
 
-def check_against_reference(mix, index, queries, fspec, res):
+def check_against_reference(mix, index, queries, fspec, res, k=K_TOP):
     """N_CHECK queries of a batch against search_reference on the card."""
     import torch
 
@@ -724,7 +728,7 @@ def check_against_reference(mix, index, queries, fspec, res):
 
     sel = slice(0, N_CHECK)
     fs = FilterSpec(lo=fspec.lo[sel], hi=fspec.hi[sel])
-    ref = search_reference(index, queries[sel], fs, k=K_TOP, n_probes=N_PROBES)
+    ref = search_reference(index, queries[sel], fs, k=k, n_probes=N_PROBES)
     got = (res.scores[sel], res.ids[sel])
     check_scan(f"{mix} vs search_reference",
                (got[0], got[1], res.n_passed[sel]),
@@ -2972,6 +2976,7 @@ def shard_rank(rank, work, ckpt, device):
                     backend=backend_, prune="auto", p_cap_slack=slack))
 
         ct_mod.LAUNCHES = fs_mod.LAUNCHES = fs_mod.PER_PROBE_LAUNCHES = 0
+        fs_mod.LAUNCHES_WIDE = 0
         searches = {}
         for backend_ in ("pallas_tiled", "pallas"):
             for slack_name, slack in (("gate", float(N_RANKS)),
@@ -3047,6 +3052,7 @@ def shard_rank(rank, work, ckpt, device):
             out["followed"] = dist_lib.follow(fn, shard)
         out["launches"] = {"centroid_topk": ct_mod.LAUNCHES,
                            "filtered_scan_tiled": fs_mod.LAUNCHES,
+                           "filtered_scan_tiled_wide": fs_mod.LAUNCHES_WIDE,
                            "filtered_scan": fs_mod.PER_PROBE_LAUNCHES}
         # one compressed all-reduce over the 6 ranks
         grads = grads_of(rank, dev)
@@ -5104,10 +5110,12 @@ def main(argv=None):
 
     def reset_launches():
         ct_mod.LAUNCHES = fs_mod.LAUNCHES = fs_mod.PER_PROBE_LAUNCHES = 0
+        fs_mod.LAUNCHES_WIDE = 0
 
-    def launches():
+    def launches():  # the tiled scan's wide ones (k > 32) also apart
         return {"centroid_topk": ct_mod.LAUNCHES,
                 "filtered_scan_tiled": fs_mod.LAUNCHES,
+                "filtered_scan_tiled_wide": fs_mod.LAUNCHES_WIDE,
                 "filtered_scan": fs_mod.PER_PROBE_LAUNCHES}
 
     t_all = time.perf_counter()
@@ -5283,6 +5291,40 @@ def main(argv=None):
             res, SearchResult(oracle[0], oracle[1], None, None))
         log(f"{mix}: {N_CHECK} queries match search_reference; recall@{K_TOP} "
             f"vs exact brute force over all {stats.n_vectors} rows: {rec:.4f}")
+
+    # the paper's k = 100 (four list slots a lane) on the same batches
+    wide_engine = SearchEngine(index, k=K_WIDE, n_probes=N_PROBES,
+                               q_block=64, prune="auto")
+    reset_launches()
+    for mix in mixes:
+        rows = []
+        for i, (queries, fspec) in enumerate(batches[mix]):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            plan = wide_engine.plan(queries, fspec)
+            ev[1].record()
+            res = wide_engine.execute(plan)
+            ev[2].record()
+            ev[2].synchronize()
+            if i >= WARMUP:
+                rows.append((ev[0].elapsed_time(ev[1]),
+                             ev[1].elapsed_time(ev[2]),
+                             ev[0].elapsed_time(ev[2])))
+        if res.scores.shape != (Q, K_WIDE) or not bool(
+                torch.isfinite(res.scores).all()):
+            raise AssertionError(f"{mix} k={K_WIDE}: malformed scores")
+        check_against_reference(f"{mix} k={K_WIDE}", index, queries, fspec,
+                                res, k=K_WIDE)
+        plan_ms, scan_ms, whole = (statistics.median(c) for c in zip(*rows))
+        log(f"{mix} k={K_WIDE}: plan {plan_ms:.3f} ms, scan+merge "
+            f"{scan_ms:.3f} ms, batch {whole:.3f} ms (medians of {BATCHES}),"
+            f" QPS {Q / whole * 1e3:.1f}; {N_CHECK} queries match "
+            f"search_reference")
+    wide_launches = launches()
+    if wide_launches["filtered_scan_tiled_wide"] < len(mixes) * (
+            WARMUP + BATCHES):
+        raise AssertionError(f"k={K_WIDE} batches: launches {wide_launches}")
+    del wide_engine
     log(f"phase 3 (main path) {time.perf_counter() - t_all:.2f} s since start")
 
     # ---- phase 3l: SQ8 on the main path (phase 3's index quantized) ----
@@ -5530,22 +5572,32 @@ def main(argv=None):
         f"{eb['streamed_ms']:.3f} ms); {ops / kernel_ms / 1e9:.1f} TFLOP/s "
         f"achieved, kernel / bound {kernel_ms / eb['bound_ms']:.2f}; max "
         f"|err| {max_err:.3e}")
-    # the same operands at the paper's k = 100 (four list slots a lane)
-    kw100 = dict(kw, k=K_WIDE)
-    w_err = check_scan(f"full-size uniform batch, k={K_WIDE}",
-                       fs_mod.filtered_scan_tiled(*a, **kw100),
-                       *plain_scan(a, kw100))
-    w_ms = ms(lambda: fs_mod.filtered_scan_tiled(*a, **kw100), 10)
-    w_plain = ms(lambda: filtered_scan_tiled_ref(*a, **kw100), 3)
-    wb = tiled_bound(
-        plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
-        plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
-        index.vpad, k=K_WIDE)
-    log(f"filtered_scan_tiled full size, engine operands, k={K_WIDE}: kernel "
-        f"{w_ms:.3f} ms (k={K_TOP}: {kernel_ms:.3f} ms), plain {w_plain:.3f} "
-        f"ms, bound {wb['bound_ms']:.3f} ms (bytes {wb['byte_ms']:.3f} ms, "
-        f"bf16 ops {wb['kept_ms']:.3f} ms), kernel / bound "
-        f"{w_ms / wb['bound_ms']:.2f}; max |err| {w_err:.3e}")
+    # the same operands at every list width's edge (1, 2, 4 and 8 register
+    # slots a lane), the paper's k = 100 among them
+    sweep = []
+    for k_ in K_SWEEP:
+        kw_ = dict(kw, k=k_)
+        if k_ == K_TOP:
+            err_, k_ms, b_ = max_err, kernel_ms, eb
+        else:
+            err_ = check_scan(f"full-size uniform batch, k={k_}",
+                              fs_mod.filtered_scan_tiled(*a, **kw_),
+                              *plain_scan(a, kw_))
+            k_ms = ms(lambda: fs_mod.filtered_scan_tiled(*a, **kw_), 10)
+            b_ = tiled_bound(
+                plan.slot_cluster, live_slots(plan.slot_tile, plan.n_unique),
+                plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
+                index.vpad, k=k_)
+        sweep.append(dict(k=k_, ms=k_ms, bound_ms=b_["bound_ms"],
+                          bound_by=b_["bound_by"], max_abs_err=err_))
+        log(f"filtered_scan_tiled full size, engine operands, k={k_}: kernel "
+            f"{k_ms:.3f} ms, bound {b_['bound_ms']:.3f} ms ({b_['bound_by']})"
+            f", kernel / bound {k_ms / b_['bound_ms']:.2f}; matches the "
+            f"plain version, max |err| {err_:.3e}")
+    wide = next(r for r in sweep if r["k"] == K_WIDE)
+    w_plain = ms(lambda: filtered_scan_tiled_ref(*a, **dict(kw, k=K_WIDE)), 3)
+    log(f"filtered_scan_tiled full size, engine operands, k={K_WIDE}: plain "
+        f"{w_plain:.3f} ms")
     t_op, t_launch = op_overhead(
         torch.ops.repro_torch.filtered_scan_tiled, fs_mod.launch_tiled,
         a + ("dot", K_TOP, plan.q_block))
@@ -5557,6 +5609,7 @@ def main(argv=None):
         source="src/repro_torch/kernels/filtered_scan/csrc/filtered_scan_tiled.cu",
         replaces="src/repro/kernels/filtered_scan/filtered_scan.py:360",
         launches=(engine_launches["filtered_scan_tiled"]
+                  + wide_launches["filtered_scan_tiled"]
                   + sharded_launches["filtered_scan_tiled"]
                   + disk_launches["filtered_scan_tiled"]
                   + e_launches["filtered_scan_tiled"]
@@ -5569,9 +5622,14 @@ def main(argv=None):
         max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=eb["bound_ms"], bound_by=eb["bound_by"],
         library_ms=None, op_call_ms=t_op, launch_call_ms=t_launch,
-        wide=dict(k=K_WIDE, ms=w_ms, plain_ms=w_plain,
-                  bound_ms=wb["bound_ms"], bound_by=wb["bound_by"],
-                  max_abs_err=w_err),
+        # launches asking for more than one list slot a lane (k > 32):
+        # phase 3's k = 100 batches, 3d's and 3i's k = 100 searches (3f,
+        # 3g and 3h serve k = 10)
+        launches_wide=sum(d["filtered_scan_tiled_wide"] for d in (
+            engine_launches, wide_launches, sharded_launches, disk_launches,
+            e_launches, live_launches, slice_launches, sq8_launches,
+            shard_launches)),
+        wide=dict(wide, plain_ms=w_plain), k_sweep=sweep,
         f32=build_fig["f32"], recsys=slice_fig["kernels"]["filtered_scan_tiled"],
         sq8=sq8_fig["kernel"], hmma=hmma,
     )]

@@ -91,25 +91,48 @@
 //   shared score tile (their fragment layout is not row-major).  Each
 //   epilogue warp owns 8 query rows; lane j holds candidate j of each
 //   32-row group of the chunk.  Liveness, the row constant, the DNF test
-//   and the pass counts (integer ballots, in registers) come first for 4
-//   rows x 128 candidates at once, independent work whose latencies
+//   and the pass counts (integer ballots, in registers) come first for
+//   several rows x 128 candidates at once, independent work whose latencies
 //   overlap.  Only attributes whose bound interval is narrower than int16's
 //   range are tested (flagged once per CTA, bounds packed lo|hi in one
-//   word), and a row with a term that tests none (match_all) passes every
-//   live row, counted once per chunk.  Then the candidates above a row's
-//   running k-th are inserted in row order, one per row per step for 4
-//   rows at once: lane j < k holds the row's j-th best (value, id), and a
-//   candidate goes after equal entries, so the earliest row wins a tie.
-// - Any k.  Both bodies keep each row's list in registers, R = 1, 2, 4 or
-//   8 slots a lane (lane j holds ranks j, j+32, ...; an insert shifts every
-//   slot one rank, lane 0 of slot s taking lane 31 of slot s-1), so
-//   k <= 256 is the same streaming fold (the tensor-core epilogue masks
-//   4 / 2 / 1 rows at once as R grows, to bound its registers).  k > 256
+//   word), and a row with a term that tests no attribute (match_all) passes
+//   every live row.
+// - The selection, any k <= 256.  Each row keeps its list in registers,
+//   R = 1, 2, 4 or 8 slots a lane (lane j holds ranks j, j+32, ...), best
+//   first by (value descending, row position ascending), the position
+//   becoming the row's id at write-out: the order of the plain version's
+//   top-k and of the TPU kernel's _fold_topk, earliest row first on a tie.
+//   The first design inserted one candidate per warp step (R ballots and
+//   3R shuffles per insert, each depending on the one before, about
+//   k(1 + ln(Vpad/k)) inserts a row and slot): at k = 100 the selection
+//   was 80% of the kernel's time, 8.2x its bound (PERF.md).  For R >= 2
+//   the first chunk of a slot is sorted whole by a warp bitonic network
+//   and becomes the list; in each later chunk the candidates strictly
+//   above the row's k-th are compacted (ballot and prefix popcount, column
+//   bytes in a per-warp buffer in shared memory) and folded 32 at a time:
+//   sorted worst first by a bitonic network over the lanes they fill, kept
+//   lane by lane against the list's last slot (the best 32 of the two, a
+//   bitonic sequence), then a bitonic merge of the list that skips the
+//   slots no exchange touched.  A fold costs at most 15 + 5 shuffle steps
+//   per touched slot whatever the number of candidates, and 2-4 rows fold
+//   in step (4 at R = 2, 2 at R = 4, 1 at R = 8: the R = 8 lists alone
+//   fill the 128 registers a thread and spill), so their latencies
+//   overlap.  At R = 1 (k <= 32) the inserts stay: on the card the bitonic
+//   fold was faster for bf16 at k = 10 and 32 but slower at k = 1, and
+//   with f32 queries it spilled and took 13% longer (PERF.md, PR 25).  The
+//   FMA body takes the same folds with the merge's steps as loops, not
+//   unrolled: less code to build for a body off the main path.  k > 256
 //   (up to Vpad) takes a third body, scan_sort_kernel: one CTA per (slot,
 //   query row) scores the whole cluster into shared memory and
-//   bitonic-sorts it by (value descending, row ascending), the same order
-//   as the fold.  It reads a cluster once per query row, so it is slow; no
-//   full-size path asks for k > 256.
+//   bitonic-sorts it by the same order.  It reads a cluster once per query
+//   row, so it is slow; no full-size path asks for k > 256.
+// - One kernel a dtype pair and list width: dot and l2 are a run-time flag
+//   (SQ8 is the int8 pair), which halves the instantiations and keeps the
+//   library's build near two minutes.
+// - Shared memory.  The survivor buffer takes 4 KB beside the ring, the
+//   resident query tile and the score tile: bf16 queries keep the
+//   tensor-core body up to D = 832 at M = 10, F = 1 (896 without it) and
+//   D = 768 at M = 16, F = 2 (832).
 // - D not a multiple of 16 bytes of a vector row (the recsys D = 50 f32,
 //   the tests' D = 97 and 100), or unaligned operands, take scalar staging
 //   loads into the same ring; Vpad and D are walked in whole tiles with
@@ -119,7 +142,7 @@
 // 64x32 staging slices, each thread a 4x4 micro-tile, the epilogue after
 // each tile) serves only the shapes the tensor-core body cannot take: more
 // than 16 attributes, or shared memory that does not fit (bf16 queries at
-// D > ~1000).  The choice rests on the shapes alone;
+// D > 832 at M = 10).  The choice rests on the shapes alone;
 // filtered_scan_tiled_fma_launch runs it on any pair, for comparison.
 
 #include <cuda_bf16.h>
@@ -144,6 +167,48 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
+// ---------------------------------------------------------------------------
+// The running top-k: each query row's list in registers, R slots a lane
+// (entry e = 32*s + lane in slot s), best first by (value descending, row
+// position in the cluster ascending): equal values keep row order, so the
+// earliest row wins a tie.  Positions become ids at write-out.
+// ---------------------------------------------------------------------------
+
+constexpr int PAD_POS = 0x7fffffff;  // a pad entry's position: after all rows
+
+// Whether (va, pa) comes before (vb, pb): value descending, then position
+// ascending.
+__device__ __forceinline__ bool before(float va, int pa, float vb, int pb) {
+  return va > vb || (va == vb && pa < pb);
+}
+
+// Compare-exchange with lane ^ j (j < 32): keeps the earlier of the two
+// where `first`, else the later.
+__device__ __forceinline__ void cx_lane(float& v, int& p, int j, bool first) {
+  const float ov = __shfl_xor_sync(FULL, v, j);
+  const int op = __shfl_xor_sync(FULL, p, j);
+  if (first == before(ov, op, v, p)) {
+    v = ov;
+    p = op;
+  }
+}
+
+// Compare-exchange of two slots of a lane: (va, pa) keeps the earlier.
+// Returns whether they swapped.
+__device__ __forceinline__ bool cx_slot(float& va, int& pa, float& vb,
+                                        int& pb) {
+  const bool sw = before(vb, pb, va, pa);
+  if (sw) {
+    const float tv = va;
+    const int tp = pa;
+    va = vb;
+    pa = pb;
+    vb = tv;
+    pb = tp;
+  }
+  return sw;
+}
+
 // The value at warp-uniform rank r of a list held R slots a lane.
 template <int R>
 __device__ __forceinline__ float rank_value(const float (&rv)[R], int r) {
@@ -154,78 +219,347 @@ __device__ __forceinline__ float rank_value(const float (&rv)[R], int r) {
   return __shfl_sync(FULL, x, r & 31);
 }
 
-// Where `ins` (uniform over the warp), inserts (cv, ci) after the entries
-// >= cv of the warp's k-list: ranks p+1 .. k-1 take the rank below them.
-// Branch-free, so several rows' insert chains overlap.
-template <int R>
-__device__ __forceinline__ void insert_if(float (&rv)[R], int (&ri)[R],
-                                          float cv, int ci, int lane, int k,
-                                          bool ins) {
-  int p = 0;
+// Sorts RB rows' NS*32 entries each (slot j, lane: entry 32*j + lane), best
+// first: a bitonic network, strides of a slot and more between a lane's own
+// slots, the others across lanes; the rows' steps interleave.  The stages
+// are loops, not unrolled: it runs once a slot, and the code stays small.
+template <int RB, int NS>
+__device__ __forceinline__ void warp_sort(float (&v)[RB][NS], int (&p)[RB][NS],
+                                          int lane) {
+#pragma unroll 1
+  for (int kk = 2; kk <= 32 * NS; kk <<= 1) {
 #pragma unroll
-  for (int s = 0; s < R; ++s)
-    p += __popc(__ballot_sync(FULL, s * 32 + lane < k && rv[s] >= cv));
+    for (int js = NS / 2; js > 0; js >>= 1) {
+      if (64 * js > kk) continue;  // uniform
 #pragma unroll
-  for (int s = R - 1; s >= 0; --s) {  // slot s-1 is read before it moves
-    float up_v = __shfl_up_sync(FULL, rv[s], 1);
-    int up_i = __shfl_up_sync(FULL, ri[s], 1);
-    if (s > 0) {
-      const float wv = __shfl_sync(FULL, rv[s > 0 ? s - 1 : 0], 31);
-      const int wi = __shfl_sync(FULL, ri[s > 0 ? s - 1 : 0], 31);
-      up_v = lane == 0 ? wv : up_v;
-      up_i = lane == 0 ? wi : up_i;
+      for (int s = 0; s < NS; ++s) {
+        if (s & js) continue;
+        const bool up = ((32 * s) & kk) == 0;  // best first in this block
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          if (up)
+            cx_slot(v[i][s], p[i][s], v[i][s + js], p[i][s + js]);
+          else
+            cx_slot(v[i][s + js], p[i][s + js], v[i][s], p[i][s]);
+        }
+      }
     }
-    const int r = s * 32 + lane;
-    const bool shift = ins && r < k && r > p;
-    const bool put = ins && r == p;
-    rv[s] = shift ? up_v : put ? cv : rv[s];
-    ri[s] = shift ? up_i : put ? ci : ri[s];
-  }
-}
-
-// Inserts the candidates of `cand` (lane order = row order) that beat the
-// running k-th into the warp's list (rv, ri): strictly greater, after equal
-// entries, so the earlier row wins a tie.
-template <int R>
-__device__ __forceinline__ void fold(float (&rv)[R], int (&ri)[R], float cand,
-                                     int cid, int lane, int k) {
-  float kth = rank_value<R>(rv, k - 1);
-  unsigned sel = __ballot_sync(FULL, cand > kth);
-  while (sel) {
-    const int src = __ffs(sel) - 1;
-    sel &= sel - 1;
-    const float cv = __shfl_sync(FULL, cand, src);
-    const int ci = __shfl_sync(FULL, cid, src);
-    if (cv > kth) {  // uniform over the warp
-      insert_if<R>(rv, ri, cv, ci, lane, k, true);
-      kth = rank_value<R>(rv, k - 1);
+#pragma unroll 1
+    for (int j = min(kk >> 1, 16); j > 0; j >>= 1) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int e = 32 * s + lane;
+        const bool first = ((e & j) == 0) == ((e & kk) == 0);
+#pragma unroll
+        for (int i = 0; i < RB; ++i) cx_lane(v[i][s], p[i][s], j, first);
+      }
     }
   }
 }
 
-// Writes a warp's k-list to out[0, k): values, and ids where the value is
-// not a NEG_INF pad.
+// One step of merge_batch's batch sort: stride j of block size kk, the
+// block of the top nbp lanes worst first.
+template <int RB>
+__device__ __forceinline__ void batch_step(float (&b)[RB], int (&bp)[RB],
+                                           int kk, int j, int nbp, int lane) {
+  const bool worst_first = kk == nbp || (lane & kk) == 0;
+  const bool first = ((lane & j) == 0) != worst_first;
+#pragma unroll
+  for (int i = 0; i < RB; ++i) cx_lane(b[i], bp[i], j, first);
+}
+
+// Merges each of RB rows' batch (b, bp): at most 32 entries a row in the
+// top nbp lanes (a power of two; pads elsewhere), into the rows' lists
+// lv[i0 + i] (32*R entries, best first), keeping the best 32*R.  The batch
+// is sorted worst first (bitonic, nbp entries); the list's last slot keeps
+// the better of itself and the batch lane by lane, the best 32 of the two
+// as a bitonic sequence, which makes the whole list bitonic; a bitonic
+// merge sorts it, skipping the slots that no step changed (still sorted).
+// UNROLL: the lane steps unrolled (the tensor-core epilogue, where they
+// are the hot path) or loops (the FMA body: less code to build).
+template <int R, int RB, bool UNROLL>
+__device__ __forceinline__ void merge_batch(float (&lv)[RPW][R],
+                                            int (&lp)[RPW][R], int i0,
+                                            float (&b)[RB], int (&bp)[RB],
+                                            int nbp, int lane) {
+  if constexpr (UNROLL) {
+#pragma unroll
+    for (int kk = 2; kk <= 32; kk <<= 1) {
+      if (kk > nbp) break;  // uniform
+#pragma unroll
+      for (int j = kk >> 1; j > 0; j >>= 1)
+        batch_step<RB>(b, bp, kk, j, nbp, lane);
+    }
+  } else {
+#pragma unroll 1
+    for (int kk = 2; kk <= nbp; kk <<= 1)
+#pragma unroll 1
+      for (int j = kk >> 1; j > 0; j >>= 1)
+        batch_step<RB>(b, bp, kk, j, nbp, lane);
+  }
+#pragma unroll
+  for (int i = 0; i < RB; ++i)
+    if (before(b[i], bp[i], lv[i0 + i][R - 1], lp[i0 + i][R - 1])) {
+      lv[i0 + i][R - 1] = b[i];
+      lp[i0 + i][R - 1] = bp[i];
+    }
+  bool dirty[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) dirty[s] = s == R - 1;
+#pragma unroll
+  for (int js = R / 2; js > 0; js >>= 1) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      if (s & js) continue;
+      const int t = s + js;
+      if (!dirty[s] && !dirty[t]) continue;  // two sorted slots: in order
+      bool sw = false;
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+        sw |= cx_slot(lv[i0 + i][s], lp[i0 + i][s], lv[i0 + i][t],
+                      lp[i0 + i][t]);
+      if (__any_sync(FULL, sw)) dirty[s] = dirty[t] = true;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    if (!dirty[s]) continue;  // uniform
+    if constexpr (UNROLL) {
+#pragma unroll
+      for (int j = 16; j > 0; j >>= 1)
+#pragma unroll
+        for (int i = 0; i < RB; ++i)
+          cx_lane(lv[i0 + i][s], lp[i0 + i][s], j, (lane & j) == 0);
+    } else {
+#pragma unroll 1
+      for (int j = 16; j > 0; j >>= 1)
+#pragma unroll
+        for (int i = 0; i < RB; ++i)
+          cx_lane(lv[i0 + i][s], lp[i0 + i][s], j, (lane & j) == 0);
+    }
+  }
+}
+
+// Folds one chunk of NH*32 candidates (lane's candidate h at column
+// 32*h + lane, row position pos0 + column) into the lists of RB query rows
+// lv[i0 .. i0+RB).  cand[i][h]: the row's masked score (NEG_INF where the
+// filter or liveness fails); value(ii, c): row ii's score at column c (a
+// candidate that passed).  The candidates strictly above a row's k-th are
+// compacted into `buf` (RB x NH*32 column bytes, the warp's own; by ballot
+// and prefix popcount, in column order) and folded 32 at a time by
+// merge_batch, the rows' batches in step.  Strictly above, and after equal
+// entries: the earlier row wins a tie, as one insert at a time would.
+// `first`: the lists are still empty pads; where a row of the group has
+// more than 32 candidates passing, the chunk sorted whole becomes the
+// lists instead (a filtered chunk with fewer is one fold).
+template <int R, int RB, int NH, bool UNROLL, typename Value>
+__device__ __forceinline__ void select_chunk(float (&lv)[RPW][R],
+                                             int (&lp)[RPW][R], int i0,
+                                             const float (&cand)[RB][NH],
+                                             bool first, int pos0, int k,
+                                             unsigned char* buf, int lane,
+                                             Value value) {
+  constexpr int NC = 32 * NH;
+  if (first) {
+    int n_pass = 0;  // the most candidates passing in a row of the group
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      int c = 0;
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        c += __popc(__ballot_sync(FULL, cand[i][h] > NEG_INF));
+      n_pass = max(n_pass, c);
+    }
+    if (n_pass > 32) {  // sorted whole, it becomes the lists
+      float v[RB][NH];
+      int p[RB][NH];
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          v[i][h] = cand[i][h];
+          p[i][h] = pos0 + 32 * h + lane;
+        }
+      warp_sort<RB, NH>(v, p, lane);
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          lv[i0 + i][s] = s < NH ? v[i][s < NH ? s : 0] : NEG_INF;
+          lp[i0 + i][s] = s < NH ? p[i][s < NH ? s : 0] : PAD_POS;
+        }
+      return;
+    }
+  }
+  const unsigned below = (1u << lane) - 1u;
+  int n[RB], n_max = 0;
+#pragma unroll
+  for (int i = 0; i < RB; ++i) {
+    const float kth = rank_value<R>(lv[i0 + i], k - 1);  // NEG_INF if first
+    int base = 0;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const unsigned sel = __ballot_sync(FULL, cand[i][h] > kth);
+      if (sel >> lane & 1)
+        buf[i * NC + base + __popc(sel & below)] =
+            (unsigned char)(32 * h + lane);
+      base += __popc(sel);
+    }
+    n[i] = base;
+    n_max = max(n_max, base);
+  }
+  if (n_max == 0) return;  // uniform
+  __syncwarp();
+  for (int b0 = 0; b0 < n_max; b0 += 32) {
+    const int nb_max = min(32, n_max - b0);
+    const int nbp = nb_max <= 1 ? 1 : 1 << (32 - __clz(nb_max - 1));
+    float b[RB];
+    int bp[RB];
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const int nb = min(32, max(0, n[i] - b0));
+      const bool in = lane >= 32 - nb;  // the batch in the top lanes
+      const int c = in ? buf[i * NC + b0 + 31 - lane] : 0;
+      b[i] = in ? value(i0 + i, c) : NEG_INF;
+      bp[i] = in ? pos0 + c : PAD_POS;
+    }
+    merge_batch<R, RB, UNROLL>(lv, lp, i0, b, bp, nbp, lane);
+  }
+  __syncwarp();  // buf is refilled by the next rows
+}
+
+// k <= 32, one slot a lane: the candidates above the running k-th are
+// inserted one at a time, each after the entries >= it (ranks p+1 .. k-1
+// take the rank below them); a no-op where `ins` is false, so several rows'
+// insert chains run in step and their shuffle latencies overlap.
+__device__ __forceinline__ void insert_if(float& lv, int& lp, float cv, int cp,
+                                          int lane, int k, bool ins) {
+  const int p = __popc(__ballot_sync(FULL, lane < k && lv >= cv));
+  const float up_v = __shfl_up_sync(FULL, lv, 1);
+  const int up_p = __shfl_up_sync(FULL, lp, 1);
+  const bool shift = ins && lane < k && lane > p;
+  const bool put = ins && lane == p;
+  lv = shift ? up_v : put ? cv : lv;
+  lp = shift ? up_p : put ? cp : lp;
+}
+
+// The RB rows' inserts of one chunk, in step: a row drops the candidates
+// that no longer beat its k-th after each step.
+template <int RB, int NH>
+__device__ __forceinline__ void insert_steps(float (&lv)[RPW][1],
+                                             int (&lp)[RPW][1], int i0,
+                                             const float (&cand)[RB][NH],
+                                             float (&kth)[RB],
+                                             unsigned (&sel)[RB][NH],
+                                             int pos0, int k, int lane) {
+  while (true) {
+    bool more = false;
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      int h = NH;
+      unsigned w = 0;
+#pragma unroll
+      for (int j = NH - 1; j >= 0; --j)
+        if (sel[i][j]) {
+          h = j;
+          w = sel[i][j];
+        }
+      more |= h < NH;  // uniform over the warp
+      float ch = cand[i][0];
+#pragma unroll
+      for (int j = 1; j < NH; ++j) ch = h == j ? cand[i][j] : ch;
+      const int src = (__ffs(w) - 1) & 31;
+      const float cv = __shfl_sync(FULL, ch, src);
+      const bool ins = w != 0 && cv > kth[i];
+      insert_if(lv[i0 + i][0], lp[i0 + i][0], cv, pos0 + 32 * h + src, lane,
+                k, ins);
+      kth[i] = __shfl_sync(FULL, lv[i0 + i][0], k - 1);
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        if (j == h) sel[i][j] = w & (w - 1);
+        sel[i][j] &= __ballot_sync(FULL, cand[i][j] > kth[i]);
+      }
+    }
+    if (!more) break;
+  }
+}
+
+template <int RB, int NH>
+__device__ __forceinline__ void insert_chunk(float (&lv)[RPW][1],
+                                             int (&lp)[RPW][1], int i0,
+                                             const float (&cand)[RB][NH],
+                                             int pos0, int k, int lane) {
+  float kth[RB];
+  unsigned sel[RB][NH];
+#pragma unroll
+  for (int i = 0; i < RB; ++i) {
+    kth[i] = __shfl_sync(FULL, lv[i0 + i][0], k - 1);
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+      sel[i][h] = __ballot_sync(FULL, cand[i][h] > kth[i]);
+  }
+  insert_steps<RB, NH>(lv, lp, i0, cand, kth, sel, pos0, k, lane);
+}
+
+
+// Whether a list of R slots a lane folds by inserts (one slot: the card
+// found them faster there, PERF.md) or by select_chunk's sort and merge.
 template <int R>
-__device__ __forceinline__ void write_list(const float (&rv)[R],
-                                           const int (&ri)[R], float* out_v,
-                                           int* out_i, int lane, int k) {
+constexpr bool INSERTS = R == 1;
+
+// Folds one chunk into RB rows' lists (the FMA body).
+template <int R, int RB, int NH, typename Value>
+__device__ __forceinline__ void fold_chunk(float (&lv)[RPW][R],
+                                           int (&lp)[RPW][R], int i0,
+                                           const float (&cand)[RB][NH],
+                                           bool first, int pos0, int k,
+                                           unsigned char* buf, int lane,
+                                           Value value) {
+  if constexpr (INSERTS<R>)
+    insert_chunk<RB, NH>(lv, lp, i0, cand, pos0, k, lane);
+  else
+    select_chunk<R, RB, NH, false>(lv, lp, i0, cand, first, pos0, k, buf,
+                                   lane, value);
+}
+
+// Writes a warp's k-list to out[0, k): values, and the ids of the rows at
+// the listed positions (-1 where the value is a NEG_INF pad).
+template <int R>
+__device__ __forceinline__ void write_list(const float (&lv)[R],
+                                           const int (&lp)[R],
+                                           const int* __restrict__ row_ids,
+                                           float* out_v, int* out_i, int lane,
+                                           int k) {
 #pragma unroll
   for (int s = 0; s < R; ++s) {
     const int r = s * 32 + lane;
     if (r < k) {
-      out_v[r] = rv[s];
-      out_i[r] = rv[s] > 0.5f * NEG_INF ? ri[s] : -1;
+      const bool real = lv[s] > 0.5f * NEG_INF;
+      out_v[r] = lv[s];
+      out_i[r] = real ? row_ids[lp[s]] : -1;
     }
   }
 }
 
 template <int R>
-__device__ __forceinline__ void init_list(float (&rv)[R], int (&ri)[R]) {
+__device__ __forceinline__ void init_list(float (&lv)[R], int (&lp)[R]) {
 #pragma unroll
   for (int s = 0; s < R; ++s) {
-    rv[s] = NEG_INF;
-    ri[s] = -1;
+    lv[s] = NEG_INF;
+    lp[s] = PAD_POS;
   }
+}
+
+// Rows selected at once: fewer as the lists grow, to bound the registers.
+template <int R>
+constexpr int ROWS_AT_ONCE = R <= 2 ? 4 : R == 4 ? 2 : 1;
+
+// A row's score from its dot: SQ8 (int8 rows) as dot · scale, l2 as
+// 2·dot - ||v||^2, else the dot (aux holds the row constant).
+template <bool SQ8>
+__device__ __forceinline__ float row_score(float dot, float aux, bool l2) {
+  if constexpr (SQ8) return dot * aux;
+  return l2 ? 2.f * dot - aux : dot;
 }
 
 // Whether slot s is a pad (dedup pad or cluster out of range).
@@ -256,15 +590,16 @@ namespace ffma {
 
 constexpr int VT = 64;  // cluster rows per chunk
 constexpr int DK = 32;  // depth per staging step
+constexpr int SEL = (NT / 32) * 4 * VT;  // survivor columns: a warp's 4 rows
 
 size_t smem_bytes(int m, int f) {
   size_t floats = QT * (DK + 1) + VT * (DK + 1) + QT * (VT + 1) + VT;
   size_t ints = VT + QT + (size_t)VT * m + 2 * (size_t)QT * f * m;
-  return 4 * (floats + ints);
+  return 4 * (floats + ints) + SEL;
 }
 
-template <typename TQ, typename TV, int MODE, int R>
-__global__ void __launch_bounds__(NT) scan_fma_kernel(
+template <typename TQ, typename TV, int R>
+__global__ void __launch_bounds__(NT, R == 8 ? 1 : 2) scan_fma_kernel(
     const int* __restrict__ slot_cluster, const int* __restrict__ slot_tile,
     const int* __restrict__ n_unique, int u_cap, int n_clusters,
     const TQ* __restrict__ queries, const int16_t* __restrict__ lo,
@@ -272,7 +607,8 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
     const int16_t* __restrict__ attrs, const int* __restrict__ ids,
     const float* __restrict__ aux, float* __restrict__ out_vals,
     int* __restrict__ out_ids, int* __restrict__ out_npass, int qb, int d,
-    int vpad, int m, int f, int k) {
+    int vpad, int m, int f, int k, bool l2) {
+  constexpr bool SQ8 = sizeof(TV) == 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);  // [QT][DK+1]
   float* vs = qs + QT * (DK + 1);                  // [VT][DK+1]
@@ -283,12 +619,14 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
   int* attrs_s = npass_s + QT;                     // [VT][m]
   int* lo_s = attrs_s + VT * m;                    // [QT][f][m]
   int* hi_s = lo_s + QT * f * m;                   // [QT][f][m]
+  unsigned char* sel_s = reinterpret_cast<unsigned char*>(hi_s + QT * f * m);
 
   const int s = blockIdx.x;
   const int q0 = blockIdx.y * QT;  // first query row of this CTA in the tile
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  unsigned char* sel_w = sel_s + warp * 4 * VT;  // [4][VT], the warp's own
   const int nq = min(QT, qb - q0);  // query rows this CTA serves
   const size_t out_row0 = (size_t)s * qb + q0;
 
@@ -309,10 +647,10 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
   }
   for (int e = tid; e < QT; e += NT) npass_s[e] = 0;
 
-  float rv[RPW][R];
-  int ri[RPW][R];
+  float lv[RPW][R];  // the running lists of query rows warp + 8*i
+  int lp[RPW][R];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) init_list<R>(rv[i], ri[i]);
+  for (int i = 0; i < RPW; ++i) init_list<R>(lv[i], lp[i]);
 
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -325,7 +663,7 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
     for (int e = tid; e < VT; e += NT) {
       const bool in = e < nv;
       idss[e] = in ? ids[crow0 + v0 + e] : -1;
-      auxs[e] = (MODE != kDot && in) ? aux[crow0 + v0 + e] : 0.f;
+      auxs[e] = ((SQ8 || l2) && in) ? aux[crow0 + v0 + e] : 0.f;
     }
     for (int e = tid; e < VT * m; e += NT) {
       const int r = e / m;
@@ -377,8 +715,7 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         float sc = acc[i][j];
-        if (MODE == kSq8) sc = sc * auxs[c];
-        if (MODE == kL2) sc = 2.f * sc - auxs[c];
+        sc = row_score<SQ8>(sc, auxs[c], l2);
         bool ok = r < nq && idss[c] >= 0;  // idss is -1 past the list end
         if (ok) {
           bool any = false;
@@ -400,15 +737,23 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
     }
     __syncthreads();
 
-    // fold the chunk into each owned row's running top-k, in row order
+    // fold the chunk into each owned row's running top-k
+    constexpr int RB = ROWS_AT_ONCE<R>;
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp + (NT / 32) * i;
-      if (r >= nq) continue;  // uniform over the warp
+    for (int i0 = 0; i0 < RPW; i0 += RB) {
+      float cand[RB][VT / 32];
 #pragma unroll
-      for (int h = 0; h < VT / 32; ++h)
-        fold<R>(rv[i], ri[i], ss[r * (VT + 1) + h * 32 + lane],
-                idss[h * 32 + lane], lane, k);
+      for (int i = 0; i < RB; ++i) {
+        const int r = warp + (NT / 32) * (i0 + i);
+#pragma unroll
+        for (int h = 0; h < VT / 32; ++h)
+          cand[i][h] = r < nq ? ss[r * (VT + 1) + h * 32 + lane] : NEG_INF;
+      }
+      fold_chunk<R, RB, VT / 32>(
+          lv, lp, i0, cand, v0 == 0, v0, k, sel_w, lane,
+          [&](int ii, int c) {
+            return ss[(warp + (NT / 32) * ii) * (VT + 1) + c];
+          });
     }
     __syncthreads();  // ss and the staged row constants are reused next chunk
   }
@@ -417,7 +762,7 @@ __global__ void __launch_bounds__(NT) scan_fma_kernel(
   for (int i = 0; i < RPW; ++i) {
     const int r = warp + (NT / 32) * i;
     if (r < nq)
-      write_list<R>(rv[i], ri[i], out_vals + (out_row0 + r) * k,
+      write_list<R>(lv[i], lp[i], ids + crow0, out_vals + (out_row0 + r) * k,
                     out_ids + (out_row0 + r) * k, lane, k);
   }
   __syncthreads();
@@ -438,7 +783,7 @@ constexpr int STAGES = 4;    // ring depth: STAGES - 1 tiles in flight
 constexpr int SLD = VT + 8;  // f32 row stride of the score tile
 constexpr int MAX_M = 16;    // attributes per row the epilogue stages
 constexpr int MPT = VT * MAX_M / NT;  // attribute values staged per thread
-constexpr int RB = 4;        // query rows an epilogue warp masks at once
+constexpr int SEL = (NT / 32) * 4 * VT;  // survivor columns: a warp's 4 rows
 
 // A ring tile for vectors of type TV.  bf16 rows are multiplied from the
 // tile itself (row stride BLD, padded for conflict-free ldmatrix).  f32 and
@@ -459,7 +804,7 @@ struct Ring {
 };
 
 struct Layout {  // byte offsets into dynamic shared memory
-  size_t stage, a_res, planes, ss, idss, auxs, bnd, act, attrs, total;
+  size_t stage, a_res, planes, ss, idss, auxs, bnd, act, attrs, sel, total;
 };
 
 template <typename TQ, typename TV>
@@ -477,7 +822,8 @@ __host__ __device__ inline Layout layout(int d, int m, int f) {
   L.bnd = L.auxs + VT * 4;
   L.act = L.bnd + (size_t)QT * f * m * 4;
   L.attrs = L.act + (size_t)QT * f * 4;
-  L.total = L.attrs + ((size_t)VT * m * 2 + 15) / 16 * 16;
+  L.sel = L.attrs + ((size_t)VT * m * 2 + 15) / 16 * 16;
+  L.total = L.sel + SEL;
   return L;
 }
 
@@ -662,13 +1008,6 @@ struct Flag {
   static constexpr bool value = B;
 };
 
-// A row's score from its dot: l2 as 2·dot - ||v||^2, SQ8 as dot · scale
-// (aux holds the row constant).
-template <int MODE>
-__device__ __forceinline__ float row_score(float dot, float aux) {
-  return MODE == kL2 ? 2.f * dot - aux : MODE == kSq8 ? dot * aux : dot;
-}
-
 // Whether attribute row `av` (m int16) passes a query row's DNF: `act` holds
 // per term the attributes to test, `bnd` their bounds packed lo | hi << 16.
 __device__ __forceinline__ bool dnf_pass(const unsigned* act,
@@ -688,7 +1027,7 @@ __device__ __forceinline__ bool dnf_pass(const unsigned* act,
   return false;
 }
 
-template <typename TQ, typename TV, int MODE, int R>
+template <typename TQ, typename TV, int R>
 __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     const int* __restrict__ slot_cluster, const int* __restrict__ slot_tile,
     const int* __restrict__ n_unique, int u_cap, int n_clusters,
@@ -697,7 +1036,8 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     const int16_t* __restrict__ attrs, const int* __restrict__ ids,
     const float* __restrict__ aux, float* __restrict__ out_vals,
     int* __restrict__ out_ids, int* __restrict__ out_npass, int qb, int d,
-    int vpad, int m, int f, int k, bool vec) {
+    int vpad, int m, int f, int k, bool l2, bool vec) {
+  constexpr bool SQ8 = sizeof(TV) == 1;
   using RG = Ring<TV>;
   constexpr bool F32Q = sizeof(TQ) == 4;
   constexpr int KS = RG::KS, BLD = RG::BLD, FLD = RG::FLD;
@@ -796,7 +1136,7 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
         meta_id = -1;
         meta_aux = 0.f;
         if (tid < nv) meta_id = ids[crow0 + v0 + tid];
-        if (MODE != kDot && tid >= VT && tid - VT < nv)
+        if ((SQ8 || l2) && tid >= VT && tid - VT < nv)
           meta_aux = aux[crow0 + v0 + tid - VT];
 #pragma unroll
         for (int j = 0; j < MPT; ++j) {
@@ -952,14 +1292,14 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     act_s[e] = act;
   }
 
-  // rows masked and folded at once: fewer as the lists grow, to bound the
-  // registers
-  constexpr int RBR = R == 1 ? RB : R == 2 ? 2 : 1;
-  float rv[RPW][R];
-  int ri[RPW][R], npass[RPW];
+  constexpr int RB = ROWS_AT_ONCE<R>;  // rows masked and folded at once
+  unsigned char* sel_w =
+      reinterpret_cast<unsigned char*>(smem + L.sel) + warp * 4 * VT;
+  float lv[RPW][R];  // the running lists of query rows warp + 8*i
+  int lp[RPW][R], npass[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
-    init_list<R>(rv[i], ri[i]);
+    init_list<R>(lv[i], lp[i]);
     npass[i] = 0;
   }
   unsigned free_rows = 0;  // bit i: row warp + 8*i passes every live row
@@ -979,85 +1319,77 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
 #pragma unroll
     for (int h = 0; h < VT / 32; ++h) {
       idc[h] = idss[h * 32 + lane];  // -1 past the list end
-      auxc[h] = MODE != kDot ? auxs[h * 32 + lane] : 0.f;
+      auxc[h] = SQ8 || l2 ? auxs[h * 32 + lane] : 0.f;
       live[h] = __ballot_sync(FULL, idc[h] >= 0);
       n_live += __popc(live[h]);
     }
-    // per half of the warp's rows: row constant, liveness, DNF mask and
-    // pass counts of all 128 candidates first (independent, so latencies
-    // overlap; a row whose filter has a term that tests no attribute passes
-    // every live row, counted once per chunk), then the inserts of those
-    // above the running k-th
+    // per RB rows: row constant, liveness, DNF mask and pass counts of all
+    // 128 candidates first (independent, so latencies overlap; a row whose
+    // filter has a term that tests no attribute passes every live row,
+    // counted once per chunk), then the fold of those above the k-th
 #pragma unroll
-    for (int i0 = 0; i0 < RPW; i0 += RBR) {
-      float cand[RBR][VT / 32], kth[RBR];
-      unsigned sel[RBR][VT / 32];
+    for (int i0 = 0; i0 < RPW; i0 += RB) {
+      float cand[RB][VT / 32];
+      if constexpr (INSERTS<R>) {  // the first selections, inline
+        float kth[RB];
+        unsigned sel[RB][VT / 32];
 #pragma unroll
-      for (int i = 0; i < RBR; ++i) {
-        const int r = warp + (NT / 32) * (i0 + i);
-        kth[i] = rank_value<R>(rv[i0 + i], k - 1);
-        if (r < nq && (free_rows >> (i0 + i) & 1)) {  // every live row passes
-          npass[i0 + i] += n_live;
+        for (int i = 0; i < RB; ++i) {
+          const int r = warp + (NT / 32) * (i0 + i);
+          kth[i] = __shfl_sync(FULL, lv[i0 + i][0], k - 1);
+          if (r < nq && (free_rows >> (i0 + i) & 1)) {  // every live row
+            npass[i0 + i] += n_live;
+#pragma unroll
+            for (int h = 0; h < VT / 32; ++h) {
+              const float sc =
+                  row_score<SQ8>(ss[r * SLD + h * 32 + lane], auxc[h], l2);
+              cand[i][h] = sc;
+              sel[i][h] = __ballot_sync(FULL, sc > kth[i]) & live[h];
+            }
+            continue;
+          }
+          int cnt = 0;
 #pragma unroll
           for (int h = 0; h < VT / 32; ++h) {
-            const float sc = row_score<MODE>(ss[r * SLD + h * 32 + lane],
-                                             auxc[h]);
-            cand[i][h] = sc;
-            sel[i][h] = __ballot_sync(FULL, sc > kth[i]) & live[h];
+            const int c = h * 32 + lane;
+            const float sc = row_score<SQ8>(ss[r * SLD + c], auxc[h], l2);
+            bool ok = r < nq && idc[h] >= 0;
+            if (ok)
+              ok = dnf_pass(act_s + r * f, bnd + r * fm, attrs_s + c * m, f,
+                            m);
+            cnt += __popc(__ballot_sync(FULL, ok));
+            cand[i][h] = ok ? sc : NEG_INF;
+            sel[i][h] = __ballot_sync(FULL, cand[i][h] > kth[i]);
           }
-          continue;
+          npass[i0 + i] += cnt;
         }
-        int cnt = 0;
+        insert_steps<RB, VT / 32>(lv, lp, i0, cand, kth, sel, chunk * VT, k,
+                                  lane);
+      } else {
 #pragma unroll
-        for (int h = 0; h < VT / 32; ++h) {
-          const int c = h * 32 + lane;
-          const float sc = row_score<MODE>(ss[r * SLD + c], auxc[h]);
-          bool ok = r < nq && idc[h] >= 0;
-          if (ok)
-            ok = dnf_pass(act_s + r * f, bnd + r * fm, attrs_s + c * m, f, m);
-          cnt += __popc(__ballot_sync(FULL, ok));
-          cand[i][h] = ok ? sc : NEG_INF;
-          sel[i][h] = __ballot_sync(FULL, cand[i][h] > kth[i]);
-        }
-        npass[i0 + i] += cnt;
-      }
-      // Each step inserts the next selected candidate (in row order) of
-      // every row at once: the rows' insert chains are independent, so
-      // their shuffle latencies overlap.  After a step each row drops the
-      // candidates that no longer beat its k-th.
-      while (true) {
-        bool more = false;
+        for (int i = 0; i < RB; ++i) {
+          const int r = warp + (NT / 32) * (i0 + i);
+          const bool free = r < nq && (free_rows >> (i0 + i) & 1);
+          int cnt = free ? n_live : 0;
 #pragma unroll
-        for (int i = 0; i < RBR; ++i) {
-          int h = VT / 32;
-          unsigned w = 0;
-#pragma unroll
-          for (int j = VT / 32 - 1; j >= 0; --j)
-            if (sel[i][j]) {
-              h = j;
-              w = sel[i][j];
-            }
-          more |= h < VT / 32;  // uniform over the warp
-          float ch = cand[i][0];
-          int cid = idc[0];
-#pragma unroll
-          for (int j = 1; j < VT / 32; ++j) {
-            ch = h == j ? cand[i][j] : ch;
-            cid = h == j ? idc[j] : cid;
+          for (int h = 0; h < VT / 32; ++h) {
+            const int c = h * 32 + lane;
+            const float sc = row_score<SQ8>(ss[r * SLD + c], auxc[h], l2);
+            bool ok = r < nq && idc[h] >= 0;
+            if (ok && !free)
+              ok = dnf_pass(act_s + r * f, bnd + r * fm, attrs_s + c * m, f,
+                            m);
+            if (!free) cnt += __popc(__ballot_sync(FULL, ok));
+            cand[i][h] = ok ? sc : NEG_INF;
           }
-          const int src = (__ffs(w) - 1) & 31;
-          const float cv = __shfl_sync(FULL, ch, src);
-          const int ci = __shfl_sync(FULL, cid, src);
-          const bool ins = w != 0 && cv > kth[i];
-          insert_if<R>(rv[i0 + i], ri[i0 + i], cv, ci, lane, k, ins);
-          kth[i] = rank_value<R>(rv[i0 + i], k - 1);
-#pragma unroll
-          for (int j = 0; j < VT / 32; ++j) {
-            if (j == h) sel[i][j] = w & (w - 1);
-            sel[i][j] &= __ballot_sync(FULL, cand[i][j] > kth[i]);
-          }
+          npass[i0 + i] += cnt;
         }
-        if (!more) break;
+        select_chunk<R, RB, VT / 32, true>(
+            lv, lp, i0, cand, chunk == 0, chunk * VT, k, sel_w, lane,
+            [&](int ii, int c) {
+              return row_score<SQ8>(ss[(warp + (NT / 32) * ii) * SLD + c],
+                                    auxs[c], l2);
+            });
       }
     }
     if (chunk + 1 < nch) bar_arrive(kBarFree, 2 * NT);  // ss may be refilled
@@ -1067,7 +1399,7 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
   for (int i = 0; i < RPW; ++i) {
     const int r = warp + (NT / 32) * i;
     if (r < nq)
-      write_list<R>(rv[i], ri[i], out_vals + (out_row0 + r) * k,
+      write_list<R>(lv[i], lp[i], ids + crow0, out_vals + (out_row0 + r) * k,
                     out_ids + (out_row0 + r) * k, lane, k);
     if (r < nq && lane == 0) out_npass[out_row0 + r] = npass[i];
   }
@@ -1089,12 +1421,7 @@ size_t smem_bytes(int p, int d, int m, int f) {
   return (size_t)p * 8 + (size_t)d * 4 + (size_t)2 * f * m * 4;
 }
 
-// Whether (va, ia) comes before (vb, ib): value descending, row ascending.
-__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
-template <typename TQ, typename TV, int MODE>
+template <typename TQ, typename TV>
 __global__ void __launch_bounds__(NTS) scan_sort_kernel(
     const int* __restrict__ slot_cluster, const int* __restrict__ slot_tile,
     const int* __restrict__ n_unique, int u_cap, int n_clusters,
@@ -1103,7 +1430,8 @@ __global__ void __launch_bounds__(NTS) scan_sort_kernel(
     const int16_t* __restrict__ attrs, const int* __restrict__ ids,
     const float* __restrict__ aux, float* __restrict__ out_vals,
     int* __restrict__ out_ids, int* __restrict__ out_npass, int qb, int d,
-    int vpad, int m, int f, int k, int p) {
+    int vpad, int m, int f, int k, bool l2, int p) {
+  constexpr bool SQ8 = sizeof(TV) == 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* vals = reinterpret_cast<float*>(smem_raw);  // [p]
   int* rows = reinterpret_cast<int*>(vals + p);       // [p]
@@ -1145,8 +1473,7 @@ __global__ void __launch_bounds__(NTS) scan_sort_kernel(
         acc = fmaf(qs[e], to_f32(vectors[row * d + e]), acc);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
-      if (MODE == kSq8) acc *= aux[row];
-      if (MODE == kL2) acc = 2.f * acc - aux[row];
+      acc = row_score<SQ8>(acc, SQ8 || l2 ? aux[row] : 0.f, l2);
       ok = ids[row] >= 0;
       if (ok) {
         bool any = false;
@@ -1205,13 +1532,13 @@ __global__ void __launch_bounds__(NTS) scan_sort_kernel(
       const void *lo, const void *hi, const void *vectors,                 \
       const void *attrs, const void *ids, const void *aux, void *out_vals, \
       void *out_ids, void *out_npass, int qb, int d, int vpad, int m,      \
-      int f, int k, cudaStream_t stream
+      int f, int k, bool l2, cudaStream_t stream
 #define FS_KERNEL_ARGS(TQ, TV)                                               \
   (const int*)slot_cluster, (const int*)slot_tile, (const int*)n_unique,     \
       u_cap, n_clusters, (const TQ*)queries, (const int16_t*)lo,             \
       (const int16_t*)hi, (const TV*)vectors, (const int16_t*)attrs,         \
       (const int*)ids, (const float*)aux, (float*)out_vals, (int*)out_ids,   \
-      (int*)out_npass, qb, d, vpad, m, f, k
+      (int*)out_npass, qb, d, vpad, m, f, k, l2
 
 constexpr size_t SMEM_MAX = 227 * 1024;
 
@@ -1229,9 +1556,9 @@ inline int list_slots(int k) {
 
 // k > 256: one CTA per (slot, query row), the cluster sorted in shared
 // memory.
-template <typename TQ, typename TV, int MODE>
+template <typename TQ, typename TV>
 cudaError_t launch_sort(FS_PARAMS) {
-  auto kernel = sortk::scan_sort_kernel<TQ, TV, MODE>;
+  auto kernel = sortk::scan_sort_kernel<TQ, TV>;
   int p = 1;
   while (p < vpad) p <<= 1;
   const size_t smem = sortk::smem_bytes(p, d, m, f);
@@ -1243,9 +1570,9 @@ cudaError_t launch_sort(FS_PARAMS) {
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TV, int MODE, int R>
+template <typename TQ, typename TV, int R>
 cudaError_t launch_fma_r(FS_PARAMS) {
-  auto kernel = ffma::scan_fma_kernel<TQ, TV, MODE, R>;
+  auto kernel = ffma::scan_fma_kernel<TQ, TV, R>;
   const size_t smem = ffma::smem_bytes(m, f);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(kernel, smem);
@@ -1258,22 +1585,22 @@ cudaError_t launch_fma_r(FS_PARAMS) {
 #define FS_FWD                                                              \
   n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters, queries,   \
       lo, hi, vectors, attrs, ids, aux, out_vals, out_ids, out_npass, qb, d, \
-      vpad, m, f, k, stream
+      vpad, m, f, k, l2, stream
 
-template <typename TQ, typename TV, int MODE>
+template <typename TQ, typename TV>
 cudaError_t launch_fma(FS_PARAMS) {
-  if (k > 32 * MAX_R) return launch_sort<TQ, TV, MODE>(FS_FWD);
+  if (k > 32 * MAX_R) return launch_sort<TQ, TV>(FS_FWD);
   switch (list_slots(k)) {
-    case 1: return launch_fma_r<TQ, TV, MODE, 1>(FS_FWD);
-    case 2: return launch_fma_r<TQ, TV, MODE, 2>(FS_FWD);
-    case 4: return launch_fma_r<TQ, TV, MODE, 4>(FS_FWD);
-    default: return launch_fma_r<TQ, TV, MODE, 8>(FS_FWD);
+    case 1: return launch_fma_r<TQ, TV, 1>(FS_FWD);
+    case 2: return launch_fma_r<TQ, TV, 2>(FS_FWD);
+    case 4: return launch_fma_r<TQ, TV, 4>(FS_FWD);
+    default: return launch_fma_r<TQ, TV, 8>(FS_FWD);
   }
 }
 
-template <typename TQ, typename TV, int MODE, int R>
+template <typename TQ, typename TV, int R>
 cudaError_t launch_tc_r(FS_PARAMS, bool vec) {
-  auto kernel = tc::scan_tc_kernel<TQ, TV, MODE, R>;
+  auto kernel = tc::scan_tc_kernel<TQ, TV, R>;
   const size_t smem = tc::layout<TQ, TV>(d, m, f).total;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1292,18 +1619,18 @@ bool tc_fits(int d, int m, int f) {
 // A dtype pair: the tensor-core body where it fits (k <= 256), else the FMA
 // or sort body; the choice rests on the shapes alone.  vec: 16-byte copies,
 // where rows and operands are 16-byte aligned.
-template <typename TQ, typename TV, int MODE>
+template <typename TQ, typename TV>
 cudaError_t launch_pair(FS_PARAMS) {
   if (!tc_fits<TQ, TV>(d, m, f) || k > 32 * MAX_R)
-    return launch_fma<TQ, TV, MODE>(FS_FWD);
+    return launch_fma<TQ, TV>(FS_FWD);
   const bool vec = d % (16 / sizeof(TV)) == 0 &&
                    (uintptr_t)queries % 16 == 0 &&
                    (uintptr_t)vectors % 16 == 0;
   switch (list_slots(k)) {
-    case 1: return launch_tc_r<TQ, TV, MODE, 1>(FS_FWD, vec);
-    case 2: return launch_tc_r<TQ, TV, MODE, 2>(FS_FWD, vec);
-    case 4: return launch_tc_r<TQ, TV, MODE, 4>(FS_FWD, vec);
-    default: return launch_tc_r<TQ, TV, MODE, 8>(FS_FWD, vec);
+    case 1: return launch_tc_r<TQ, TV, 1>(FS_FWD, vec);
+    case 2: return launch_tc_r<TQ, TV, 2>(FS_FWD, vec);
+    case 4: return launch_tc_r<TQ, TV, 4>(FS_FWD, vec);
+    default: return launch_tc_r<TQ, TV, 8>(FS_FWD, vec);
   }
 }
 
@@ -1328,24 +1655,20 @@ extern "C" int filtered_scan_tiled_body(int d, int m, int f, int mode,
 #define FS_ARGS                                                               \
   n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters, queries, lo, \
       hi, vectors, attrs, ids, aux, out_vals, out_ids, out_npass, qb, d,      \
-      vpad, m, f, k, (cudaStream_t)stream
-// Returns LAUNCH<TQ, TV, MODE>(FS_ARGS) for the operands' pair: bf16 or f32
-// queries against bf16 vectors (f32: the sharded search), f32 x f32, SQ8.
-#define FS_DISPATCH(LAUNCH)                                         \
-  if (mode == kDot && q_dtype == kBF16 && v_dtype == kBF16)         \
-    return LAUNCH<__nv_bfloat16, __nv_bfloat16, kDot>(FS_ARGS);     \
-  if (mode == kDot && q_dtype == kF32 && v_dtype == kBF16)          \
-    return LAUNCH<float, __nv_bfloat16, kDot>(FS_ARGS);             \
-  if (mode == kL2 && q_dtype == kBF16 && v_dtype == kBF16)          \
-    return LAUNCH<__nv_bfloat16, __nv_bfloat16, kL2>(FS_ARGS);      \
-  if (mode == kL2 && q_dtype == kF32 && v_dtype == kBF16)           \
-    return LAUNCH<float, __nv_bfloat16, kL2>(FS_ARGS);              \
-  if (mode == kDot && q_dtype == kF32 && v_dtype == kF32)           \
-    return LAUNCH<float, float, kDot>(FS_ARGS);                     \
-  if (mode == kL2 && q_dtype == kF32 && v_dtype == kF32)            \
-    return LAUNCH<float, float, kL2>(FS_ARGS);                      \
-  if (mode == kSq8 && q_dtype == kF32 && v_dtype == kI8)            \
-    return LAUNCH<float, int8_t, kSq8>(FS_ARGS);                    \
+      vpad, m, f, k, mode == kL2, (cudaStream_t)stream
+// Returns LAUNCH<TQ, TV>(FS_ARGS) for the operands' pair: bf16 or f32
+// queries against bf16 vectors (f32: the sharded search) and f32 x f32, dot
+// or l2 (a run-time flag), and SQ8 (f32 queries against int8 rows, dot).
+#define FS_DISPATCH(LAUNCH)                                                \
+  const bool dot_l2 = mode == kDot || mode == kL2;                         \
+  if (dot_l2 && q_dtype == kBF16 && v_dtype == kBF16)                      \
+    return LAUNCH<__nv_bfloat16, __nv_bfloat16>(FS_ARGS);                  \
+  if (dot_l2 && q_dtype == kF32 && v_dtype == kBF16)                       \
+    return LAUNCH<float, __nv_bfloat16>(FS_ARGS);                          \
+  if (dot_l2 && q_dtype == kF32 && v_dtype == kF32)                        \
+    return LAUNCH<float, float>(FS_ARGS);                                  \
+  if (mode == kSq8 && q_dtype == kF32 && v_dtype == kI8)                   \
+    return LAUNCH<float, int8_t>(FS_ARGS);                                 \
   return cudaErrorInvalidValue
 
 // Plain C entry point (bound with ctypes).  n_unique may be null (every

@@ -40,9 +40,11 @@ SOURCE = build.KERNELS_DIR / "filtered_scan" / "csrc" / "filtered_scan_tiled.cu"
 PER_PROBE_SOURCE = build.KERNELS_DIR / "filtered_scan" / "csrc" / "filtered_scan.cu"
 
 # Kernel launches in this process; each wrapper adds one per launch of its
-# kernel: LAUNCHES for filtered_scan_tiled, PER_PROBE_LAUNCHES for
+# kernel: LAUNCHES for filtered_scan_tiled (LAUNCHES_WIDE too where k > 32,
+# a list of more than one register slot a lane), PER_PROBE_LAUNCHES for
 # filtered_scan.
 LAUNCHES = 0
+LAUNCHES_WIDE = 0
 PER_PROBE_LAUNCHES = 0
 
 _MODES = {"dot": 0, "l2": 1, "sq8": 2}
@@ -76,7 +78,7 @@ def tiled_body(d: int, m: int, f: int, metric: str, q_dtype: torch.dtype,
     three bf16 terms against bf16 vectors, against f32 vectors split so too
     (six products) or against SQ8 int8 vectors widened to bf16) wherever M
     <= 16 and its shared memory fits, else "fma" (the first design's f32
-    FMA body: M > 16, or bf16 queries at D > ~1000).  The choice rests on
+    FMA body: M > 16, or bf16 queries at D > 832).  The choice rests on
     the shapes alone; k > 256 takes the sort body either way.  Builds the
     kernel."""
     fn = _bind(SOURCE, "filtered_scan_tiled_body", [_CI] * 6)
@@ -231,12 +233,13 @@ def launch_tiled(slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
     """The tiled op's CUDA implementation, callable without the dispatcher
     (so that the op's call overhead can be timed beside it): one build
     (cached) and one launch, counted."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_WIDE
     out, launched = _launch(_entry("filtered_scan_tiled_launch"),
                             slot_cluster, slot_tile, n_unique, queries, lo,
                             hi, vectors, attrs, ids, norms, scales, metric, k,
                             q_block)
     LAUNCHES += launched
+    LAUNCHES_WIDE += launched and k > 32
     return out
 
 

@@ -3,8 +3,9 @@
 The CPU paths of :func:`repro_torch.kernels.filtered_scan.filtered_scan.
 filtered_scan_tiled` and :func:`~repro_torch.kernels.filtered_scan.
 filtered_scan.filtered_scan`, and what the CUDA kernels are held against on
-the card; and :func:`split_scan_ref`, the tiled tensor-core body's split
-arithmetic in plain PyTorch, which only the tests call.
+the card; and, which only the tests call, :func:`split_scan_ref`, the
+tiled tensor-core body's split arithmetic in plain PyTorch, and
+:func:`tiled_select_ref`, the CUDA kernel's streaming selection step by step.
 """
 
 from __future__ import annotations
@@ -115,9 +116,177 @@ def filtered_scan_tiled_ref(
     Works ``chunk`` live slots at a time, so it never holds more than one
     chunk's ``[chunk, Vpad, D]`` gather.
     """
-    return _tiled(lambda q, v: torch.bmm(q.float(), v.float().transpose(1, 2)),
-                  slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
-                  attrs, ids, norms, scales, metric, k, q_block, chunk)
+    return _tiled(_f32_dots, slot_cluster, slot_tile, n_unique, queries, lo,
+                  hi, vectors, attrs, ids, norms, scales, metric, k, q_block,
+                  chunk)
+
+
+def _f32_dots(q, v):
+    return torch.bmm(q.float(), v.float().transpose(1, 2))
+
+
+# The CUDA kernel's selection (csrc/filtered_scan_tiled.cu), for k <= 256.
+SELECT_CHUNK = 128  # candidates a chunk: the tensor-core body's VT
+PAD_POS = 0x7FFFFFFF  # a pad entry's position: after every row
+
+
+def _before(va, pa, vb, pb):
+    """(va, pa) before (vb, pb): value descending, then position ascending."""
+    return (va > vb) | ((va == vb) & (pa < pb))
+
+
+def _exchange(v, p, j, first):
+    """One compare-exchange step over the last axis: entry e against entry
+    e ^ j, keeping the earlier of the two where ``first`` [..., E] holds,
+    else the later (the kernel's ``cx_lane`` and ``cx_slot``)."""
+    e = torch.arange(v.shape[-1], device=v.device)
+    ov, op = v[..., e ^ j], p[..., e ^ j]
+    take = first == _before(ov, op, v, p)
+    return torch.where(take, ov, v), torch.where(take, op, p)
+
+
+def _sort_best_first(v, p):
+    """The kernel's ``warp_sort``: a bitonic network over the last axis (a
+    power of two), best first."""
+    n = v.shape[-1]
+    e = torch.arange(n, device=v.device)
+    kk = 2
+    while kk <= n:
+        j = kk >> 1
+        while j > 0:
+            v, p = _exchange(v, p, j, ((e & j) == 0) == ((e & kk) == 0))
+            j >>= 1
+        kk <<= 1
+    return v, p
+
+
+def _sort_tail_worst_first(b, bp, nbp):
+    """``merge_batch``'s batch sort: the top ``nbp`` of 32 lanes sorted
+    worst first (a bitonic network of ``nbp`` entries; pads below)."""
+    lane = torch.arange(32, device=b.device)
+    kk = 2
+    while kk <= nbp:
+        j = kk >> 1
+        while j > 0:
+            worst_first = (kk == nbp) | ((lane & kk) == 0)
+            b, bp = _exchange(b, bp, j, ((lane & j) == 0) != worst_first)
+            j >>= 1
+        kk <<= 1
+    return b, bp
+
+
+def _merge_batch(lv, lp, b, bp, nbp):
+    """``merge_batch``: a sorted batch (32 lanes) into lists [N, R, 32]
+    (slot, lane) kept best first; the slots no exchange touched skip their
+    lane steps, row by row."""
+    b, bp = _sort_tail_worst_first(b, bp, nbp)
+    r = lv.shape[1]
+    take = _before(b, bp, lv[:, -1], lp[:, -1])
+    lv, lp = lv.clone(), lp.clone()
+    lv[:, -1] = torch.where(take, b, lv[:, -1])
+    lp[:, -1] = torch.where(take, bp, lp[:, -1])
+    dirty = torch.zeros(lv.shape[:2], dtype=torch.bool, device=lv.device)
+    dirty[:, -1] = True
+    js = r // 2
+    while js > 0:
+        for s in range(r):
+            if s & js:
+                continue
+            t = s + js
+            act = dirty[:, s] | dirty[:, t]
+            sw = _before(lv[:, t], lp[:, t], lv[:, s], lp[:, s]) & act[:, None]
+            a_v, a_p = lv[:, s].clone(), lp[:, s].clone()
+            lv[:, s] = torch.where(sw, lv[:, t], lv[:, s])
+            lp[:, s] = torch.where(sw, lp[:, t], lp[:, s])
+            lv[:, t] = torch.where(sw, a_v, lv[:, t])
+            lp[:, t] = torch.where(sw, a_p, lp[:, t])
+            any_sw = sw.any(-1)
+            dirty[:, s] |= any_sw
+            dirty[:, t] |= any_sw
+        js >>= 1
+    lane = torch.arange(32, device=lv.device)
+    for s in range(r):
+        d = dirty[:, s, None]
+        v, p = lv[:, s], lp[:, s]
+        j = 16
+        while j > 0:
+            nv, np_ = _exchange(v, p, j, (lane & j) == 0)
+            v, p = torch.where(d, nv, v), torch.where(d, np_, p)
+            j >>= 1
+        lv[:, s], lp[:, s] = v, p
+    return lv, lp
+
+
+def chunked_topk(scores: torch.Tensor, k: int):
+    """The CUDA kernel's streaming top-k of ``scores`` [..., V] (masked,
+    NEG_INF where the filter or liveness fails), step by step: 128-row
+    chunks in position order; the first sorted whole into each row's list
+    (32·R entries, R = 1, 2, 4 or 8) where more than 32 of its candidates
+    pass; from the next on (and in a first chunk with fewer), the
+    candidates strictly above the row's k-th compacted in position order
+    and merged 32 at a time (sorted worst first, the best 32 of them and the list's last
+    slot kept, a bitonic merge).  Returns (values [..., k], positions
+    [..., k] int64), best first by (value descending, position ascending):
+    :func:`~repro_torch.core.topk.top_k`'s order.  k <= min(256, V).  The
+    kernel folds this way from two slots a lane on (k > 32); at one slot it
+    inserts one candidate at a time, which gives the same lists."""
+    v_len = scores.shape[-1]
+    if not 1 <= k <= min(256, v_len):
+        raise ValueError(f"k={k}: the streaming selection takes 1..256, <= V")
+    r = 1 if k <= 32 else 2 if k <= 64 else 4 if k <= 128 else 8
+    lead = scores.shape[:-1]
+    x = scores.reshape(-1, v_len).float()
+    n, dev = x.shape[0], x.device
+    nch = -(-v_len // SELECT_CHUNK)
+    x = torch.cat([x, torch.full((n, nch * SELECT_CHUNK - v_len), NEG_INF,
+                                 device=dev)], -1)
+    cols = torch.arange(SELECT_CHUNK, device=dev)
+    # a first chunk with more than 32 candidates passing is sorted whole;
+    # one with fewer is folded as any other chunk (into the pads)
+    whole = (x[:, :SELECT_CHUNK] > NEG_INF).sum(-1) > 32
+    v0, p0 = _sort_best_first(x[:, :SELECT_CHUNK],
+                              cols.expand(n, SELECT_CHUNK).clone())
+    lv = torch.full((n, 32 * r), NEG_INF, device=dev)
+    lp = torch.full((n, 32 * r), PAD_POS, dtype=torch.int64, device=dev)
+    keep = min(32 * r, SELECT_CHUNK)
+    lv[:, :keep] = torch.where(whole[:, None], v0[:, :keep], NEG_INF)
+    lp[:, :keep] = torch.where(whole[:, None], p0[:, :keep], PAD_POS)
+    lv, lp = lv.reshape(n, r, 32), lp.reshape(n, r, 32)
+    lane = torch.arange(32, device=dev)
+    for ch in range(nch):
+        cand = x[:, ch * SELECT_CHUNK:(ch + 1) * SELECT_CHUNK]
+        kth = lv.reshape(n, -1)[:, k - 1]
+        sel = cand > kth[:, None]
+        if ch == 0:
+            sel &= ~whole[:, None]
+        cnt = sel.sum(-1)
+        # the survivors' columns in column order, then the rest
+        order = torch.sort(torch.where(sel, cols, SELECT_CHUNK + cols), -1
+                           ).values.clamp(max=SELECT_CHUNK - 1)
+        for b0 in range(0, int(cnt.max()), 32):
+            nb = (cnt - b0).clamp(0, 32)
+            in_b = lane >= 32 - nb[:, None]  # the batch in the top lanes
+            c = torch.gather(order, 1, (b0 + 31 - lane).clamp(
+                max=SELECT_CHUNK - 1).expand(n, 32))
+            b = torch.where(in_b, torch.gather(cand, 1, c), NEG_INF)
+            bp = torch.where(in_b, ch * SELECT_CHUNK + c, PAD_POS)
+            nbp = 1
+            while nbp < int(nb.max()):
+                nbp <<= 1
+            lv, lp = _merge_batch(lv, lp, b, bp, nbp)
+    lv, lp = lv.reshape(n, -1)[:, :k], lp.reshape(n, -1)[:, :k]
+    return lv.reshape(*lead, k), lp.reshape(*lead, k)
+
+
+def tiled_select_ref(slot_cluster, slot_tile, n_unique, queries, lo, hi,
+                     vectors, attrs, ids, norms=None, scales=None, *,
+                     metric="dot", k=10, q_block=64, chunk=16):
+    """:func:`filtered_scan_tiled_ref` with the CUDA kernel's selection
+    (:func:`chunked_topk`) in place of a sort: the same arguments and
+    results, k <= 256.  Only the tests call it."""
+    return _tiled(_f32_dots, slot_cluster, slot_tile, n_unique, queries, lo,
+                  hi, vectors, attrs, ids, norms, scales, metric, k, q_block,
+                  chunk, select=chunked_topk)
 
 
 def bf16_terms(x: torch.Tensor, n: int) -> list:
@@ -178,9 +347,10 @@ def split_scan_ref(
 
 
 def _tiled(dots, slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
-           attrs, ids, norms, scales, metric, k, q_block, chunk):
+           attrs, ids, norms, scales, metric, k, q_block, chunk, select=top_k):
     """The tiled scan's contract around ``dots(q [c, QB, D], v [c, Vpad,
-    D]) -> [c, QB, Vpad]`` f32."""
+    D]) -> [c, QB, Vpad]`` f32 and ``select(scores, k) -> (values,
+    positions)``."""
     s = slot_cluster.shape[0]
     d = queries.shape[-1]
     dev = queries.device
@@ -207,8 +377,9 @@ def _tiled(dots, slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
         fmask = _dnf_mask(attrs[sc].int()[:, None], lot[st], hit[st])
         mask = fmask & (ids[sc] >= 0)[:, None, :]
         scores = torch.where(mask, scores, NEG_INF)
-        vals, idx = top_k(scores, kk)  # earliest row wins ties
-        row_ids = torch.gather(ids[sc][:, None, :].expand(scores.shape), -1, idx)
+        vals, idx = select(scores, kk)  # earliest row wins ties
+        row_ids = torch.gather(ids[sc][:, None, :].expand(scores.shape), -1,
+                               idx.clamp(max=scores.shape[-1] - 1))
         out_v[sl, :, :kk] = vals
         out_i[sl, :, :kk] = torch.where(vals > NEG_INF / 2, row_ids, -1).int()
         out_n[sl] = mask.sum(-1).int()

@@ -356,6 +356,93 @@ def test_kernel_any_k(cuda, variant, k):
         tfs.filtered_scan_tiled(*args, **{**kw, "k": 0})
 
 
+# the streaming selection on tie-heavy data: every list width's edge
+TIE_KS = [1, 10, 31, 32, 33, 64, 100, 128, 129, 256]
+TIE_PAIRS = ["dot-bf16", "l2-bf16", "dot-f32q-bf16v", "dot-f32", "sq8"]
+
+
+def _tie_case(variant, dev, k, seed=0, n_tiles=2, q_block=40, kc=4, vpad=288,
+              d=16, m=3, u_cap=3):
+    """Operands whose scores are small integers, exact on every body (rows
+    and queries in -2..2; SQ8 scales 1; l2 norms integers), so equal
+    scores abound: the kernel's lists must equal the plain version's bit
+    for bit, ties going to the earlier row.  Vpad is not a multiple of the
+    128-row chunk; query rows 0-3 of each tile pass a handful of rows (a
+    list of pads behind them), rows 4-7 about half, the rest every live
+    row; about 5% of the rows are dead."""
+    metric, vdt, quantized = VARIANTS[variant]
+    rng = np.random.default_rng(seed)
+    qpad, s = n_tiles * q_block, n_tiles * u_cap
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    lo = np.full((qpad, 1, m), -32768, np.int16)
+    hi = np.full((qpad, 1, m), 32767, np.int16)
+    for r0 in range(0, qpad, q_block):
+        lo[r0:r0 + 4, 0, 0], hi[r0:r0 + 4, 0, 0] = 0, 0
+        lo[r0:r0 + 4, 0, 1], hi[r0:r0 + 4, 0, 1] = 0, 2
+        lo[r0 + 4:r0 + 8, 0, 1], hi[r0 + 4:r0 + 8, 0, 1] = 0, 4
+    ids = rng.permutation(kc * vpad).astype(np.int32).reshape(kc, vpad)
+    ids[rng.random((kc, vpad)) < 0.05] = -1
+    vec = rng.integers(-2, 3, (kc, vpad, d)).astype(np.float32)
+    queries = t(rng.integers(-2, 3, (qpad, d)).astype(np.float32))
+    scales = norms = None
+    if quantized:
+        vectors = t(vec.astype(np.int8))
+        scales = t(np.ones((kc, vpad), np.float32))
+    elif vdt == "f32q-bf16v":
+        vectors = t(vec).to(torch.bfloat16)
+    else:
+        vectors, queries = t(vec).to(vdt), queries.to(vdt)
+    if metric == "l2":
+        norms = (vectors.float() ** 2).sum(-1).contiguous()
+    attrs = np.stack([rng.integers(0, 40, (kc, vpad)),
+                      rng.integers(0, 10, (kc, vpad)),
+                      rng.integers(0, 10, (kc, vpad))], -1).astype(np.int16)
+    args = (t(rng.integers(0, kc, s).astype(np.int32)),
+            t(np.repeat(np.arange(n_tiles, dtype=np.int32), u_cap)),
+            t(np.array([u_cap, u_cap - 1], np.int32)), queries, t(lo), t(hi),
+            vectors, t(attrs), t(ids), norms, scales)
+    return args, dict(metric=metric, k=k, q_block=q_block)
+
+
+def _assert_equal_lists(got, want):
+    """Values, ids and pass counts bit for bit, and the data holding what
+    the case needs: ties inside the lists, pads beside full lists."""
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    vals = want[0]
+    real = vals > NEG_INF / 2
+    if vals.shape[-1] > 1:
+        assert ((vals[..., 1:] == vals[..., :-1]) & real[..., 1:]).any()
+        assert (~real).any() and real.all(-1).any()
+
+
+@pytest.mark.parametrize("k", TIE_KS)
+@pytest.mark.parametrize("variant", TIE_PAIRS)
+def test_tiled_kernel_exact_ties(cuda, variant, k):
+    """The shipped body (tensor cores at these shapes) on every dtype pair
+    at every list width's edge: the plain version's lists bit for bit."""
+    args, kw = _tie_case(variant, cuda, k)
+    metric, vdt, quantized = VARIANTS[variant]
+    assert tfs.tiled_body(16, 3, 1, metric, args[3].dtype,
+                          args[6].dtype) == "tensor_cores"
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_equal_lists(got, filtered_scan_tiled_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("k", TIE_KS)
+@pytest.mark.parametrize("variant", TIE_PAIRS)
+def test_fma_body_exact_ties(cuda, variant, k):
+    """The FMA body through its own entry point on the same data."""
+    args, kw = _tie_case(variant, cuda, k)
+    got = tfs.launch_tiled_fma(*args, kw["metric"], k, kw["q_block"])
+    torch.cuda.synchronize()
+    _assert_equal_lists(got, filtered_scan_tiled_ref(*args, **kw))
+
+
 def _index(variant, dev):
     metric, vdt, quantized = VARIANTS[variant]
     rng = np.random.default_rng(0)
