@@ -184,7 +184,9 @@ Phases:
      operand sets: the engine's (bf16 queries) and the sharded tiled
      backend's (f32 queries against the bf16 index), and on the engine's
      at k = 1, 10, 32, 64, 100, 128 and 256 (K_SWEEP: every list width's
-     edge), each beside its bound; centroid_topk at T = n_probes and at
+     edge), each beside its bound (with ``--variants``, also its
+     compile-time variants, TILED_VARIANT_DEFINES: the MMA side alone, the
+     epilogue side alone, no fold, slot order); centroid_topk at T = n_probes and at
      T = 56 (the widest plan of ``t_max="auto"``), and timed at T = 8, 32,
      128 and K; the
      per-probe filtered_scan on the per-probe slot table of each mix, pads
@@ -344,6 +346,46 @@ TC_PAIRS = {"bf16 x bf16": "scan_tc_kernelI13__nv_bfloat16",
             "f32 x bf16": "scan_tc_kernelIf13__nv_bfloat16",
             "f32 x f32": "scan_tc_kernelIff",
             "f32 x int8 (SQ8)": "scan_tc_kernelIfa"}
+
+
+def ptxas_kernels(log):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from a
+    library's ``nvcc -Xptxas -v`` log, the tiled scan's kernels named by
+    body, dtype pair and list slots a lane (R)."""
+    out, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            body = next((b for b in ("tc", "fma", "sort", "order")
+                         if f"{'scan_' if b != 'order' else ''}{b}_kernel"
+                         in name), name)
+            args = re.split(r"_kernelI", name, maxsplit=1)[-1]
+            pair = next((p for code, p in (
+                ("13__nv_bfloat16", "bf16 x bf16"),
+                ("f13__nv_bfloat16", "f32 x bf16"), ("ff", "f32 x f32"),
+                ("fa", "f32 x int8")) if args.startswith(code)), "")
+            r = re.search(r"Li(\d+)EE", args)
+            cur = " ".join(x for x in (body, pair, f"R={r.group(1)}" if r
+                                       else "") if x)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)),) + spill
+            cur, spill = None, (0, 0)
+    return out
+
+
+def ptxas_line(log):
+    """The tensor-core body's registers and spill bytes (stores / loads),
+    kernel by kernel, as one log line."""
+    return "; ".join(f"{name} {r} regs, spills {st}/{ld}" for name, (r, st, ld)
+                     in sorted(ptxas_kernels(log).items())
+                     if name.startswith("tc "))
 
 
 def hmma_by_pair(sass):
@@ -648,6 +690,58 @@ def time_variants(fs_mod, tables):
                 + ", ".join(f"{mix} {t:.3f} ms" for mix, t in times.items()))
     finally:
         build._LIBS[fs_mod.PER_PROBE_SOURCE] = shipped
+
+
+# filtered_scan_tiled.cu's compile-time experiment switches, timed by
+# --variants beside the shipped build on phase 3's uniform operands: the
+# two sides of the tensor-core body apart, the kernel without its fold, and
+# in slot order.
+TILED_VARIANT_DEFINES = {
+    "(a) the MMA side alone": ("-DFS_SIDE=1",),
+    "(b) the epilogue side alone": ("-DFS_SIDE=2",),
+    "(c) without the fold": ("-DFS_SIDE=3",),
+    "(d) slot order": ("-DFS_SLOT_ORDER=1",),
+}
+TILED_VARIANT_KS = (1, K_TOP, 32, K_WIDE)
+
+
+def build_tiled_variants(fs_mod):
+    """Builds the TILED_VARIANT_DEFINES libraries of filtered_scan_tiled (one
+    nvcc each, all started together); returns {name: path}."""
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    paths = build.build_variants(fs_mod.SOURCE, TILED_VARIANT_DEFINES)
+    log(f"built {len(paths)} variants of filtered_scan_tiled in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return paths
+
+
+def time_tiled_variants(fs_mod, a, kw, paths, shipped_ms):
+    """Times each variant of ``paths`` (:func:`build_tiled_variants`) on the
+    tiled scan's operands ``a`` at every k of TILED_VARIANT_KS, beside the
+    shipped build's times ``shipped_ms`` ({k: ms}).  The variants are
+    launched through the wrapper with their library put in place of the
+    shipped one, which is restored after; their outputs are not checked
+    (some leave a part of the work out) and their launches are not in the
+    kernels line."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    shipped = build.load(fs_mod.SOURCE)
+    out = {"shipped": {k_: shipped_ms[k_] for k_ in TILED_VARIANT_KS}}
+    try:
+        for name, path in paths.items():
+            build._LIBS[fs_mod.SOURCE] = ctypes.CDLL(str(path))
+            out[name] = {k_: ms(lambda k_=k_: fs_mod.filtered_scan_tiled(
+                *a, **dict(kw, k=k_)), 10) for k_ in TILED_VARIANT_KS}
+    finally:
+        build._LIBS[fs_mod.SOURCE] = shipped
+    for name, times in out.items():
+        defs = " ".join(TILED_VARIANT_DEFINES.get(name, ()))
+        log(f"filtered_scan_tiled variant {name} {defs}: " + ", ".join(
+            f"k={k_} {t:.3f} ms" for k_, t in times.items()))
 
 
 def make_data(n, dev, gen):
@@ -5080,8 +5174,10 @@ def main(argv=None):
                    help="serve a separate index of this many vectors in "
                    "phase 3c (default: the phase-3 index)")
     p.add_argument("--variants", action="store_true",
-                   help="also time the per-probe filtered_scan's compile-time "
-                   "variants (FS_VARIANT_DEFINES) on each mix's slot table")
+                   help="also time the kernels' compile-time variants: the "
+                   "per-probe filtered_scan's (FS_VARIANT_DEFINES) on each "
+                   "mix's slot table, filtered_scan_tiled's "
+                   "(TILED_VARIANT_DEFINES) on the uniform plan")
     args = p.parse_args(argv)
 
     import torch
@@ -5145,6 +5241,7 @@ def main(argv=None):
             raise AssertionError("filtered_scan_tiled has no tensor-core "
                                  "instructions")
         if name == "filtered_scan_tiled":
+            log(f"filtered_scan_tiled ptxas: {ptxas_line(rep['log'])}")
             hmma = hmma_by_pair(sass)
             log("filtered_scan_tiled tensor-core body, HMMA by dtype pair: "
                 + json.dumps(hmma))
@@ -5589,11 +5686,16 @@ def main(argv=None):
                 plan.queries_pad, plan.lo_pad, plan.n_unique, plan.q_block,
                 index.vpad, k=k_)
         sweep.append(dict(k=k_, ms=k_ms, bound_ms=b_["bound_ms"],
-                          bound_by=b_["bound_by"], max_abs_err=err_))
+                          bound_by=b_["bound_by"], max_abs_err=err_,
+                          streamed_ms=b_["streamed_ms"]))
         log(f"filtered_scan_tiled full size, engine operands, k={k_}: kernel "
             f"{k_ms:.3f} ms, bound {b_['bound_ms']:.3f} ms ({b_['bound_by']})"
-            f", kernel / bound {k_ms / b_['bound_ms']:.2f}; matches the "
-            f"plain version, max |err| {err_:.3e}")
+            f", the slots stream {b_['streamed_ms']:.3f} ms, kernel / bound "
+            f"{k_ms / b_['bound_ms']:.2f}; matches the plain version, max "
+            f"|err| {err_:.3e}")
+    if args.variants:
+        time_tiled_variants(fs_mod, a, kw, build_tiled_variants(fs_mod),
+                            {r["k"]: r["ms"] for r in sweep})
     wide = next(r for r in sweep if r["k"] == K_WIDE)
     w_plain = ms(lambda: filtered_scan_tiled_ref(*a, **dict(kw, k=K_WIDE)), 3)
     log(f"filtered_scan_tiled full size, engine operands, k={K_WIDE}: plain "

@@ -44,6 +44,7 @@ from repro_torch.core import topk as topk_lib
 from repro_torch.core.blockstore import BlockSpec
 from repro_torch.core.hybrid import ATTR_MAX, ATTR_MIN, make_hybrid
 from repro_torch.core.update import quantize_rows
+from repro_torch.device import ieee_f32
 
 
 class DeltaOverflowError(RuntimeError):
@@ -150,7 +151,8 @@ def scan_snapshot(snap: DeltaSnapshot, queries, queries_pad, lo_pad, hi_pad,
     n = min(max(snap.n_rows, k), cap)
     q32 = queries_pad.float()
     v32 = snap.vectors[:n].float()
-    scores = q32 @ v32.T  # [Qpad, n]
+    with ieee_f32():
+        scores = q32 @ v32.T  # [Qpad, n]
     if snap.scales is not None:
         scores = scores * snap.scales[None, :n]
     if metric == "l2":

@@ -2,8 +2,9 @@
 the port of ``repro.core.kmeans``.
 
 The assignment step is an argmax over ``2 x·C^T - ||C||²`` (one f32
-``torch.matmul``; PyTorch keeps f32 products out of TF32 unless told
-otherwise, and nothing here tells it), the update step an ``index_add_``
+``torch.matmul``, held in full f32 by ``device.ieee_f32`` whatever the
+caller's matmul precision: TF32 would assign rows near a boundary to other
+centroids than the reference), the update step an ``index_add_``
 of the assigned rows and a ``bincount`` of the assignments.  On the card
 ``index_add_`` sums in no fixed order, so two runs may differ in the last
 bit of a centroid.
@@ -25,6 +26,8 @@ import dataclasses
 from typing import Iterable, Optional, Tuple
 
 import torch
+
+from repro_torch.device import ieee_f32
 
 # Rows per assignment chunk: bounds the [chunk, K] score intermediate and
 # the chunk's f32 copy.
@@ -60,7 +63,9 @@ def pairwise_neg_dist2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     [B, K] f32."""
     x = x.float()
     c = c.float()
-    return 2.0 * (x @ c.T) - torch.sum(c * c, dim=-1)[None, :]
+    with ieee_f32():
+        dots = x @ c.T
+    return 2.0 * dots - torch.sum(c * c, dim=-1)[None, :]
 
 
 def assign(x: torch.Tensor, centroids: torch.Tensor, *,

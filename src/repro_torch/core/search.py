@@ -23,6 +23,7 @@ import torch
 from repro_torch.core import topk as topk_lib
 from repro_torch.core.filters import FilterSpec, filter_mask
 from repro_torch.core.ivf import IVFFlatIndex, validity_mask
+from repro_torch.device import ieee_f32
 
 
 @dataclasses.dataclass
@@ -39,14 +40,16 @@ class SearchResult:
 def centroid_scores(centroids: torch.Tensor, counts: torch.Tensor,
                     queries: torch.Tensor, *, metric: str) -> torch.Tensor:
     """[Q, K] centroid scores with empty clusters (``counts == 0``) masked
-    to NEG_INF so the probe budget never lands on them."""
+    to NEG_INF so the probe budget never lands on them.  The product is
+    full f32 whatever the caller's matmul precision (:func:`ieee_f32`), so
+    the plan probes the reference's clusters."""
     q32 = queries.float()
+    with ieee_f32():
+        dots = q32 @ centroids.T
     if metric == "dot":
-        scores = q32 @ centroids.T
+        scores = dots
     else:
-        scores = 2.0 * (q32 @ centroids.T) - torch.sum(
-            centroids * centroids, -1
-        )[None, :]
+        scores = 2.0 * dots - torch.sum(centroids * centroids, -1)[None, :]
     return torch.where(counts[None, :] > 0, scores, topk_lib.NEG_INF)
 
 
@@ -76,7 +79,8 @@ def search_reference(index: IVFFlatIndex, queries: torch.Tensor,
     mask = valid & filter_mask(fspec, attr, query_idx=qidx)
 
     q32 = queries.float()
-    dots = torch.einsum("qd,qtvd->qtv", q32, vecs)
+    with ieee_f32():
+        dots = torch.einsum("qd,qtvd->qtv", q32, vecs)
     if index.scales is not None:  # SQ8: fold the per-vector scale into the dot
         dots = dots * index.scales[p]
     if index.spec.metric == "dot":
@@ -100,7 +104,8 @@ def brute_force(vectors: torch.Tensor, attrs: torch.Tensor,
     n = vectors.shape[0]
     q32 = queries.float()
     v32 = vectors.float()
-    dots = q32 @ v32.T  # [Q, N]
+    with ieee_f32():
+        dots = q32 @ v32.T  # [Q, N]
     if metric == "dot":
         scores = dots
     else:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.topk import top_k
+from repro_torch.device import ieee_f32
 
 
 def centroid_topk_ref(queries: torch.Tensor, centroids: torch.Tensor, *,
@@ -19,7 +20,8 @@ def centroid_topk_ref(queries: torch.Tensor, centroids: torch.Tensor, *,
     ties go to the lower centroid id."""
     q32 = queries.float()
     c32 = centroids.float()
-    scores = q32 @ c32.T
+    with ieee_f32():
+        scores = q32 @ c32.T
     if metric == "l2":
         scores = 2.0 * scores - torch.sum(c32 * c32, -1)[None, :]
     vals, ids = top_k(scores, t)

@@ -15,28 +15,49 @@
 // its f32 queries uncast, as the TPU kernel accepts).
 //
 // What bounds it on the H100.  Each live slot streams its cluster's rows
-// (Vpad*D values) and spends 2*QB*Vpad*D flops on them.  Slots are ordered
-// slot by slot, so where clusters outgrow the 50 MB L2 every slot reads
-// its own copy: the bytes streamed are live slots x Vpad x row bytes, above
-// the distinct clusters' bytes.  The design is the same for every dtype
-// pair:
+// (Vpad*D values) and spends 2*QB*Vpad*D flops on them; the least bytes are
+// the distinct clusters' (several query tiles probe one cluster).  The
+// design is the same for every dtype pair:
 //
 // - Tensor cores (scan_tc_kernel).  One CTA per (live slot, group of 64
 //   query rows) walks the cluster in chunks of 128 rows.  The score tile
 //   S = Q_tile . V_chunk^T (both operands K-major, a "TN" product) is
 //   mma.sync.m16n8k16 bf16 with f32 accumulators, each of 8 MMA warps 16
-//   query rows x 64 vector rows, operands read with ldmatrix from padded
-//   (conflict-free) shared memory.  mma.sync and not wgmma: the pairs below
-//   are bound by bytes, or near the ridge, at rates mma.sync reaches, and
-//   its fragment layouts are fixed and documented.
+//   query rows x 64 vector rows, operands read with ldmatrix (vector tiles
+//   in the TMA's swizzled layout, the resident query tile and the bf16
+//   planes of f32 and int8 rows in padded rows: no bank conflict either
+//   way).  mma.sync and not wgmma: the pairs below are bound by bytes, or
+//   near the ridge, at rates mma.sync reaches, and its fragment layouts
+//   are fixed and documented.
 // - Warp specialization.  The epilogue (mask and top-k fold) took as long
 //   as streaming the chunk, and stalled it.  So 8 more warps run it: the
 //   MMA warps hand each chunk's scores over in one shared tile (named
 //   barriers: full / free) and go on streaming and multiplying the next
-//   chunk while the epilogue warps mask and fold this one.
-// - Asynchronous copies.  Vector tiles of 128 rows flow through a 4-stage
-//   cp.async ring that runs across chunk edges, so three tiles are in
-//   flight while a tile is multiplied.
+//   chunk while the epilogue warps mask and fold this one.  The one tile
+//   ties the two sides: the kernel takes about the slower of them plus the
+//   hand-over's waits (chip_smoke.py --variants times each side alone).
+// - The TMA ring.  Vector tiles of 128 rows x 128 bytes (64 bytes of int8
+//   rows) and, for f32 queries, their 64-row query slices arrive by
+//   cp.async.bulk.tensor under 2-D tensor maps of [K*Vpad, D] and [Qpad, D]
+//   (SWIZZLE_128B, SWIZZLE_64B for int8 rows; out of range reads as zero),
+//   encoded on the host through the runtime's driver entry points
+//   (nothing new to link) and passed as __grid_constant__ parameters.  One MMA thread
+//   issues each tile; a full and an empty mbarrier a stage (complete_tx on
+//   full, an arrival from each MMA warp on empty) replace the first
+//   design's 256-thread cp.async issue and its block-wide bar.sync at
+//   every 64-deep k-step (12 a chunk at D = 768).  The ring runs across
+//   chunk edges, 5 stages deep for f32 vectors and 4 for the others
+//   (RING_STAGES); a depth chosen at run time cost more in index
+//   arithmetic and registers than its stages gave (PERF.md).  Rows
+//   that are not 16-byte aligned with a 16-byte multiple stride (the
+//   recsys D = 50 f32, the tests' D = 97 and 100, unaligned views) take
+//   scalar staging loads into the same swizzled layout, with a bar.sync a
+//   k-step.
+// - Cluster-major order.  order_kernel (same entry point, a scratch the
+//   wrapper allocates) sorts the slots by (cluster, slot), pads last, and
+//   CTA x takes the x-th: the query tiles that probe one cluster start
+//   together and L2 serves the repeats, where slot by slot each read its
+//   own copy from HBM.  Each CTA still writes its own slot's rows.
 //
 // The dtype pairs, each on that body (the error bounds are per product
 // q_i * v_i, before the f32 sums inside the tensor cores):
@@ -64,9 +85,8 @@
 //   3xTF32 would need TF32 MMAs at half the bf16 rate for the same
 //   accuracy.  Each vector tile is split once into bf16 planes in shared
 //   memory (to_planes), not at every fragment load: each row feeds 4 MMA
-//   warps.  The raw f32 tile, three planes and the f32 query slice fit 4
-//   stages only at 32-deep tiles (26 KB a stage, 181 KB in all at M=10,
-//   F=2); 64-deep tiles would leave 3 stages without room for the planes.
+//   warps.  The raw f32 tile and the f32 query slice take 24 KB a stage
+//   at 32-deep tiles; 64-deep tiles would not leave room for the planes.
 // - SQ8, f32 queries x int8 vectors (quantize_index).  int8 rows stage at
 //   a byte a value (64-deep tiles, 8 KB, 16-byte copies) and are widened to
 //   one bf16 plane once a tile, exactly (|v| <= 128 has 8 significant
@@ -117,37 +137,55 @@
 //   per touched slot whatever the number of candidates, and 2-4 rows fold
 //   in step (4 at R = 2, 2 at R = 4, 1 at R = 8: the R = 8 lists alone
 //   fill the 128 registers a thread and spill), so their latencies
-//   overlap.  At R = 1 (k <= 32) the inserts stay: on the card the bitonic
-//   fold was faster for bf16 at k = 10 and 32 but slower at k = 1, and
-//   with f32 queries it spilled and took 13% longer (PERF.md, PR 25).  The
-//   FMA body takes the same folds with the merge's steps as loops, not
-//   unrolled: less code to build for a body off the main path.  k > 256
-//   (up to Vpad) takes a third body, scan_sort_kernel: one CTA per (slot,
-//   query row) scores the whole cluster into shared memory and
-//   bitonic-sorts it by the same order.  It reads a cluster once per query
-//   row, so it is slow; no full-size path asks for k > 256.
+//   overlap.  At R = 1 (k <= 32) the same fold runs, 4 rows in step for
+//   every pair, and the first chunk is not sorted: its k-th is at least the
+//   k-th of the lanes' own maxima (kth_of_lanes: a 15-step sort of 32
+//   values, a 5-step maximum at k = 1), so only its passing candidates at
+//   or above that are folded, about k of them.  On the card this beat the
+//   first design's inserts at every k and dtype pair, and the fold adds no
+//   spill (PERF.md §6).  The FMA body takes the same folds with the
+//   merge's steps as loops, not unrolled: less code to build for a body off
+//   the main path.  k > 256 (up to Vpad) takes a third body,
+//   scan_sort_kernel: one CTA per (slot, query row) scores the whole
+//   cluster into shared memory and bitonic-sorts it by the same order.  It
+//   reads a cluster once per query row, so it is slow; no full-size path
+//   asks for k > 256.
 // - One kernel a dtype pair and list width: dot and l2 are a run-time flag
 //   (SQ8 is the int8 pair), which halves the instantiations and keeps the
 //   library's build near two minutes.
 // - Shared memory.  The survivor buffer takes 4 KB beside the ring, the
 //   resident query tile and the score tile: bf16 queries keep the
-//   tensor-core body up to D = 832 at M = 10, F = 1 (896 without it) and
-//   D = 768 at M = 16, F = 2 (832).
-// - D not a multiple of 16 bytes of a vector row (the recsys D = 50 f32,
-//   the tests' D = 97 and 100), or unaligned operands, take scalar staging
-//   loads into the same ring; Vpad and D are walked in whole tiles with
-//   the ragged edge zero-filled and masked.
+//   tensor-core body up to D = 896 at M = 10 and D = 832 at M = 16, F = 2.
+//   Vpad and D are walked in whole tiles with the ragged edge zero-filled
+//   and masked.
 //
 // The first design's f32 FMA body (scan_fma_kernel: 64x64 score tiles from
 // 64x32 staging slices, each thread a 4x4 micro-tile, the epilogue after
 // each tile) serves only the shapes the tensor-core body cannot take: more
 // than 16 attributes, or shared memory that does not fit (bf16 queries at
-// D > 832 at M = 10).  The choice rests on the shapes alone;
+// D > 896 at M = 10).  The choice rests on the shapes alone;
 // filtered_scan_tiled_fma_launch runs it on any pair, for comparison.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+// Compile-time experiment switches (off in the shipped build; chip_smoke.py
+// --variants times them on the engine's operands): -DFS_SIDE=1 runs the MMA
+// side alone (the epilogue frees each score tile at once and writes pads),
+// -DFS_SIDE=2 the epilogue side alone (the MMA warps hand over synthetic
+// scores, a hash of slot, query row and row, without streaming the
+// cluster), -DFS_SIDE=3 the whole kernel without its fold (mask, liveness
+// and pass counts kept); -DFS_SLOT_ORDER=1 launches the tensor-core body in
+// slot order, not cluster-major.
+#ifndef FS_SIDE
+#define FS_SIDE 0
+#endif
+#ifndef FS_SLOT_ORDER
+#define FS_SLOT_ORDER 0
+#endif
 
 namespace {
 
@@ -155,6 +193,7 @@ constexpr int QT = 64;   // query rows per CTA
 constexpr int NT = 256;  // FMA body threads; the tensor-core body has 2 x NT
 constexpr int RPW = QT / (NT / 32);  // query rows folded by each warp
 constexpr int MAX_R = 8;  // register slots a lane: k <= 256 in registers
+constexpr size_t SMEM_MAX = 227 * 1024;  // dynamic shared memory a CTA
 constexpr float NEG_INF = -3.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -268,6 +307,35 @@ __device__ __forceinline__ void batch_step(float (&b)[RB], int (&bp)[RB],
   for (int i = 0; i < RB; ++i) cx_lane(b[i], bp[i], j, first);
 }
 
+// The k-th largest (k <= 32) of the 32 lanes' values x[i], for RB rows in
+// step, in every lane: a bitonic sort of the lanes (values only, best
+// first), or a butterfly maximum where k = 1.
+template <int RB>
+__device__ __forceinline__ void kth_of_lanes(float (&x)[RB], int k,
+                                             int lane) {
+  if (k == 1) {
+#pragma unroll
+    for (int j = 16; j > 0; j >>= 1)
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+        x[i] = fmaxf(x[i], __shfl_xor_sync(FULL, x[i], j));
+    return;
+  }
+#pragma unroll
+  for (int kk = 2; kk <= 32; kk <<= 1)
+#pragma unroll
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+      const bool keep_max = ((lane & j) == 0) == ((lane & kk) == 0);
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        const float o = __shfl_xor_sync(FULL, x[i], j);
+        x[i] = keep_max ? fmaxf(x[i], o) : fminf(x[i], o);
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < RB; ++i) x[i] = __shfl_sync(FULL, x[i], k - 1);
+}
+
 // Merges each of RB rows' batch (b, bp): at most 32 entries a row in the
 // top nbp lanes (a power of two; pads elsewhere), into the rows' lists
 // lv[i0 + i] (32*R entries, best first), keeping the best 32*R.  The batch
@@ -349,9 +417,13 @@ __device__ __forceinline__ void merge_batch(float (&lv)[RPW][R],
 // and prefix popcount, in column order) and folded 32 at a time by
 // merge_batch, the rows' batches in step.  Strictly above, and after equal
 // entries: the earlier row wins a tie, as one insert at a time would.
-// `first`: the lists are still empty pads; where a row of the group has
-// more than 32 candidates passing, the chunk sorted whole becomes the
-// lists instead (a filtered chunk with fewer is one fold).
+// `first`: the lists are still empty pads.  With more than one slot a
+// lane, where a row of the group has more than 32 candidates passing, the
+// chunk sorted whole becomes the lists instead (a filtered chunk with
+// fewer is one fold).  With one slot (k <= 32) the chunk's k-th is at
+// least the k-th of the lanes' own maxima (those are k candidates), so
+// only the passing candidates at or above that are folded: about k of
+// them, where the sort would cost the whole chunk's network.
 template <int R, int RB, int NH, bool UNROLL, typename Value>
 __device__ __forceinline__ void select_chunk(float (&lv)[RPW][R],
                                              int (&lp)[RPW][R], int i0,
@@ -360,35 +432,49 @@ __device__ __forceinline__ void select_chunk(float (&lv)[RPW][R],
                                              unsigned char* buf, int lane,
                                              Value value) {
   constexpr int NC = 32 * NH;
-  if (first) {
-    int n_pass = 0;  // the most candidates passing in a row of the group
+  float floor_[RB];  // R = 1, first chunk: fold the candidates >= floor_
+  if constexpr (R == 1) {
+    if (first) {
 #pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      int c = 0;
+      for (int i = 0; i < RB; ++i) {
+        floor_[i] = cand[i][0];
 #pragma unroll
-      for (int h = 0; h < NH; ++h)
-        c += __popc(__ballot_sync(FULL, cand[i][h] > NEG_INF));
-      n_pass = max(n_pass, c);
+        for (int h = 1; h < NH; ++h) floor_[i] = fmaxf(floor_[i], cand[i][h]);
+      }
+      kth_of_lanes<RB>(floor_, k, lane);
     }
-    if (n_pass > 32) {  // sorted whole, it becomes the lists
-      float v[RB][NH];
-      int p[RB][NH];
+  }
+  if constexpr (R > 1) {
+    if (first) {
+      int n_pass = 0;  // the most candidates passing in a row of the group
 #pragma unroll
-      for (int i = 0; i < RB; ++i)
+      for (int i = 0; i < RB; ++i) {
+        int c = 0;
 #pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          v[i][h] = cand[i][h];
-          p[i][h] = pos0 + 32 * h + lane;
-        }
-      warp_sort<RB, NH>(v, p, lane);
+        for (int h = 0; h < NH; ++h)
+          c += __popc(__ballot_sync(FULL, cand[i][h] > NEG_INF));
+        n_pass = max(n_pass, c);
+      }
+      if (n_pass > 32) {  // sorted whole, it becomes the lists
+        float v[RB][NH];
+        int p[RB][NH];
 #pragma unroll
-      for (int i = 0; i < RB; ++i)
+        for (int i = 0; i < RB; ++i)
 #pragma unroll
-        for (int s = 0; s < R; ++s) {
-          lv[i0 + i][s] = s < NH ? v[i][s < NH ? s : 0] : NEG_INF;
-          lp[i0 + i][s] = s < NH ? p[i][s < NH ? s : 0] : PAD_POS;
-        }
-      return;
+          for (int h = 0; h < NH; ++h) {
+            v[i][h] = cand[i][h];
+            p[i][h] = pos0 + 32 * h + lane;
+          }
+        warp_sort<RB, NH>(v, p, lane);
+#pragma unroll
+        for (int i = 0; i < RB; ++i)
+#pragma unroll
+          for (int s = 0; s < R; ++s) {
+            lv[i0 + i][s] = s < NH ? v[i][s < NH ? s : 0] : NEG_INF;
+            lp[i0 + i][s] = s < NH ? p[i][s < NH ? s : 0] : PAD_POS;
+          }
+        return;
+      }
     }
   }
   const unsigned below = (1u << lane) - 1u;
@@ -399,7 +485,10 @@ __device__ __forceinline__ void select_chunk(float (&lv)[RPW][R],
     int base = 0;
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
-      const unsigned sel = __ballot_sync(FULL, cand[i][h] > kth);
+      bool in = cand[i][h] > kth;
+      if constexpr (R == 1)
+        if (first) in = in && cand[i][h] >= floor_[i];
+      const unsigned sel = __ballot_sync(FULL, in);
       if (sel >> lane & 1)
         buf[i * NC + base + __popc(sel & below)] =
             (unsigned char)(32 * h + lane);
@@ -426,100 +515,6 @@ __device__ __forceinline__ void select_chunk(float (&lv)[RPW][R],
     merge_batch<R, RB, UNROLL>(lv, lp, i0, b, bp, nbp, lane);
   }
   __syncwarp();  // buf is refilled by the next rows
-}
-
-// k <= 32, one slot a lane: the candidates above the running k-th are
-// inserted one at a time, each after the entries >= it (ranks p+1 .. k-1
-// take the rank below them); a no-op where `ins` is false, so several rows'
-// insert chains run in step and their shuffle latencies overlap.
-__device__ __forceinline__ void insert_if(float& lv, int& lp, float cv, int cp,
-                                          int lane, int k, bool ins) {
-  const int p = __popc(__ballot_sync(FULL, lane < k && lv >= cv));
-  const float up_v = __shfl_up_sync(FULL, lv, 1);
-  const int up_p = __shfl_up_sync(FULL, lp, 1);
-  const bool shift = ins && lane < k && lane > p;
-  const bool put = ins && lane == p;
-  lv = shift ? up_v : put ? cv : lv;
-  lp = shift ? up_p : put ? cp : lp;
-}
-
-// The RB rows' inserts of one chunk, in step: a row drops the candidates
-// that no longer beat its k-th after each step.
-template <int RB, int NH>
-__device__ __forceinline__ void insert_steps(float (&lv)[RPW][1],
-                                             int (&lp)[RPW][1], int i0,
-                                             const float (&cand)[RB][NH],
-                                             float (&kth)[RB],
-                                             unsigned (&sel)[RB][NH],
-                                             int pos0, int k, int lane) {
-  while (true) {
-    bool more = false;
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      int h = NH;
-      unsigned w = 0;
-#pragma unroll
-      for (int j = NH - 1; j >= 0; --j)
-        if (sel[i][j]) {
-          h = j;
-          w = sel[i][j];
-        }
-      more |= h < NH;  // uniform over the warp
-      float ch = cand[i][0];
-#pragma unroll
-      for (int j = 1; j < NH; ++j) ch = h == j ? cand[i][j] : ch;
-      const int src = (__ffs(w) - 1) & 31;
-      const float cv = __shfl_sync(FULL, ch, src);
-      const bool ins = w != 0 && cv > kth[i];
-      insert_if(lv[i0 + i][0], lp[i0 + i][0], cv, pos0 + 32 * h + src, lane,
-                k, ins);
-      kth[i] = __shfl_sync(FULL, lv[i0 + i][0], k - 1);
-#pragma unroll
-      for (int j = 0; j < NH; ++j) {
-        if (j == h) sel[i][j] = w & (w - 1);
-        sel[i][j] &= __ballot_sync(FULL, cand[i][j] > kth[i]);
-      }
-    }
-    if (!more) break;
-  }
-}
-
-template <int RB, int NH>
-__device__ __forceinline__ void insert_chunk(float (&lv)[RPW][1],
-                                             int (&lp)[RPW][1], int i0,
-                                             const float (&cand)[RB][NH],
-                                             int pos0, int k, int lane) {
-  float kth[RB];
-  unsigned sel[RB][NH];
-#pragma unroll
-  for (int i = 0; i < RB; ++i) {
-    kth[i] = __shfl_sync(FULL, lv[i0 + i][0], k - 1);
-#pragma unroll
-    for (int h = 0; h < NH; ++h)
-      sel[i][h] = __ballot_sync(FULL, cand[i][h] > kth[i]);
-  }
-  insert_steps<RB, NH>(lv, lp, i0, cand, kth, sel, pos0, k, lane);
-}
-
-
-// Whether a list of R slots a lane folds by inserts (one slot: the card
-// found them faster there, PERF.md) or by select_chunk's sort and merge.
-template <int R>
-constexpr bool INSERTS = R == 1;
-
-// Folds one chunk into RB rows' lists (the FMA body).
-template <int R, int RB, int NH, typename Value>
-__device__ __forceinline__ void fold_chunk(float (&lv)[RPW][R],
-                                           int (&lp)[RPW][R], int i0,
-                                           const float (&cand)[RB][NH],
-                                           bool first, int pos0, int k,
-                                           unsigned char* buf, int lane,
-                                           Value value) {
-  if constexpr (INSERTS<R>)
-    insert_chunk<RB, NH>(lv, lp, i0, cand, pos0, k, lane);
-  else
-    select_chunk<R, RB, NH, false>(lv, lp, i0, cand, first, pos0, k, buf,
-                                   lane, value);
 }
 
 // Writes a warp's k-list to out[0, k): values, and the ids of the rows at
@@ -550,7 +545,9 @@ __device__ __forceinline__ void init_list(float (&lv)[R], int (&lp)[R]) {
   }
 }
 
-// Rows selected at once: fewer as the lists grow, to bound the registers.
+// Rows selected at once: fewer as the lists grow, to bound the registers
+// (4 at one slot for every dtype pair: 2 was slower, and spilled more with
+// f32 x f32; PERF.md).
 template <int R>
 constexpr int ROWS_AT_ONCE = R <= 2 ? 4 : R == 4 ? 2 : 1;
 
@@ -749,7 +746,7 @@ __global__ void __launch_bounds__(NT, R == 8 ? 1 : 2) scan_fma_kernel(
         for (int h = 0; h < VT / 32; ++h)
           cand[i][h] = r < nq ? ss[r * (VT + 1) + h * 32 + lane] : NEG_INF;
       }
-      fold_chunk<R, RB, VT / 32>(
+      select_chunk<R, RB, VT / 32, false>(
           lv, lp, i0, cand, v0 == 0, v0, k, sel_w, lane,
           [&](int ii, int c) {
             return ss[(warp + (NT / 32) * ii) * (VT + 1) + c];
@@ -779,32 +776,56 @@ __global__ void __launch_bounds__(NT, R == 8 ? 1 : 2) scan_fma_kernel(
 namespace tc {
 
 constexpr int VT = 128;      // cluster rows per chunk
-constexpr int STAGES = 4;    // ring depth: STAGES - 1 tiles in flight
 constexpr int SLD = VT + 8;  // f32 row stride of the score tile
 constexpr int MAX_M = 16;    // attributes per row the epilogue stages
 constexpr int MPT = VT * MAX_M / NT;  // attribute values staged per thread
 constexpr int SEL = (NT / 32) * 4 * VT;  // survivor columns: a warp's 4 rows
 
-// A ring tile for vectors of type TV.  bf16 rows are multiplied from the
-// tile itself (row stride BLD, padded for conflict-free ldmatrix).  f32 and
-// int8 rows land unpadded ("raw") and become TERMS bf16 planes of stride
-// BLD once per tile, which the MMA warps then read as they read a bf16
-// tile: f32 split into h, m, l (32-deep tiles, so that the ring, the
-// planes and the score tile fit), int8 widened exactly.
+// A ring tile for vectors of type TV: VT rows of KS values, dense rows of
+// ROWB bytes in the order the TMA's swizzle leaves them (16-byte chunk c of
+// row r at chunk c ^ (r & 7) of 128-byte rows, c ^ ((r >> 1) & 3) of
+// 64-byte ones), so that ldmatrix reads 8 rows without a bank conflict;
+// the scalar staging writes the same layout.  bf16 rows are multiplied
+// from the tile itself; f32 and int8 rows become TERMS bf16 planes of row
+// stride BLD (padded) once per tile, which the MMA warps then read: f32
+// split into h, m, l (32-deep tiles, so that the ring, the planes and the
+// score tile fit), int8 widened exactly.  f32 queries ride in each stage as
+// a QT x KS slice, in boxes of 32 values (128-byte rows, swizzled so too).
+// Ring depth (stages - 1 tiles in flight): 5 stages for f32 vectors (the
+// launcher's f32 x f32 ran 2% faster than with 4), 4 for the others (a
+// fifth cut the bf16 body's D range from 896 to 768, and against bf16 or
+// int8 rows with f32 queries it gained nothing; PERF.md).
+template <typename TV>
+constexpr int RING_STAGES = sizeof(TV) == 4 ? 5 : 4;
+
 template <typename TV>
 struct Ring {
   static constexpr bool BF16 = sizeof(TV) == 2;
   static constexpr int KS = sizeof(TV) == 4 ? 32 : 64;  // depth per tile
   static constexpr int TERMS = sizeof(TV) == 4 ? 3 : 1;  // bf16 terms a value
-  static constexpr int BLD = KS + 8;  // bf16 row stride of a tile or plane
-  static constexpr int FLD = KS + 8;  // f32 row stride of a query slice
-  static constexpr size_t RAW =
-      BF16 ? (size_t)VT * BLD * 2 : (size_t)VT * KS * sizeof(TV);
+  static constexpr int ROWB = KS * (int)sizeof(TV);  // 128, int8 64 bytes
+  static constexpr int BLD = KS + 8;  // bf16 row stride of a plane
+  static constexpr int QBOXES = KS / 32;  // f32 query boxes a stage
+  static constexpr size_t RAW = (size_t)VT * ROWB;
+  static constexpr size_t QBOX = (size_t)QT * 128;
   static constexpr size_t PLANES = BF16 ? 0 : (size_t)TERMS * VT * BLD * 2;
 };
 
-struct Layout {  // byte offsets into dynamic shared memory
-  size_t stage, a_res, planes, ss, idss, auxs, bnd, act, attrs, sel, total;
+// Byte offset of 16-byte chunk c of row r in a tile of ROWB-byte rows, as
+// the TMA's SWIZZLE_128B (SWIZZLE_64B for 64-byte rows) places it.
+template <int ROWB>
+__host__ __device__ __forceinline__ int swz(int r, int c) {
+  return r * ROWB + ((ROWB == 128 ? c ^ (r & 7) : c ^ ((r >> 1) & 3)) << 4);
+}
+
+// Byte offset of f32 query value (r, c) in a stage's query slice.
+__device__ __forceinline__ int qoff(int r, int c) {
+  return (c >> 5) * QT * 128 + swz<128>(r, (c & 31) >> 2) + (c & 3) * 4;
+}
+
+struct Layout {  // byte offsets from the 1024-aligned base
+  size_t stage, a_res, planes, ss, idss, auxs, bnd, act, attrs, sel, mbar,
+      total;
 };
 
 template <typename TQ, typename TV>
@@ -813,8 +834,8 @@ __host__ __device__ inline Layout layout(int d, int m, int f) {
   constexpr bool F32Q = sizeof(TQ) == 4;
   Layout L;
   const size_t dp = (size_t)(d + RG::KS - 1) / RG::KS * RG::KS;
-  L.stage = RG::RAW + (F32Q ? (size_t)QT * RG::FLD * 4 : 0);
-  L.a_res = STAGES * L.stage;  // resident bf16 query tile [QT][dp + 8]
+  L.stage = RG::RAW + (F32Q ? RG::QBOXES * RG::QBOX : 0);  // 1 KB multiples
+  L.a_res = RING_STAGES<TV> * L.stage;  // resident bf16 query tile
   L.planes = L.a_res + (F32Q ? 0 : (size_t)QT * (dp + 8) * 2);
   L.ss = L.planes + RG::PLANES;
   L.idss = L.ss + (size_t)QT * SLD * 4;
@@ -823,7 +844,8 @@ __host__ __device__ inline Layout layout(int d, int m, int f) {
   L.act = L.bnd + (size_t)QT * f * m * 4;
   L.attrs = L.act + (size_t)QT * f * 4;
   L.sel = L.attrs + ((size_t)VT * m * 2 + 15) / 16 * 16;
-  L.total = L.sel + SEL;
+  L.mbar = L.sel + SEL;  // the ring's full and empty barriers, a stage each
+  L.total = L.mbar + 2 * RING_STAGES<TV> * 8 + 1024;  // + base alignment
   return L;
 }
 
@@ -851,6 +873,49 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// The ring's mbarriers: full[s] completes when stage s's bytes have landed
+// (one arrival, the producer's, with the bytes it expects), empty[s] when
+// every MMA warp is done with it (one arrival a warp).
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(b)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+// Waits for the phase of parity `parity` of barrier b to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+// A 2-D box of tensor map `tm` at (c0 innermost, c1) into shared memory
+// `dst`, its bytes counted on barrier b.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm,
+                                         int c0, int c1, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1),
+      "r"(smem_u32(b))
+      : "memory");
 }
 __device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
   asm volatile(
@@ -911,59 +976,39 @@ __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-// Stages ring tile (v0, d0): VT x KS vector rows and, for f32 queries, the
-// QT x KS f32 query slice.  VEC: 16-byte cp.async (zero-filled past the
-// edge); else scalar loads and stores (ragged D or unaligned operands).
-template <typename TQ, typename TV, bool VEC>
-__device__ __forceinline__ void issue_tile(unsigned char* stage,
+// Stages ring tile (v0, d0) by scalar loads and stores (ragged D, unaligned
+// operands: the shapes the TMA cannot take) into the TMA's layout: VT x KS
+// vector rows and, for f32 queries, the QT x KS f32 query slice, zero past
+// the edges.
+template <typename TQ, typename TV>
+__device__ __forceinline__ void stage_tile(unsigned char* stage,
                                            const TV* vb, const TQ* qg, int nq,
                                            int vpad, int v0, int d0, int d,
                                            int tid) {
   using RG = Ring<TV>;
   constexpr int KS = RG::KS;
-  constexpr int LD = RG::BF16 ? RG::BLD : KS;  // row stride of the tile
-  constexpr int EPC = 16 / sizeof(TV);         // values a 16-byte copy
-  TV* vs = reinterpret_cast<TV*>(stage);
-  if constexpr (VEC) {
-#pragma unroll
-    for (int i = 0; i < VT * KS / EPC / NT; ++i) {
-      const int e = tid + NT * i, row = e / (KS / EPC);
-      const int c = e % (KS / EPC) * EPC;
-      const bool in = v0 + row < vpad && d0 + c < d;
-      cp16(vs + row * LD + c, in ? vb + (size_t)(v0 + row) * d + d0 + c : vb,
-           in);
-    }
-  } else {
+  constexpr int EPC = 16 / sizeof(TV);  // values a 16-byte chunk
 #pragma unroll 4
-    for (int i = 0; i < VT * KS / NT; ++i) {
-      const int e = tid + NT * i, row = e / KS, c = e % KS;
-      const bool in = v0 + row < vpad && d0 + c < d;
-      vs[row * LD + c] = in ? vb[(size_t)(v0 + row) * d + d0 + c] : zero<TV>();
-    }
+  for (int i = 0; i < VT * KS / NT; ++i) {
+    const int e = tid + NT * i, row = e / KS, c = e % KS;
+    const bool in = v0 + row < vpad && d0 + c < d;
+    *reinterpret_cast<TV*>(stage + swz<RG::ROWB>(row, c / EPC) +
+                           c % EPC * sizeof(TV)) =
+        in ? vb[(size_t)(v0 + row) * d + d0 + c] : zero<TV>();
   }
   if constexpr (sizeof(TQ) == 4) {
-    constexpr int FLD = RG::FLD;
-    float* fs = reinterpret_cast<float*>(stage + RG::RAW);
-    if constexpr (VEC) {
-#pragma unroll
-      for (int i = 0; i < QT * KS / 4 / NT; ++i) {
-        const int e = tid + NT * i, row = e / (KS / 4), c = e % (KS / 4) * 4;
-        const bool in = row < nq && d0 + c < d;
-        cp16(fs + row * FLD + c, in ? qg + (size_t)row * d + d0 + c : qg, in);
-      }
-    } else {
 #pragma unroll 4
-      for (int i = 0; i < QT * KS / NT; ++i) {
-        const int e = tid + NT * i, row = e / KS, c = e % KS;
-        const bool in = row < nq && d0 + c < d;
-        fs[row * FLD + c] = in ? qg[(size_t)row * d + d0 + c] : 0.f;
-      }
+    for (int i = 0; i < QT * KS / NT; ++i) {
+      const int e = tid + NT * i, row = e / KS, c = e % KS;
+      const bool in = row < nq && d0 + c < d;
+      *reinterpret_cast<float*>(stage + RG::RAW + qoff(row, c)) =
+          in ? qg[(size_t)row * d + d0 + c] : 0.f;
     }
   }
 }
 
-// The bf16 planes of a raw ring tile ([VT][KS] f32 or int8): f32 values
-// split into h, m, l (plane t at planes + t * VT * BLD), int8 values
+// The bf16 planes of a raw ring tile ([VT][KS] f32 or int8, swizzled): f32
+// values split into h, m, l (plane t at planes + t * VT * BLD), int8 values
 // widened.  Each value is read by the 4 MMA warps that share its rows, so
 // doing this once per tile, and not at every fragment load, saves 3/4 of
 // the ALU work.
@@ -971,13 +1016,13 @@ template <typename TV>
 __device__ __forceinline__ void to_planes(const unsigned char* raw,
                                           __nv_bfloat16* planes, int tid) {
   using RG = Ring<TV>;
-  constexpr int KS = RG::KS, BLD = RG::BLD;
+  constexpr int KS = RG::KS, BLD = RG::BLD, ROWB = RG::ROWB;
   if constexpr (sizeof(TV) == 4) {
 #pragma unroll
     for (int i = 0; i < VT * KS / 4 / NT; ++i) {
       const int e = tid + NT * i, row = e / (KS / 4), c = e % (KS / 4) * 4;
-      const float4 x = *reinterpret_cast<const float4*>(
-          reinterpret_cast<const float*>(raw) + row * KS + c);
+      const float4 x =
+          *reinterpret_cast<const float4*>(raw + swz<ROWB>(row, c / 4));
       uint32_t h[2], m[2], l[2];
       split3(make_float2(x.x, x.y), h[0], m[0], l[0]);
       split3(make_float2(x.z, x.w), h[1], m[1], l[1]);
@@ -990,7 +1035,8 @@ __device__ __forceinline__ void to_planes(const unsigned char* raw,
 #pragma unroll
     for (int i = 0; i < VT * KS / 16 / NT; ++i) {
       const int e = tid + NT * i, row = e / (KS / 16), c = e % (KS / 16) * 16;
-      const uint4 x = *reinterpret_cast<const uint4*>(raw + row * KS + c);
+      const uint4 x =
+          *reinterpret_cast<const uint4*>(raw + swz<ROWB>(row, c / 16));
       uint32_t o[8];
       widen4(x.x, o[0], o[1]);
       widen4(x.y, o[2], o[3]);
@@ -1036,12 +1082,18 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     const int16_t* __restrict__ attrs, const int* __restrict__ ids,
     const float* __restrict__ aux, float* __restrict__ out_vals,
     int* __restrict__ out_ids, int* __restrict__ out_npass, int qb, int d,
-    int vpad, int m, int f, int k, bool l2, bool vec) {
+    int vpad, int m, int f, int k, bool l2,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_q, const int* __restrict__ order,
+    bool tma) {
   constexpr bool SQ8 = sizeof(TV) == 1;
   using RG = Ring<TV>;
   constexpr bool F32Q = sizeof(TQ) == 4;
-  constexpr int KS = RG::KS, BLD = RG::BLD, FLD = RG::FLD;
-  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int KS = RG::KS, BLD = RG::BLD, ROWB = RG::ROWB;
+  constexpr int STAGES = RING_STAGES<TV>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled tiles want a 1024-byte aligned base
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const Layout L = layout<TQ, TV>(d, m, f);
   float* ss = reinterpret_cast<float*>(smem + L.ss);        // [QT][SLD]
   int* idss = reinterpret_cast<int*>(smem + L.idss);        // [VT]
@@ -1050,7 +1102,8 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
   unsigned* act_s = reinterpret_cast<unsigned*>(smem + L.act);  // [QT][f]
   int16_t* attrs_s = reinterpret_cast<int16_t*>(smem + L.attrs);  // [VT][m]
 
-  const int s = blockIdx.x;
+  // cluster-major: CTA x takes the x-th live slot in (cluster, slot) order
+  const int s = order != nullptr ? order[blockIdx.x] : blockIdx.x;
   const int q0 = blockIdx.y * QT;
   const int lane = threadIdx.x & 31;
   const int nq = min(QT, qb - q0);
@@ -1070,10 +1123,10 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
   const int nch = (vpad + VT - 1) / VT;
 
   // ---- the MMA warps: stream the cluster, multiply, hand over tiles ----
-  // (compiled twice, for 16-byte copies and for scalar staging, and
-  // entered once: one kernel a list width, the epilogue compiled once)
+  // (compiled twice, for the TMA ring and for scalar staging, and entered
+  // once: one kernel a list width, the epilogue compiled once)
   auto mma_warps = [&](auto flag) {
-    constexpr bool VEC = decltype(flag)::value;
+    constexpr bool TMA = decltype(flag)::value;
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const TQ* qg = queries + qrow0 * d;
@@ -1081,17 +1134,82 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     const __nv_bfloat16* a_res =
         reinterpret_cast<const __nv_bfloat16*>(smem + L.a_res);
     __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(smem + L.planes);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.mbar);
+    uint64_t* empty = full + STAGES;
     const int ald = dp + 8;  // row stride of the resident query tile
     const int total = nch * nks;  // ring tiles
 
+    if constexpr (FS_SIDE == 2) {  // synthetic scores, nothing streamed
+      for (int chunk = 0; chunk < nch; ++chunk) {
+        const int v0 = chunk * VT, nv = min(VT, vpad - v0);
+        if (chunk > 0) bar_sync(kBarFree, 2 * NT);
+        for (int e = tid; e < QT * VT; e += NT) {
+          const int row = e / VT, col = e % VT;
+          unsigned x = (unsigned)s * 0x9e3779b1u ^
+                       (unsigned)(q0 + row) * 0x85ebca77u ^
+                       (unsigned)(v0 + col) * 0xc2b2ae3du;
+          x ^= x >> 16;
+          x *= 0x7feb352du;
+          x ^= x >> 15;
+          x *= 0x846ca68bu;
+          x ^= x >> 16;
+          ss[row * SLD + col] = (float)(x >> 8) * (1.f / 16777216.f);
+        }
+        if (tid < VT)
+          idss[tid] = tid < nv ? ids[crow0 + v0 + tid] : -1;
+        else
+          auxs[tid - VT] = (SQ8 || l2) && tid - VT < nv
+                               ? aux[crow0 + v0 + tid - VT] : 0.f;
+        for (int e = tid; e < VT * m; e += NT)
+          attrs_s[e] = e < nv * m ? attrs[(crow0 + v0) * m + e] : 0;
+        bar_arrive(kBarFull, 2 * NT);
+      }
+      return;
+    }
+
+    // The TMA ring: one thread (the producer) issues each tile's loads,
+    // vector rows as one box of [K*Vpad, D] and f32 query slices as boxes
+    // of [Qpad, D], and counts their bytes on full[stage]; every MMA warp
+    // waits on full[stage], multiplies, and arrives on empty[stage], which
+    // the producer waits on before it refills the stage.  No block-wide
+    // barrier a k-step.
+    const int qrows = min(QT, qb);  // rows of a query box
+    const uint32_t tx_bytes =
+        (uint32_t)(RG::RAW + (F32Q ? RG::QBOXES * qrows * 128 : 0));
+    auto produce = [&](int p) {  // the producer: ring tile p into its stage
+      const int st = p % STAGES;
+      if (p >= STAGES) mbar_wait(&empty[st], (p / STAGES - 1) & 1);
+      unsigned char* stage = smem + st * L.stage;
+      mbar_expect(&full[st], tx_bytes);
+      const int v0 = (p / nks) * VT, d0 = (p % nks) * KS;
+      tma_load(stage, &tm_v, d0, (int)(crow0 + v0), &full[st]);
+      if constexpr (F32Q) {
+#pragma unroll
+        for (int b = 0; b < RG::QBOXES; ++b)
+          tma_load(stage + RG::RAW + b * RG::QBOX, &tm_q, d0 + 32 * b,
+                   (int)qrow0, &full[st]);
+      }
+    };
+    if constexpr (TMA) {
+      if (tid == 0) {
+        for (int i = 0; i < STAGES; ++i) {
+          mbar_init(&full[i], 1);
+          mbar_init(&empty[i], NT / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        for (int p = 0; p < STAGES - 1 && p < total; ++p) produce(p);
+      }
+    }
     if constexpr (!F32Q) {  // the resident bf16 query tile, zero-padded
       __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(smem + L.a_res);
-      if constexpr (VEC) {
+      if constexpr (TMA) {
         for (int e = tid; e < QT * dp / 8; e += NT) {
           const int row = e / (dp / 8), c = (e % (dp / 8)) * 8;
           const bool in = row < nq && c < d;
           cp16(a + row * ald + c, in ? qg + (size_t)row * d + c : qg, in);
         }
+        cp_commit();
+        cp_wait<0>();
       } else {
         for (int e = tid; e < QT * dp; e += NT) {
           const int row = e / dp, c = e % dp;
@@ -1099,14 +1217,15 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
                                                  : __float2bfloat16(0.f);
         }
       }
-      cp_commit();
     }
+    if constexpr (TMA) {
+      bar_sync(kBarRing, NT);  // the barriers' init and the query tile
+    } else {
 #pragma unroll
-    for (int p = 0; p < STAGES - 1; ++p) {
-      if (p < total)
-        issue_tile<TQ, TV, VEC>(smem + p * L.stage, vb, qg, nq, vpad,
-                                (p / nks) * VT, (p % nks) * KS, d, tid);
-      cp_commit();
+      for (int p = 0; p < STAGES - 1; ++p)
+        if (p < total)
+          stage_tile<TQ, TV>(smem + p * L.stage, vb, qg, nq, vpad,
+                             (p / nks) * VT, (p % nks) * KS, d, tid);
     }
 
     // Warp tiling: 4 x 16 query rows by 2 x 64 vector rows, or, for f32
@@ -1118,6 +1237,9 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     const int wm = narrow ? warp & 1 : warp & 3;  // query rows wm*16 .. +15
     const int vr0 = narrow ? (warp >> 1) * 32 : (warp >> 2) * 64;
     const int g = lane >> 2, tq = lane & 3;
+    // f32 query fragments: this thread's row and chunk parts of qoff
+    const int qbase = (wm * 16 + g) * 128 + (tq & 1) * 8;
+    const int qx = (tq >> 1) ^ (g & 1), g6 = g & 6;
     float acc[8][4];
     int meta_id = -1;
     float meta_aux = 0.f;
@@ -1145,36 +1267,41 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
           if (e < nv * m) meta_at[j] = attrs[(crow0 + v0) * m + e];
         }
       }
-      cp_wait<STAGES - 2>();
-      bar_sync(kBarRing, NT);
-      {
+      const unsigned char* stage = smem + (t % STAGES) * L.stage;
+      if constexpr (TMA) {
+        if (tid == 0 && t + STAGES - 1 < total) produce(t + STAGES - 1);
+        __syncwarp();
+        mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+        if constexpr (!RG::BF16)  // every warp is past the last tile's MMAs
+          bar_sync(kBarRing, NT);
+      } else {
+        bar_sync(kBarRing, NT);  // tile t staged, tile t - 1 done with
         const int p = t + STAGES - 1;
         if (p < total)
-          issue_tile<TQ, TV, VEC>(smem + (p % STAGES) * L.stage, vb, qg, nq,
-                                  vpad, (p / nks) * VT, (p % nks) * KS, d,
-                                  tid);
-        cp_commit();
+          stage_tile<TQ, TV>(smem + (p % STAGES) * L.stage, vb, qg, nq, vpad,
+                             (p / nks) * VT, (p % nks) * KS, d, tid);
       }
-
-      const unsigned char* stage = smem + (t % STAGES) * L.stage;
-      if constexpr (!RG::BF16) {  // every warp is past the last tile's MMAs
+      if constexpr (!RG::BF16) {
         to_planes<TV>(stage, planes, tid);
         bar_sync(kBarRing, NT);
       }
-      const __nv_bfloat16* bs =
-          RG::BF16 ? reinterpret_cast<const __nv_bfloat16*>(stage) : planes;
 #pragma unroll
       for (int kk = 0; kk < KS / 16; ++kk) {
         constexpr int TA = F32Q ? 3 : 1;  // bf16 terms of a query value
         uint32_t a[TA][4];
         if constexpr (F32Q) {
-          const float* fs = reinterpret_cast<const float*>(stage + RG::RAW);
-          const float* f0 = fs + (wm * 16 + g) * FLD + kk * 16 + 2 * tq;
-          const float2 x[4] = {*reinterpret_cast<const float2*>(f0),
-                               *reinterpret_cast<const float2*>(f0 + 8 * FLD),
-                               *reinterpret_cast<const float2*>(f0 + 8),
-                               *reinterpret_cast<const float2*>(f0 + 8 * FLD +
-                                                                8)};
+          // qoff of (row wm*16 + g (+ 8), column kk*16 + 2*tq (+ 8)): the
+          // rows share g = row & 7, so the swizzled chunk is the column's
+          // compile-time part a XOR g's high bits, OR qx
+          const unsigned char* fs =
+              stage + RG::RAW + (kk >> 1) * RG::QBOX + qbase;
+          auto frag = [&](int a, int row8) {
+            return *reinterpret_cast<const float2*>(
+                fs + row8 * 1024 + (((a ^ g6) | qx) << 4));
+          };
+          const int a0 = (kk & 1) * 4;
+          const float2 x[4] = {frag(a0, 0), frag(a0, 1), frag(a0 + 2, 0),
+                               frag(a0 + 2, 1)};
 #pragma unroll
           for (int j = 0; j < 4; ++j) split3(x[j], a[0][j], a[1][j], a[2][j]);
         } else {
@@ -1186,9 +1313,8 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
 #pragma unroll
           for (int np = 0; np < 4; ++np) {
             uint32_t b[4];
-            ldsm_x4(bs + (vr0 + np * 16 + (lane & 7) + (lane >> 4) * 8) * BLD +
-                        kk * 16 + ((lane >> 3) & 1) * 8,
-                    b);
+            const int row = vr0 + np * 16 + (lane & 7) + (lane >> 4) * 8;
+            ldsm_x4(stage + swz<ROWB>(row, kk * 2 + ((lane >> 3) & 1)), b);
 #pragma unroll
             for (int ta = 0; ta < TA; ++ta) {
               mma(acc[2 * np], a[ta], b[0], b[1]);
@@ -1209,7 +1335,7 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
             uint32_t b[RG::TERMS][4];
 #pragma unroll
             for (int tb = 0; tb < RG::TERMS; ++tb)
-              ldsm_x4(bs + tb * VT * BLD +
+              ldsm_x4(planes + tb * VT * BLD +
                           (vr0 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
                               BLD +
                           kk * 16 + ((lane >> 3) & 1) * 8,
@@ -1232,6 +1358,10 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
             }
           }
         }
+      }
+      if constexpr (TMA) {  // this warp is done with the stage
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[t % STAGES]);
       }
 
       if (ks == nks - 1) {  // hand the chunk's scores to the epilogue warps
@@ -1258,10 +1388,9 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
         bar_arrive(kBarFull, 2 * NT);
       }
     }
-    cp_wait<0>();
   };
   if (threadIdx.x < NT) {
-    if (vec)
+    if (tma)
       mma_warps(Flag<true>{});
     else
       mma_warps(Flag<false>{});
@@ -1329,68 +1458,33 @@ __global__ void __launch_bounds__(2 * NT, 1) scan_tc_kernel(
     // counted once per chunk), then the fold of those above the k-th
 #pragma unroll
     for (int i0 = 0; i0 < RPW; i0 += RB) {
+      if constexpr (FS_SIDE == 1) break;  // the MMA side alone
       float cand[RB][VT / 32];
-      if constexpr (INSERTS<R>) {  // the first selections, inline
-        float kth[RB];
-        unsigned sel[RB][VT / 32];
 #pragma unroll
-        for (int i = 0; i < RB; ++i) {
-          const int r = warp + (NT / 32) * (i0 + i);
-          kth[i] = __shfl_sync(FULL, lv[i0 + i][0], k - 1);
-          if (r < nq && (free_rows >> (i0 + i) & 1)) {  // every live row
-            npass[i0 + i] += n_live;
+      for (int i = 0; i < RB; ++i) {
+        const int r = warp + (NT / 32) * (i0 + i);
+        const bool free = r < nq && (free_rows >> (i0 + i) & 1);
+        int cnt = free ? n_live : 0;
 #pragma unroll
-            for (int h = 0; h < VT / 32; ++h) {
-              const float sc =
-                  row_score<SQ8>(ss[r * SLD + h * 32 + lane], auxc[h], l2);
-              cand[i][h] = sc;
-              sel[i][h] = __ballot_sync(FULL, sc > kth[i]) & live[h];
-            }
-            continue;
-          }
-          int cnt = 0;
-#pragma unroll
-          for (int h = 0; h < VT / 32; ++h) {
-            const int c = h * 32 + lane;
-            const float sc = row_score<SQ8>(ss[r * SLD + c], auxc[h], l2);
-            bool ok = r < nq && idc[h] >= 0;
-            if (ok)
-              ok = dnf_pass(act_s + r * f, bnd + r * fm, attrs_s + c * m, f,
-                            m);
-            cnt += __popc(__ballot_sync(FULL, ok));
-            cand[i][h] = ok ? sc : NEG_INF;
-            sel[i][h] = __ballot_sync(FULL, cand[i][h] > kth[i]);
-          }
-          npass[i0 + i] += cnt;
+        for (int h = 0; h < VT / 32; ++h) {
+          const int c = h * 32 + lane;
+          const float sc = row_score<SQ8>(ss[r * SLD + c], auxc[h], l2);
+          bool ok = r < nq && idc[h] >= 0;
+          if (ok && !free)
+            ok = dnf_pass(act_s + r * f, bnd + r * fm, attrs_s + c * m, f,
+                          m);
+          if (!free) cnt += __popc(__ballot_sync(FULL, ok));
+          cand[i][h] = ok ? sc : NEG_INF;
         }
-        insert_steps<RB, VT / 32>(lv, lp, i0, cand, kth, sel, chunk * VT, k,
-                                  lane);
-      } else {
-#pragma unroll
-        for (int i = 0; i < RB; ++i) {
-          const int r = warp + (NT / 32) * (i0 + i);
-          const bool free = r < nq && (free_rows >> (i0 + i) & 1);
-          int cnt = free ? n_live : 0;
-#pragma unroll
-          for (int h = 0; h < VT / 32; ++h) {
-            const int c = h * 32 + lane;
-            const float sc = row_score<SQ8>(ss[r * SLD + c], auxc[h], l2);
-            bool ok = r < nq && idc[h] >= 0;
-            if (ok && !free)
-              ok = dnf_pass(act_s + r * f, bnd + r * fm, attrs_s + c * m, f,
-                            m);
-            if (!free) cnt += __popc(__ballot_sync(FULL, ok));
-            cand[i][h] = ok ? sc : NEG_INF;
-          }
-          npass[i0 + i] += cnt;
-        }
+        npass[i0 + i] += cnt;
+      }
+      if constexpr (FS_SIDE != 3)
         select_chunk<R, RB, VT / 32, true>(
             lv, lp, i0, cand, chunk == 0, chunk * VT, k, sel_w, lane,
             [&](int ii, int c) {
               return row_score<SQ8>(ss[(warp + (NT / 32) * ii) * SLD + c],
                                     auxs[c], l2);
             });
-      }
     }
     if (chunk + 1 < nch) bar_arrive(kBarFree, 2 * NT);  // ss may be refilled
   }
@@ -1532,15 +1626,13 @@ __global__ void __launch_bounds__(NTS) scan_sort_kernel(
       const void *lo, const void *hi, const void *vectors,                 \
       const void *attrs, const void *ids, const void *aux, void *out_vals, \
       void *out_ids, void *out_npass, int qb, int d, int vpad, int m,      \
-      int f, int k, bool l2, cudaStream_t stream
+      int f, int k, bool l2, int n_queries, int *order, cudaStream_t stream
 #define FS_KERNEL_ARGS(TQ, TV)                                               \
   (const int*)slot_cluster, (const int*)slot_tile, (const int*)n_unique,     \
       u_cap, n_clusters, (const TQ*)queries, (const int16_t*)lo,             \
       (const int16_t*)hi, (const TV*)vectors, (const int16_t*)attrs,         \
       (const int*)ids, (const float*)aux, (float*)out_vals, (int*)out_ids,   \
       (int*)out_npass, qb, d, vpad, m, f, k, l2
-
-constexpr size_t SMEM_MAX = 227 * 1024;
 
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
@@ -1585,7 +1677,7 @@ cudaError_t launch_fma_r(FS_PARAMS) {
 #define FS_FWD                                                              \
   n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters, queries,   \
       lo, hi, vectors, attrs, ids, aux, out_vals, out_ids, out_npass, qb, d, \
-      vpad, m, f, k, l2, stream
+      vpad, m, f, k, l2, n_queries, order, stream
 
 template <typename TQ, typename TV>
 cudaError_t launch_fma(FS_PARAMS) {
@@ -1598,14 +1690,119 @@ cudaError_t launch_fma(FS_PARAMS) {
   }
 }
 
+// The tensor-core body's launch order (cluster-major): order[x] is the
+// slot the x-th CTA takes, the slots sorted by (cluster, slot), pads last.
+// Each thread ranks one slot's key against every other (the keys are
+// distinct), so the order is the same on every run; slot tables hold a few
+// thousand slots.
+__global__ void __launch_bounds__(256) order_kernel(
+    const int* __restrict__ slot_cluster, const int* __restrict__ slot_tile,
+    const int* __restrict__ n_unique, int u_cap, int n_clusters, int n_slots,
+    int* __restrict__ order) {
+  __shared__ unsigned long long keys[256];
+  auto key = [&](int s) {
+    const int c = slot_cluster[s];
+    const bool pad = is_pad(s, slot_tile[s], c, n_unique, u_cap, n_clusters);
+    return (unsigned long long)(pad ? 0xffffffffu : (unsigned)c) << 32 |
+           (unsigned)s;
+  };
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  const unsigned long long mine = i < n_slots ? key(i) : ~0ull;
+  int rank = 0;
+  for (int b = 0; b < n_slots; b += 256) {
+    __syncthreads();
+    keys[threadIdx.x] = b + threadIdx.x < n_slots ? key(b + threadIdx.x) : ~0ull;
+    __syncthreads();
+    const int n = min(256, n_slots - b);
+    for (int j = 0; j < n; ++j) rank += keys[j] < mine;
+  }
+  if (i < n_slots) order[rank] = i;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (nothing new
+// to link); null where the driver does not give it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return sizeof(T) == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+}
+
+// A 2-D tensor map over rows x cols values of T (row stride cols), boxes of
+// box_rows x box_cols, swizzled for box rows of box_cols * sizeof(T) bytes
+// (128, or 64); out of range reads as zero.
+template <typename T>
+bool encode_2d(CUtensorMap* tm, const void* base, size_t rows, int cols,
+               int box_rows, int box_cols) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapSwizzle sw = box_cols * sizeof(T) == 128
+                                    ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B;
+  return fn(tm, tma_type<T>(), 2, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename TQ, typename TV, int R>
-cudaError_t launch_tc_r(FS_PARAMS, bool vec) {
+cudaError_t launch_tc_r(FS_PARAMS, bool tma) {
+  using RG = tc::Ring<TV>;
   auto kernel = tc::scan_tc_kernel<TQ, TV, R>;
   const size_t smem = tc::layout<TQ, TV>(d, m, f).total;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
+  CUtensorMap tm_v, tm_q;
+  memset(&tm_v, 0, sizeof tm_v);
+  memset(&tm_q, 0, sizeof tm_q);
+  if (tma) {
+    if (!encode_2d<TV>(&tm_v, vectors, (size_t)n_clusters * vpad, d, tc::VT,
+                       RG::KS))
+      return cudaErrorInvalidValue;
+    if (sizeof(TQ) == 4 &&
+        !encode_2d<float>(&tm_q, queries, (size_t)n_queries, d,
+                          qb < QT ? qb : QT, 32))
+      return cudaErrorInvalidValue;
+  }
+  if (FS_SLOT_ORDER) order = nullptr;
+  if (order != nullptr) {
+    order_kernel<<<(n_slots + 255) / 256, 256, 0, stream>>>(
+        (const int*)slot_cluster, (const int*)slot_tile,
+        (const int*)n_unique, u_cap, n_clusters, n_slots, order);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   dim3 grid(n_slots, (qb + QT - 1) / QT);
-  kernel<<<grid, 2 * NT, smem, stream>>>(FS_KERNEL_ARGS(TQ, TV), vec);
+  kernel<<<grid, 2 * NT, smem, stream>>>(FS_KERNEL_ARGS(TQ, TV), tm_v, tm_q,
+                                         order, tma);
   return cudaGetLastError();
 }
 
@@ -1617,20 +1814,21 @@ bool tc_fits(int d, int m, int f) {
 }
 
 // A dtype pair: the tensor-core body where it fits (k <= 256), else the FMA
-// or sort body; the choice rests on the shapes alone.  vec: 16-byte copies,
-// where rows and operands are 16-byte aligned.
+// or sort body; the choice rests on the shapes alone.  tma: the TMA ring,
+// where both operands' rows are 16-byte aligned with a 16-byte multiple
+// stride (else scalar staging).
 template <typename TQ, typename TV>
 cudaError_t launch_pair(FS_PARAMS) {
   if (!tc_fits<TQ, TV>(d, m, f) || k > 32 * MAX_R)
     return launch_fma<TQ, TV>(FS_FWD);
-  const bool vec = d % (16 / sizeof(TV)) == 0 &&
+  const bool tma = d % (16 / sizeof(TV)) == 0 && d % (16 / sizeof(TQ)) == 0 &&
                    (uintptr_t)queries % 16 == 0 &&
                    (uintptr_t)vectors % 16 == 0;
   switch (list_slots(k)) {
-    case 1: return launch_tc_r<TQ, TV, 1>(FS_FWD, vec);
-    case 2: return launch_tc_r<TQ, TV, 2>(FS_FWD, vec);
-    case 4: return launch_tc_r<TQ, TV, 4>(FS_FWD, vec);
-    default: return launch_tc_r<TQ, TV, 8>(FS_FWD, vec);
+    case 1: return launch_tc_r<TQ, TV, 1>(FS_FWD, tma);
+    case 2: return launch_tc_r<TQ, TV, 2>(FS_FWD, tma);
+    case 4: return launch_tc_r<TQ, TV, 4>(FS_FWD, tma);
+    default: return launch_tc_r<TQ, TV, 8>(FS_FWD, tma);
   }
 }
 
@@ -1655,7 +1853,7 @@ extern "C" int filtered_scan_tiled_body(int d, int m, int f, int mode,
 #define FS_ARGS                                                               \
   n_slots, slot_cluster, slot_tile, n_unique, u_cap, n_clusters, queries, lo, \
       hi, vectors, attrs, ids, aux, out_vals, out_ids, out_npass, qb, d,      \
-      vpad, m, f, k, mode == kL2, (cudaStream_t)stream
+      vpad, m, f, k, mode == kL2, n_queries, (int*)order, (cudaStream_t)stream
 // Returns LAUNCH<TQ, TV>(FS_ARGS) for the operands' pair: bf16 or f32
 // queries against bf16 vectors (f32: the sharded search) and f32 x f32, dot
 // or l2 (a run-time flag), and SQ8 (f32 queries against int8 rows, dot).
@@ -1673,14 +1871,17 @@ extern "C" int filtered_scan_tiled_body(int d, int m, int f, int mode,
 
 // Plain C entry point (bound with ctypes).  n_unique may be null (every
 // slot live); aux is the norms (mode 1) or scales (mode 2) pointer, null for
-// mode 0.  Returns a cudaError_t: 0 on a successful launch.
+// mode 0; n_queries the queries' rows (Qpad); order a scratch of n_slots
+// int32 for the tensor-core body's launch order (null: slot order).  One
+// entry point, two launches where the tensor-core body runs (the order,
+// then the scan).  Returns a cudaError_t: 0 on a successful launch.
 extern "C" int filtered_scan_tiled_launch(
     int n_slots, const void* slot_cluster, const void* slot_tile,
     const void* n_unique, int u_cap, int n_clusters, const void* queries,
     const void* lo, const void* hi, const void* vectors, const void* attrs,
     const void* ids, const void* aux, void* out_vals, void* out_ids,
     void* out_npass, int qb, int d, int vpad, int m, int f, int k, int mode,
-    int q_dtype, int v_dtype, void* stream) {
+    int q_dtype, int v_dtype, int n_queries, void* order, void* stream) {
   if (n_slots <= 0) return cudaSuccess;
   if (k < 1 || k > vpad || qb < 1 || d < 1 || f < 1 || m < 0)
     return cudaErrorInvalidValue;
@@ -1696,7 +1897,7 @@ extern "C" int filtered_scan_tiled_fma_launch(
     const void* lo, const void* hi, const void* vectors, const void* attrs,
     const void* ids, const void* aux, void* out_vals, void* out_ids,
     void* out_npass, int qb, int d, int vpad, int m, int f, int k, int mode,
-    int q_dtype, int v_dtype, void* stream) {
+    int q_dtype, int v_dtype, int n_queries, void* order, void* stream) {
   if (n_slots <= 0) return cudaSuccess;
   if (k < 1 || k > vpad || k > 32 * MAX_R || qb < 1 || d < 1 || f < 1 ||
       m < 0)

@@ -68,7 +68,7 @@ def _entry(name):
     return _bind(SOURCE, name,
                  [_CI, _VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP,
                   _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _CI,
-                  _CI, _VP])
+                  _CI, _CI, _VP, _VP])
 
 
 def tiled_body(d: int, m: int, f: int, metric: str, q_dtype: torch.dtype,
@@ -78,7 +78,7 @@ def tiled_body(d: int, m: int, f: int, metric: str, q_dtype: torch.dtype,
     three bf16 terms against bf16 vectors, against f32 vectors split so too
     (six products) or against SQ8 int8 vectors widened to bf16) wherever M
     <= 16 and its shared memory fits, else "fma" (the first design's f32
-    FMA body: M > 16, or bf16 queries at D > 832).  The choice rests on
+    FMA body: M > 16, or bf16 queries at D > 896).  The choice rests on
     the shapes alone; k > 256 takes the sort body either way.  Builds the
     kernel."""
     fn = _bind(SOURCE, "filtered_scan_tiled_body", [_CI] * 6)
@@ -232,7 +232,8 @@ def launch_tiled(slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
                  q_block: int):
     """The tiled op's CUDA implementation, callable without the dispatcher
     (so that the op's call overhead can be timed beside it): one build
-    (cached) and one launch, counted."""
+    (cached) and one call of the entry point (on the tensor-core body, its
+    launch order and the scan), counted once."""
     global LAUNCHES, LAUNCHES_WIDE
     out, launched = _launch(_entry("filtered_scan_tiled_launch"),
                             slot_cluster, slot_tile, n_unique, queries, lo,
@@ -275,6 +276,9 @@ def _launch(fn, slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
     if s == 0:
         return _pad_lists(vals, out_ids, k_out) + (npass,), False
     u_cap = s // n_unique.shape[0] if n_unique is not None else s
+    # the tensor-core body's launch order (cluster-major), computed on the
+    # card by the same entry point
+    order = torch.empty((s,), dtype=i32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -286,7 +290,8 @@ def _launch(fn, slot_cluster, slot_tile, n_unique, queries, lo, hi, vectors,
             vals.data_ptr(), out_ids.data_ptr(), npass.data_ptr(),
             q_block, d, vpad, m, f, k,
             _MODES["sq8" if quantized else metric], _DTYPES[queries.dtype],
-            _DTYPES[vectors.dtype], stream,
+            _DTYPES[vectors.dtype], queries.shape[0], order.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"filtered_scan_tiled launch failed: cudaError {err}")

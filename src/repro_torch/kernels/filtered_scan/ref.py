@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.topk import NEG_INF, top_k
+from repro_torch.device import ieee_f32
 
 
 def _dnf_mask(attrs: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
@@ -62,7 +63,8 @@ def filtered_scan_ref(
         sq = slot_query[c0:c0 + chunk].long()
         v = vectors[sc].float()  # [c, V, D]
         q = queries[sq].float()  # [c, D]
-        dots = torch.bmm(v, q[:, :, None])[..., 0]  # [c, V]
+        with ieee_f32():
+            dots = torch.bmm(v, q[:, :, None])[..., 0]  # [c, V]
         if scales is not None:
             dots = dots * scales[sc]
         score = dots if metric == "dot" else 2.0 * dots - norms[sc]
@@ -122,7 +124,8 @@ def filtered_scan_tiled_ref(
 
 
 def _f32_dots(q, v):
-    return torch.bmm(q.float(), v.float().transpose(1, 2))
+    with ieee_f32():
+        return torch.bmm(q.float(), v.float().transpose(1, 2))
 
 
 # The CUDA kernel's selection (csrc/filtered_scan_tiled.cu), for k <= 256.
@@ -220,16 +223,18 @@ def _merge_batch(lv, lp, b, bp, nbp):
 def chunked_topk(scores: torch.Tensor, k: int):
     """The CUDA kernel's streaming top-k of ``scores`` [..., V] (masked,
     NEG_INF where the filter or liveness fails), step by step: 128-row
-    chunks in position order; the first sorted whole into each row's list
-    (32·R entries, R = 1, 2, 4 or 8) where more than 32 of its candidates
-    pass; from the next on (and in a first chunk with fewer), the
-    candidates strictly above the row's k-th compacted in position order
-    and merged 32 at a time (sorted worst first, the best 32 of them and the list's last
-    slot kept, a bitonic merge).  Returns (values [..., k], positions
-    [..., k] int64), best first by (value descending, position ascending):
-    :func:`~repro_torch.core.topk.top_k`'s order.  k <= min(256, V).  The
-    kernel folds this way from two slots a lane on (k > 32); at one slot it
-    inserts one candidate at a time, which gives the same lists."""
+    chunks in position order; with two or more slots a lane (R = 2, 4 or
+    8; k > 32) the first chunk sorted whole into each row's list (32·R
+    entries) where more than 32 of its candidates pass; with one (k <= 32)
+    only the first chunk's passing candidates at or above the k-th largest
+    of its 32 lanes' maxima (lane j holds columns j, j + 32, j + 64, j + 96)
+    go on; from the next chunk on (and in a first chunk not sorted whole),
+    the candidates strictly above the row's k-th compacted in position
+    order and merged 32 at a time (sorted worst first, the best 32 of them
+    and the list's last slot kept, a bitonic merge).  Returns (values [...,
+    k], positions [..., k] int64), best first by (value descending,
+    position ascending): :func:`~repro_torch.core.topk.top_k`'s order.
+    k <= min(256, V)."""
     v_len = scores.shape[-1]
     if not 1 <= k <= min(256, v_len):
         raise ValueError(f"k={k}: the streaming selection takes 1..256, <= V")
@@ -242,8 +247,13 @@ def chunked_topk(scores: torch.Tensor, k: int):
                                  device=dev)], -1)
     cols = torch.arange(SELECT_CHUNK, device=dev)
     # a first chunk with more than 32 candidates passing is sorted whole;
-    # one with fewer is folded as any other chunk (into the pads)
+    # one with fewer is folded as any other chunk (into the pads); at one
+    # slot, only its candidates at or above the lanes' maxima's k-th
     whole = (x[:, :SELECT_CHUNK] > NEG_INF).sum(-1) > 32
+    if r == 1:
+        whole = torch.zeros_like(whole)
+        lane_max = x[:, :SELECT_CHUNK].reshape(n, -1, 32).amax(1)
+        floor = torch.sort(lane_max, -1, descending=True).values[:, k - 1]
     v0, p0 = _sort_best_first(x[:, :SELECT_CHUNK],
                               cols.expand(n, SELECT_CHUNK).clone())
     lv = torch.full((n, 32 * r), NEG_INF, device=dev)
@@ -259,6 +269,8 @@ def chunked_topk(scores: torch.Tensor, k: int):
         sel = cand > kth[:, None]
         if ch == 0:
             sel &= ~whole[:, None]
+            if r == 1:
+                sel &= cand >= floor[:, None]
         cnt = sel.sum(-1)
         # the survivors' columns in column order, then the rest
         order = torch.sort(torch.where(sel, cols, SELECT_CHUNK + cols), -1
@@ -337,7 +349,8 @@ def split_scan_ref(
         for i, a in enumerate(qt):
             for j, b in enumerate(vt):
                 if i + j <= max_order:
-                    p = torch.bmm(a, b.transpose(1, 2))
+                    with ieee_f32():
+                        p = torch.bmm(a, b.transpose(1, 2))
                     out = p if out is None else out + p
         return out
 

@@ -34,6 +34,7 @@ from repro_torch.launch.mesh import (
     gather_dim,
     reduce_scatter_dim,
 )
+from repro_torch.train.optimizer import split_order
 from repro_torch.train.tree import (
     leaves,
     leaves_with_paths,
@@ -76,12 +77,13 @@ def _gather(x: torch.Tensor, spec, mesh, sum_axes: Sequence[str],
             offset: int = 0, keep: Sequence[str] = ()) -> torch.Tensor:
     """``x`` (a local shard of ``spec``, leading ``offset`` dims dropped)
     all-gathered over every mesh axis that splits it but ``keep``, the
-    minor axis first, so the chunks land in the placements' row-major
-    order."""
+    minor axis first (``optimizer.split_order``: an ``OrderedShard``'s
+    order, else the mesh's), so the chunks land in the order the
+    reference's ``NamedSharding`` lays them out."""
     names = list(mesh.mesh_dim_names)
-    for i in reversed(range(len(names))):
+    for i in reversed(split_order(spec.placements)):
         p = spec.placements[i]
-        if isinstance(p, Shard) and names[i] not in keep:
+        if names[i] not in keep:
             group = mesh.get_group(names[i])
             fn = gather_dim if names[i] in sum_axes else all_gather_dim
             x = fn(x, group, p.dim - offset)

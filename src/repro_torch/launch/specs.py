@@ -424,6 +424,8 @@ def _lm_decode_cell(arch: str, shape: str, mesh, variant: str,
     m = mesh_spec(mesh)
     dp = dp_axes(mesh)
     # serving plan: no FSDP regather per token; 256-expert archs widen EP
+    # over ("model", "data"), model major as the reference's spec
+    # (to_placements makes them OrderedShard; moe.ep_rank linearises so)
     ep = (("model", "data")
           if (cfg.moe and cfg.moe.n_routed % (16 * 16) == 0)
           else ("model",))

@@ -15,7 +15,9 @@ otherwise.
 
 State shardings are ``torch.distributed.tensor`` placements: one
 ``Shard(tensor_dim)`` or ``Replicate()`` a mesh dimension, the DTensor form
-of the reference's ``PartitionSpec`` (:func:`to_placements` converts one).
+of the reference's ``PartitionSpec`` (:func:`to_placements` converts one;
+:class:`OrderedShard` where several axes split a dimension in another
+order than the mesh's).
 """
 
 from __future__ import annotations
@@ -210,17 +212,69 @@ def adafactor_update(grads, state: AdafactorState, params, lr: torch.Tensor,
 
 
 # ------------------------------------------------------- state shardings ---
+class OrderedShard(Shard):
+    """``Shard(dim)`` on one of several mesh axes that split tensor
+    dimension ``dim`` together in another order than the mesh's: ``major``
+    is this axis's place among them, 0 the most major.  A spec's
+    ``("model", "data")`` over a ``("data", "model")`` mesh is ``model``
+    major, as the reference's ``PartitionSpec`` linearises it, where plain
+    ``Shard``s on both would split in mesh order, ``data`` major.  A
+    descriptor of the port's arguments (:func:`split_order` reads it, for
+    :func:`shard_index` and ``launch.layouts._gather``), never handed to
+    DTensor."""
+
+    def __init__(self, dim: int, major: int):
+        super().__init__(dim)
+        object.__setattr__(self, "major", major)
+
+    def __eq__(self, other):
+        return (isinstance(other, OrderedShard) and other.dim == self.dim
+                and other.major == self.major)
+
+    def __hash__(self):
+        return hash((OrderedShard, self.dim, self.major))
+
+    def __repr__(self):
+        return f"OrderedShard({self.dim}, major={self.major})"
+
+
 def to_placements(spec: Sequence, axis_names: Sequence[str]) -> tuple:
     """A ``PartitionSpec``-shaped spec (an entry a tensor dimension: None,
-    a mesh axis name, or a tuple of names) as DTensor placements (one a
-    mesh dimension of ``axis_names``)."""
+    a mesh axis name, or a tuple of names, major first) as DTensor
+    placements (one a mesh dimension of ``axis_names``): ``Shard(dim)``
+    where the axes splitting ``dim`` are in mesh order, else
+    :class:`OrderedShard`."""
+    names_ = list(axis_names)
     out = [Replicate()] * len(axis_names)
     for dim, entry in enumerate(spec):
         names = () if entry is None else (
             (entry,) if isinstance(entry, str) else tuple(entry))
-        for name in names:
-            out[list(axis_names).index(name)] = Shard(dim)
+        pos = [names_.index(name) for name in names]
+        ordered = pos != sorted(pos)
+        for major, i in enumerate(pos):
+            out[i] = OrderedShard(dim, major) if ordered else Shard(dim)
     return tuple(out)
+
+
+def split_order(placements: Sequence) -> list:
+    """The mesh dimensions that shard a tensor dimension, by that dimension
+    and then major first (mesh order, or ``OrderedShard.major``): the order
+    in which the reference's ``NamedSharding`` linearises a rank's chunk."""
+    return sorted((i for i, p in enumerate(placements) if isinstance(p, Shard)),
+                  key=lambda i: (placements[i].dim,
+                                 getattr(placements[i], "major", i)))
+
+
+def shard_index(placements: Sequence, mesh_shape: Sequence[int],
+                coord: Sequence[int], dim: int) -> Tuple[int, int]:
+    """(index, count) of the chunk of tensor dimension ``dim`` that the rank
+    at mesh coordinate ``coord`` holds, linearised by :func:`split_order`."""
+    idx, n = 0, 1
+    for i in split_order(placements):
+        if placements[i].dim == dim:
+            idx = idx * mesh_shape[i] + coord[i]
+            n *= mesh_shape[i]
+    return idx, n
 
 
 def _is_placements(x) -> bool:

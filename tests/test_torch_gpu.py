@@ -443,6 +443,130 @@ def test_fma_body_exact_ties(cuda, variant, k):
     _assert_equal_lists(got, filtered_scan_tiled_ref(*args, **kw))
 
 
+@pytest.mark.parametrize("k", range(1, 33))
+@pytest.mark.parametrize("variant", TIE_PAIRS)
+def test_one_slot_fold_exact_ties(cuda, variant, k):
+    """k <= 32, one list slot a lane (the bitonic fold; the first chunk cut
+    to its candidates at or above the k-th of the lanes' maxima) on every
+    dtype pair: the plain version's lists bit for bit, ties to the earlier
+    row."""
+    args, kw = _tie_case(variant, cuda, k, seed=k)
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    want = filtered_scan_tiled_ref(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    vals = want[0]
+    real = vals > NEG_INF / 2
+    if k > 1:
+        assert ((vals[..., 1:] == vals[..., :-1]) & real[..., 1:]).any()
+    if k >= 10:
+        assert (~real).any() and real.all(-1).any()
+
+
+# the tensor-core body's pairs, each metric it takes
+TC_VARIANTS = ["dot-bf16", "l2-bf16", "dot-f32q-bf16v", "dot-f32", "l2-f32",
+               "sq8"]
+
+
+@pytest.mark.parametrize("d", [64, 768])
+@pytest.mark.parametrize("variant", TC_VARIANTS)
+def test_tma_ring_matches_scalar_staging(cuda, variant, d):
+    """Rows 16-byte aligned with a 16-byte multiple stride take the TMA
+    ring; the same operands through a view 4 bytes off a 16-byte boundary
+    (queries or vectors) take the scalar staging.  The lists are equal bit
+    for bit, at 1, 2 and 4 list slots, QB across the warp tilings and Vpad
+    not a multiple of the 128-row chunk."""
+    args, kw = _case(variant, 2, cuda, seed=d, n_tiles=2, q_block=40, kc=5,
+                     vpad=333, d=d, u_cap=4)
+    for k in (10, 33, 100):
+        kw["k"] = k
+        tma = tfs.filtered_scan_tiled(*args, **kw)
+        for i in (3, 6):  # queries, vectors
+            staged_args = list(args)
+            staged_args[i] = _unaligned(args[i])
+            staged = tfs.filtered_scan_tiled(*staged_args, **kw)
+            torch.cuda.synchronize()
+            for j in range(3):
+                assert torch.equal(staged[j], tma[j]), (k, i, j)
+        _assert_close(tma, *_plain_with_next(args, kw))
+
+
+@pytest.mark.parametrize("variant", ["dot-bf16", "dot-f32q-bf16v", "dot-f32",
+                                     "sq8"])
+def test_cluster_major_order(cuda, variant):
+    """The tensor-core body launches its CTAs by (cluster, slot), pads last:
+    a plan where every tile probes cluster 2, beside other clusters, dedup
+    pads, clusters -1 and K, over 320 slots (more than one CTA of the order
+    kernel ranks).  Each slot's lists are its own (the plain version's),
+    every pad is (NEG_INF, -1, 0), and two runs are equal bit for bit."""
+    args, kw = _case(variant, 2, cuda, seed=13, n_tiles=8, q_block=64,
+                     kc=6, vpad=256, d=768, u_cap=40, k=10)
+    args = list(args)
+    args[2] = torch.tensor([40, 3, 40, 17, 1, 40, 25, 9], dtype=torch.int32,
+                           device=cuda)
+    sc = args[0].clone()
+    sc[0::40] = 2  # every tile's first slot: cluster 2
+    sc[7::80] = -1
+    sc[9::80] = 6  # == K: out of range
+    args[0] = sc
+    got = tfs.filtered_scan_tiled(*args, **kw)
+    again = tfs.filtered_scan_tiled(*args, **kw)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _assert_close(got, *_plain_with_next(args, kw))
+    pad = ~live_slots(args[1], args[2]) | (sc < 0) | (sc >= 6)
+    assert int(pad.sum()) > 100 and bool((~pad & (sc == 2))[0::40].all())
+    assert (got[0][pad] == NEG_INF).all() and (got[1][pad] == -1).all()
+    assert (got[2][pad] == 0).all()
+
+
+def test_f32_products_ignore_the_callers_tf32(cuda):
+    """Under ``torch.set_float32_matmul_precision("high")`` (TF32 allowed)
+    the plan's slot tables and the k-means assignments are full f32's: the
+    port pins its f32 products (``device.ieee_f32``) and gives the
+    caller's setting back.  On this data a TF32 product would move some
+    probes and some assignments."""
+    from repro_torch.core import kmeans as tkm
+    from repro_torch.core.filters import match_all
+
+    rng = np.random.default_rng(0)
+    d, kc, q = 256, 512, 256
+    cents = torch.from_numpy(rng.standard_normal((kc, d)).astype(
+        np.float32)).to(cuda)
+    queries = torch.from_numpy(rng.standard_normal((q, d)).astype(
+        np.float32)).to(cuda)
+    rows = torch.from_numpy(rng.standard_normal((8192, d)).astype(
+        np.float32)).to(cuda)
+    counts = torch.ones((kc,), dtype=torch.int32, device=cuda)
+    fspec = match_all(q, 3, device=cuda)
+
+    def plan():
+        return teng.plan_fused_tiled(
+            cents, counts, queries, fspec.lo, fspec.hi, metric="dot",
+            n_probes=7, q_block=64, u_cap=64 * 7, cast_dtype=torch.float32)
+
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want, want_a = plan(), tkm.assign(rows, cents, chunk=4096)
+        f32_top = torch.topk(queries @ cents.T, 7).indices
+        torch.set_float32_matmul_precision("high")
+        tf32_top = torch.topk(queries @ cents.T, 7).indices
+        tf32_a = torch.argmax(2.0 * (rows @ cents.T)
+                              - (cents * cents).sum(-1)[None, :], -1)
+        got, got_a = plan(), tkm.assign(rows, cents, chunk=4096)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert (tf32_top != f32_top).any()  # the data tells TF32 from f32
+    assert (tf32_a.int() != want_a).any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got_a, want_a)
+
+
 def _index(variant, dev):
     metric, vdt, quantized = VARIANTS[variant]
     rng = np.random.default_rng(0)

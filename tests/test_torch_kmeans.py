@@ -187,6 +187,97 @@ def test_lloyd_step_matches_reference(chunk):
     assert ts1.step == int(js1.step) == 1
 
 
+@pytest.mark.parametrize("precision", ["highest", "high", "medium"])
+def test_ieee_f32_leaves_the_callers_precision(precision):
+    """The port's f32 products (centroid scores, k-means) run under
+    ``device.ieee_f32``: full f32 inside, nested and from several threads,
+    and the caller's ``set_float32_matmul_precision`` (and the legacy
+    ``allow_tf32`` flag it sets) as it found them after, the products equal
+    to the reference's at any setting."""
+    import threading
+
+    from repro_torch.core.search import centroid_scores
+    from repro_torch.device import ieee_f32
+
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision(precision)
+        before = (torch.get_float32_matmul_precision(),
+                  torch.backends.cuda.matmul.allow_tf32)
+        inside = []
+
+        def work():
+            with ieee_f32():
+                with ieee_f32():
+                    inside.append(torch.get_float32_matmul_precision())
+                inside.append(torch.get_float32_matmul_precision())
+
+        threads = [threading.Thread(target=work) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert inside == ["highest"] * 8
+        x, c = _init(3)
+        got = tkm.pairwise_neg_dist2(torch.from_numpy(x), torch.from_numpy(c))
+        scores = centroid_scores(torch.from_numpy(c),
+                                 torch.ones(c.shape[0]), torch.from_numpy(x),
+                                 metric="dot")
+        after = (torch.get_float32_matmul_precision(),
+                 torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert after == before and before[0] == precision
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jkm.pairwise_neg_dist2(jnp.asarray(x),
+                                                        jnp.asarray(c))),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(scores.numpy(), x @ c.T, rtol=1e-5, atol=1e-5)
+
+
+def test_ieee_f32_reaches_other_threads_and_keeps_their_setting():
+    """``device.ieee_f32``'s reach across threads (PyTorch's precision
+    setting is process-wide): while a block is open in another thread this
+    one reads "highest", and its own setting comes back when the block
+    closes; a setting this thread makes while the block is open is kept,
+    not overwritten by the block's caller's."""
+    import threading
+
+    from repro_torch.device import ieee_f32
+
+    opened, release = threading.Event(), threading.Event()
+
+    def hold():
+        with ieee_f32():
+            opened.set()
+            release.wait(30)
+
+    def open_elsewhere():
+        opened.clear()
+        release.clear()
+        thread = threading.Thread(target=hold)
+        thread.start()
+        assert opened.wait(30)
+        return thread
+
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        thread = open_elsewhere()
+        during = torch.get_float32_matmul_precision()
+        release.set()
+        thread.join(timeout=30)
+        after = torch.get_float32_matmul_precision()
+        thread = open_elsewhere()
+        torch.set_float32_matmul_precision("medium")
+        release.set()
+        thread.join(timeout=30)
+        kept = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert (during, after, kept) == ("highest", "high", "medium")
+
+
 def test_lloyd_step_keeps_empty_centroids():
     x, c0 = _init(0)
     c0[3] = 100.0  # far from every row: gets no member

@@ -41,6 +41,7 @@ ARG_GIB = {
 
 def _reference(out: str) -> None:
     import jax
+    import numpy as np
 
     from repro.launch.mesh import make_production_mesh
     from repro.launch.specs import build_cell, list_cells
@@ -53,14 +54,22 @@ def _reference(out: str) -> None:
             if skip:
                 continue
             cell = build_cell(a, s, mesh, "exec")
-            leaves = []
-            for leaf in jax.tree.leaves(cell.args):
+            leaves, multi = [], []
+            for i, leaf in enumerate(jax.tree.leaves(cell.args)):
                 shape = tuple(leaf.shape)
                 local = (shape if leaf.sharding is None
                          else tuple(leaf.sharding.shard_shape(shape)))
                 leaves.append([list(shape), str(leaf.dtype), list(local)])
+                dims = [d for d, e in enumerate(
+                    getattr(leaf.sharding, "spec", None) or ())
+                    if isinstance(e, tuple) and len(e) > 1]
+                if dims:  # split by several axes: each rank's chunk
+                    idx = leaf.sharding.devices_indices_map(shape)
+                    multi.append([i, dims, [
+                        [idx[mesh.devices[c]][d].start or 0 for d in dims]
+                        for c in np.ndindex(mesh.devices.shape)]])
             res["cells"][f"{a}|{s}|{int(mp)}"] = dict(
-                leaves=leaves,
+                leaves=leaves, multi=multi,
                 meta={k: cell.meta.get(k) for k in META_KEYS})
     with open(out, "w") as f:
         json.dump(res, f)
@@ -163,6 +172,128 @@ def test_meta_equal(reference, port, multi_pod):
                 assert got[k] is None, (a, s, k)
             else:
                 assert got[k] == pytest.approx(want[k], rel=1e-12), (a, s, k)
+
+
+class _MeshAt:
+    """A mesh coordinate as ``models.moe.ep_rank`` reads a ``DeviceMesh``."""
+
+    def __init__(self, names, shape, coord):
+        self.mesh_dim_names, self.shape, self.coord = names, shape, coord
+
+    def get_local_rank(self, name):
+        return self.coord[self.mesh_dim_names.index(name)]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True],
+                         ids=["pod256", "multipod512"])
+def test_multi_axis_shards_equal(reference, port, multi_pod):
+    """Every argument that several mesh axes split along one dimension:
+    the chunk each rank holds (its start along that dimension at every
+    mesh coordinate, row-major) is the reference's ``NamedSharding``
+    shard.  The 256-expert decode cells split their experts over
+    ``("model", "data")``, ``model`` major: there the placements are
+    ``OrderedShard`` and ``moe.ep_rank``'s expert range is the same."""
+    import itertools
+
+    from repro_torch.launch.specs import arg_leaves, mesh_spec, production_mesh_spec
+    from repro_torch.models.moe import ep_rank
+    from repro_torch.train.optimizer import OrderedShard, shard_index
+
+    m = mesh_spec(production_mesh_spec(multi_pod))
+    coords = list(itertools.product(*(range(n) for n in m.shape)))
+    n_leaves = n_experts = 0
+    for (a, s, mp), cell in port.items():
+        if mp != multi_pod:
+            continue
+        leaves = arg_leaves(cell.args)
+        for i, dims, want in reference["cells"][f"{a}|{s}|{int(mp)}"][
+                "multi"]:
+            x = leaves[i]
+            got = []
+            for c in coords:
+                row = []
+                for d in dims:
+                    idx, n = shard_index(x.placements, x.mesh_shape, c, d)
+                    row.append(idx * -(-x.shape[d] // n))
+                got.append(row)
+            assert got == want, (a, s, mp, i)
+            n_leaves += 1
+            ordered = [p for p in x.placements if isinstance(p, OrderedShard)]
+            if ordered:  # the routed experts [L, E, ...] over ("model", "data")
+                assert dims == [1] and {p.dim for p in ordered} == {1}
+                e_local = x.local_shape()[1]
+                for c, w in zip(coords, want):
+                    mesh = _MeshAt(m.mesh_dim_names, m.shape, c)
+                    assert ep_rank(mesh, ("model", "data")) * e_local == w[0]
+                n_experts += 1
+    assert n_leaves > 0 and n_experts > 0
+
+
+@pytest.mark.parametrize("entry", [("model", "data"), ("data", "model")],
+                         ids=["model-major", "mesh-order"])
+def test_gather_lands_chunks_in_reference_order(monkeypatch, entry):
+    """``layouts._gather`` of a dimension that ``("model", "data")``
+    (``OrderedShard``s) or ``("data", "model")`` (plain ``Shard``s) splits
+    on a ``("data", "model")`` mesh, six ranks gathering in step: each
+    starts from the chunk ``shard_index`` gives it and ends with the whole
+    dimension in order.  ``OrderedShard`` compares unequal to ``Shard``
+    both ways."""
+    import itertools
+    import threading
+
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch import layouts
+    from repro_torch.launch.specs import ArgSpec
+    from repro_torch.train.optimizer import (OrderedShard, shard_index,
+                                             to_placements)
+
+    names, shape = ("data", "model"), (2, 3)
+    coords = list(itertools.product(*(range(n) for n in shape)))
+    pl = to_placements((None, entry), names)
+    assert all(isinstance(p, OrderedShard) == (entry[0] == "model")
+               for p in pl)
+    assert Shard(1) != OrderedShard(1, 0) and OrderedShard(1, 0) != Shard(1)
+    assert OrderedShard(1, 0) == OrderedShard(1, 0) != OrderedShard(1, 1)
+    spec = ArgSpec((4, 12), torch.float32, pl, shape)
+    full = torch.arange(48.0).view(4, 12)
+    barrier, box, out = threading.Barrier(len(coords)), {}, {}
+
+    class Mesh:  # one rank's view: a group is (axis, this rank's coord)
+        mesh_dim_names = names
+
+        def __init__(self, c):
+            self.c = c
+
+        def get_group(self, name):
+            return name, self.c
+
+    def all_gather_dim(x, group, dim):
+        name, c = group
+        ax = names.index(name)
+        box[c] = x
+        barrier.wait()
+        got = torch.cat([box[c[:ax] + (j,) + c[ax + 1:]]
+                         for j in range(shape[ax])], dim)
+        barrier.wait()
+        return got
+
+    def rank(c):
+        idx, n = shard_index(pl, shape, c, 1)
+        w = full.shape[1] // n
+        out[c] = layouts._gather(full[:, idx * w:(idx + 1) * w], spec,
+                                 Mesh(c), ())
+
+    monkeypatch.setattr(layouts, "all_gather_dim", all_gather_dim)
+    threads = [threading.Thread(target=rank, args=(c,)) for c in coords]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert sorted(out) == coords
+    for c in coords:
+        assert torch.equal(out[c], full), c
 
 
 def test_local_shape_rounds_up_like_shard_shape():

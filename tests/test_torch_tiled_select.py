@@ -1,9 +1,10 @@
 """The CUDA tiled scan's streaming selection, step by step on the CPU.
 
 ``ref.tiled_select_ref`` runs the kernel's selection in plain PyTorch
-(128-row chunks in position order, the first sorted whole, then the
-candidates above each row's running k-th compacted, sorted and merged 32 at
-a time by the kernel's bitonic networks).  On tie-heavy operands (small
+(128-row chunks in position order, the first sorted whole, or at one slot
+a lane (k <= 32) cut to its candidates at or above the k-th of the lanes'
+maxima, then the candidates above each row's running k-th compacted,
+sorted and merged 32 at a time by the kernel's bitonic networks).  On tie-heavy operands (small
 integer bf16 queries and rows: every dot exact, many equal) it must give
 the plain version's lists and the Pallas kernel's (interpret mode) bit for
 bit at every list width's edge: values, ids and pass counts exact.  The
@@ -27,7 +28,7 @@ from repro_torch.kernels.filtered_scan.ref import (
     tiled_select_ref,
 )
 
-KS = (1, 10, 31, 32, 33, 64, 100, 128, 129, 256)  # list widths' edges
+KS = (1, 2, 10, 31, 32, 33, 64, 100, 128, 129, 256)  # list widths' edges
 VPAD = 288  # not a multiple of the 128-row chunk
 Q_BLOCK = 8
 
@@ -127,3 +128,31 @@ def test_selection_on_sorted_and_constant_rows():
         assert torch.equal(v, wv) and torch.equal(p, wp)
     with pytest.raises(ValueError):
         chunked_topk(x, 257)
+
+
+def test_one_slot_first_chunk_floor():
+    """k <= 32 (one slot a lane): the first chunk keeps only its candidates
+    at or above the k-th of the lanes' maxima.  Rows whose best values all
+    sit in one lane (the floor far below the k-th), in every lane, in
+    order and in reverse, and rows of equal values: the lists are top_k's
+    at every k."""
+    g = torch.Generator().manual_seed(2)
+    lane0 = torch.randn((3, 300), generator=g)
+    lane0[:, 0:128:32] += 10.0  # the chunk's best four: all in lane 0
+    lane0[:, 1:128:32] += 9.0  # the next four: all in lane 1
+    x = torch.cat([
+        lane0,
+        torch.sort(torch.randn((2, 300), generator=g), -1).values,
+        torch.sort(torch.randn((2, 300), generator=g), -1,
+                   descending=True).values,
+        torch.full((1, 300), -1.5),
+        torch.where(torch.rand((2, 300), generator=g) < 0.9, NEG_INF,
+                    torch.randn((2, 300), generator=g)),  # few passing
+    ])
+    for k in range(1, 33):
+        v, p = chunked_topk(x, k)
+        wv, wp = top_k(x, k)
+        real = wv > NEG_INF / 2  # pads: the kernel's position is PAD_POS
+        assert torch.equal(v, wv), k
+        assert torch.equal(p[real], wp[real]), k
+    assert (~real).any()  # at k = 32 the few-passing rows end in pads
