@@ -67,6 +67,7 @@ from repro_torch.core.filters import FilterSpec
 from repro_torch.core.hybrid import ATTR_MAX, ATTR_MIN
 from repro_torch.core.ivf import round_up
 from repro_torch.core.search import SearchResult, centroid_scores
+from repro_torch.core.spans import NO_SPAN, Tracer, render_stage_histograms
 from repro_torch.device import resolve_device
 from repro_torch.kernels.filtered_scan.filtered_scan import (
     filtered_scan_tiled,
@@ -166,23 +167,26 @@ def plan_fused_tiled(centroids: torch.Tensor, counts: torch.Tensor,
 def _scan_merge_tiled(
     slot_cluster, slot_tile, slot_of_probe, probe_ok, n_unique,
     queries, queries_pad, lo_pad, hi_pad, vectors, attrs, ids, norms, scales,
-    *, metric: str, k: int, q: int, q_block: int,
+    *, metric: str, k: int, q: int, q_block: int, tracer: Tracer,
 ) -> SearchResult:
-    """Scan + merge: scan the planned slots, merge per-probe fragments.
+    """Scan + merge: scan the planned slots, merge per-probe fragments
+    (the spans ``repro.scan`` and ``repro.merge`` of ``tracer``).
 
     Dedup pad slots are skipped by the scan; the merge never reads one for
     a probe with ``probe_ok`` (a live probe points at a live slot).
     """
-    svals, sids, snpass = filtered_scan_tiled(
-        slot_cluster, slot_tile, n_unique, queries_pad, lo_pad, hi_pad,
-        vectors, attrs, ids, norms, scales, metric=metric, k=k,
-        q_block=q_block)
-    # a probe's slot scans exactly its cluster: live rows per probe through
-    # the slot tables
-    live_per_slot = (ids >= 0).sum(-1)[slot_cluster.long()]  # [S]
-    return _merge_fragments(svals, sids, snpass, slot_of_probe, probe_ok,
-                            probe_ok, queries, live_per_slot, metric=metric,
-                            k=k, q=q, q_block=q_block)
+    with tracer.span("repro.scan", device=True, stage="scan"):
+        svals, sids, snpass = filtered_scan_tiled(
+            slot_cluster, slot_tile, n_unique, queries_pad, lo_pad, hi_pad,
+            vectors, attrs, ids, norms, scales, metric=metric, k=k,
+            q_block=q_block)
+    with tracer.span("repro.merge", device=True, stage="merge"):
+        # a probe's slot scans exactly its cluster: live rows per probe
+        # through the slot tables
+        live_per_slot = (ids >= 0).sum(-1)[slot_cluster.long()]  # [S]
+        return _merge_fragments(svals, sids, snpass, slot_of_probe,
+                                probe_ok, probe_ok, queries, live_per_slot,
+                                metric=metric, k=k, q=q, q_block=q_block)
 
 
 def _merge_fragments(svals, sids, snpass, slot_of_probe, pair_ok, scan_ok,
@@ -531,56 +535,6 @@ def render_prometheus(metrics: Dict[str, Any], prefix: str = "repro") -> str:
     return "\n".join(lines) + "\n"
 
 
-# Fixed latency bucket upper bounds (seconds) for the per-stage histograms,
-# fixed so scrapes from different processes aggregate.
-_LAT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
-                0.25, 0.5, 1.0, 2.5)
-
-
-class StageHistogram:
-    """Fixed-bucket latency histogram, Prometheus-renderable (cumulative
-    ``le`` buckets at render time, ``+Inf`` equal to the count)."""
-
-    __slots__ = ("counts", "total", "sum")
-
-    def __init__(self):
-        self.counts = [0] * len(_LAT_BUCKETS)
-        self.total = 0
-        self.sum = 0.0
-
-    def observe(self, seconds: float):
-        self.total += 1
-        self.sum += seconds
-        for i, edge in enumerate(_LAT_BUCKETS):
-            if seconds <= edge:
-                self.counts[i] += 1
-                break
-
-    def render(self, name: str, labels: str) -> List[str]:
-        lines = []
-        cum = 0
-        for edge, n in zip(_LAT_BUCKETS, self.counts):
-            cum += n
-            lines.append(f'{name}_bucket{{{labels},le="{edge}"}} {cum}')
-        lines.append(f'{name}_bucket{{{labels},le="+Inf"}} {self.total}')
-        lines.append(f"{name}_sum{{{labels}}} {self.sum}")
-        lines.append(f"{name}_count{{{labels}}} {self.total}")
-        return lines
-
-
-def render_stage_histograms(hists: Dict[str, StageHistogram],
-                            prefix: str = "repro") -> str:
-    """``{stage: histogram}`` → Prometheus exposition text (one metric
-    family, a ``stage`` label per pipeline stage)."""
-    if not hists:
-        return ""
-    name = f"{prefix}_stage_latency_seconds"
-    lines = [f"# TYPE {name} histogram"]
-    for stage in sorted(hists):
-        lines.extend(hists[stage].render(name, f'stage="{stage}"'))
-    return "\n".join(lines) + "\n"
-
-
 # Process-wide registry of the scan-stage signatures dispatched so far
 # (the reference's jit cache is process-wide too).
 _SCAN_KEYS: set = set()
@@ -762,16 +716,15 @@ class SearchEngine:
         if self.adaptive_u_cap and u_cap is not None:
             raise ValueError("u_cap and adaptive_u_cap are exclusive")
         self._pool: Optional[ThreadPoolExecutor] = None
-        # per-stage fixed-bucket latency histograms, appended to
-        # metrics_text()
-        self._stage_hist: Dict[str, StageHistogram] = {}
+        # spans, host-read counters and the per-stage latency histograms
+        # (appended to metrics_text()); tracing off until enabled
+        self.tracer = Tracer(self.device)
         self.stats = EngineStats()
 
-    def _observe_stage(self, stage: str, seconds: float):
-        hist = self._stage_hist.get(stage)
-        if hist is None:
-            hist = self._stage_hist[stage] = StageHistogram()
-        hist.observe(seconds)
+    def tracing(self):
+        """A context with the engine's tracing on (:mod:`~repro_torch.core.
+        spans`); ``self.tracer.summary()`` reads what it recorded."""
+        return self.tracer.tracing()
 
     def _dev(self, x):
         """A table or operand on the engine's device (None passes)."""
@@ -838,8 +791,10 @@ class SearchEngine:
         recording.  Returns ``(route, route_entry, members)``: the [Q] entry
         per query (-1 = flat) and the plan's remap operands, None where no
         query routes (the flat plan)."""
-        lo_np = probes_lib._host(fspec.lo)
-        hi_np = probes_lib._host(fspec.hi)
+        with self.tracer.host_read("plan.route.lo"):
+            lo_np = probes_lib._host(fspec.lo)
+        with self.tracer.host_read("plan.route.hi"):
+            hi_np = probes_lib._host(fspec.hi)
         if self.partitions != "off":
             if self._traffic is None:
                 from repro_torch.core.partitions import FilterTrafficRecorder
@@ -875,7 +830,11 @@ class SearchEngine:
         """Plans at the sound worst-case table width; with
         ``adaptive_u_cap`` the tables are then cut to a bucket.  The tables
         come to the host when the executor needs them per tile."""
-        t0 = time.perf_counter()
+        with self.tracer.span("repro.plan", stage="plan"):
+            return self._plan(queries, fspec)
+
+    def _plan(self, queries, fspec: FilterSpec) -> SearchPlan:
+        tr = self.tracer
         index = self.index
         dev = index.centroids.device
         queries = torch.as_tensor(queries, device=dev)
@@ -893,7 +852,8 @@ class SearchEngine:
         if cat_any is not None:
             kc = cat_any.n_base
             centroids, counts, summ = self._base_views(cat_any, summ)
-        route, route_entry, members = self._route_partitions(cat, fspec)
+        with tr.span("repro.plan.route"):
+            route, route_entry, members = self._route_partitions(cat, fspec)
         # the batch's view of the delta segment; the planner sees the counts
         # a rebuild would (centroid_scores masks empty clusters by count)
         tier = self._delta_tier()
@@ -902,8 +862,10 @@ class SearchEngine:
             adj = tier.count_adjustment(kc)
             if adj is not None:
                 counts = counts + torch.from_numpy(adj).to(dev)
-        t_max = resolve_t_max(self.t_max, summ, counts, lo, hi,
-                              self.n_probes, kc)
+        with (tr.host_read("plan.t_max")
+              if self.t_max == "auto" and summ is not None else NO_SPAN):
+            t_max = resolve_t_max(self.t_max, summ, counts, lo, hi,
+                                  self.n_probes, kc)
         width = self.n_probes if t_max is None else t_max
         # remapped probes draw from base and sub ids, so a tile's unique
         # count can exceed the base cluster count
@@ -911,13 +873,14 @@ class SearchEngine:
         full_cap = min(qb * width, k_total)
         cap = full_cap if self.u_cap is None else self.u_cap
         cast_dtype = torch.float32 if index.quantized else index.store_dtype
-        (slot_cluster, slot_tile, slot_of_probe, probe_ok, n_unique,
-         queries_pad, lo_pad, hi_pad, n_pruned, geo_probes,
-         geo_valid) = plan_fused_tiled(
-            centroids, counts, queries, lo, hi,
-            metric=index.spec.metric, n_probes=self.n_probes, q_block=qb,
-            u_cap=cap, cast_dtype=cast_dtype, summaries=summ, t_max=t_max,
-            route_entry=route_entry, members=members)
+        with tr.span("repro.plan.tiles", device=True):
+            (slot_cluster, slot_tile, slot_of_probe, probe_ok, n_unique,
+             queries_pad, lo_pad, hi_pad, n_pruned, geo_probes,
+             geo_valid) = plan_fused_tiled(
+                centroids, counts, queries, lo, hi,
+                metric=index.spec.metric, n_probes=self.n_probes,
+                q_block=qb, u_cap=cap, cast_dtype=cast_dtype, summaries=summ,
+                t_max=t_max, route_entry=route_entry, members=members)
         plan = SearchPlan(
             q=q, q_block=qb, n_tiles=queries_pad.shape[0] // qb, u_cap=cap,
             width=width, slot_cluster=slot_cluster,
@@ -932,7 +895,8 @@ class SearchEngine:
             delta_snap=snap, route=route,
         )
         if self.adaptive_u_cap:
-            self._provision(plan)
+            with tr.span("repro.plan.provision"):
+                self._provision(plan)
         if (self.pipeline == "on" or self._gather_fn is not None
                 or self.termination is not None):
             self._host_tables(plan)
@@ -943,7 +907,6 @@ class SearchEngine:
         self.stats.last_u_cap = plan.u_cap
         self.stats.u_cap_hist[plan.u_cap] = (
             self.stats.u_cap_hist.get(plan.u_cap, 0) + 1)
-        self._observe_stage("plan", time.perf_counter() - t0)
         return plan
 
     def _plan_gens(self) -> Optional[np.ndarray]:
@@ -952,20 +915,21 @@ class SearchEngine:
         g = getattr(self.index, "gens", None)
         return None if g is None else np.asarray(g)
 
-    @staticmethod
-    def _host_tables(plan: SearchPlan):
-        for name in ("slot_cluster", "slot_tile", "slot_of_probe",
-                     "probe_ok", "n_unique"):
-            t = getattr(plan, name)
-            if isinstance(t, torch.Tensor):
-                setattr(plan, name, t.cpu().numpy())
+    def _host_tables(self, plan: SearchPlan):
+        with self.tracer.host_read("plan.tables"):
+            for name in ("slot_cluster", "slot_tile", "slot_of_probe",
+                         "probe_ok", "n_unique"):
+                t = getattr(plan, name)
+                if isinstance(t, torch.Tensor):
+                    setattr(plan, name, t.cpu().numpy())
 
     def _provision(self, plan: SearchPlan):
         """Adaptive u_cap: cut the slot tables to the smallest bucket
         covering every tile's unique count (only pad slots are cut, so
         results are unchanged).  Reads the [n_tiles] counts on the host."""
         full = plan.u_cap
-        max_u = max(int(plan.n_unique.max()), 1)
+        with self.tracer.host_read("plan.provision"):
+            max_u = max(int(plan.n_unique.max()), 1)
         buckets = self.u_cap_bucket_set or u_cap_buckets(
             full, ladder=self.u_cap_ladder)
         bucket = next((b for b in sorted(buckets) if b >= max_u), full)
@@ -1042,11 +1006,24 @@ class SearchEngine:
         valid = np.zeros((n_tiles, qb, cap), bool)
         valid[tt[pok], qi[pok], ss[pok]] = True
 
-        qt = plan.queries_pad.float().cpu().numpy().reshape(n_tiles, qb, -1)
-        C = index.centroids.float().cpu().numpy()
+        l2 = index.spec.metric == "l2"
+        with self.tracer.host_read("term.prepare"):
+            qt = plan.queries_pad.float().cpu().numpy().reshape(n_tiles, qb,
+                                                                -1)
+            C = index.centroids.float().cpu().numpy()
+            radius = bounds.radius.float().cpu().numpy()
+            slack = bounds.slack.float().cpu().numpy() if l2 else None
+            # the ε model's mass: expected passing rows of the pair's
+            # cluster under the query's filter (live counts without
+            # summaries)
+            if summ is not None:
+                ep = summaries_lib.expected_passing(
+                    summ, plan.lo_pad, plan.hi_pad, counts).cpu().numpy()
+            else:
+                cnt = counts.float().cpu().numpy()
         csel = C[sc]  # [n_tiles, cap, D]
-        rsel = bounds.radius.float().cpu().numpy()[sc][:, None, :]
-        if index.spec.metric == "dot":
+        rsel = radius[sc][:, None, :]
+        if not l2:
             cs = np.einsum("tqd,tsd->tqs", qt, csel)
             qn = np.linalg.norm(qt, axis=-1)[:, :, None]
             ub = cs + qn * rsel
@@ -1061,7 +1038,7 @@ class SearchEngine:
             c2 = np.sum(c64 * c64, axis=-1)[:, None, :]
             d = np.sqrt(np.maximum(q2 - 2.0 * cs64 + c2, 0.0))
             near = np.maximum(d - rsel, 0.0)
-            ssel = bounds.slack.float().cpu().numpy()[sc][:, None, :]
+            ssel = slack[sc][:, None, :]
             ub = q2 - near * near + ssel
             lb = q2 - (d + rsel) ** 2
         # rounding margin: the kernel accumulates in f32 from operands that
@@ -1073,16 +1050,12 @@ class SearchEngine:
         ub = ub.astype(np.float64) + (1e-3 + tol * np.abs(ub))
         lb = lb.astype(np.float64)
 
-        # the ε model's mass: expected passing rows of the pair's cluster
-        # under the query's filter (live counts without summaries)
         if summ is not None:
-            ep = summaries_lib.expected_passing(
-                summ, plan.lo_pad, plan.hi_pad, counts).cpu().numpy()
             mass = np.take_along_axis(ep.reshape(n_tiles, qb, -1),
                                       sc[:, None, :], axis=2)
         else:
-            cnt = counts.float().cpu().numpy()[sc][:, None, :]
-            mass = np.broadcast_to(cnt, (n_tiles, qb, cap)).copy()
+            mass = np.broadcast_to(cnt[sc][:, None, :],
+                                   (n_tiles, qb, cap)).copy()
 
         # best-bound-first: each tile's live slots by descending max-over-
         # queries upper bound; probe pointers remapped, state co-permuted
@@ -1207,15 +1180,15 @@ class SearchEngine:
         if self._gather_fn is None:
             return (self._dev(plan.slot_cluster), index.vectors, index.attrs,
                     index.ids, index.norms, index.scales)
-        t0 = time.perf_counter()
-        if self._store is not None and self._gather_fn == self._store_gather:
-            out = self._store_gather(plan.slot_cluster, gens=plan.gens,
-                                     plan=plan)
-        else:
-            out = self._gather_fn(plan.slot_cluster)
-        out = tuple(self._dev(a) for a in blockstore_lib.wait_blocks(out))
-        self._observe_stage("fetch", time.perf_counter() - t0)
-        return out
+        with self.tracer.span("repro.fetch", stage="fetch"):
+            if (self._store is not None
+                    and self._gather_fn == self._store_gather):
+                out = self._store_gather(plan.slot_cluster, gens=plan.gens,
+                                         plan=plan)
+            else:
+                out = self._gather_fn(plan.slot_cluster)
+            return tuple(self._dev(a)
+                         for a in blockstore_lib.wait_blocks(out))
 
     # ---- scan + merge ----
     def _count_scan(self, key: Tuple):
@@ -1257,21 +1230,24 @@ class SearchEngine:
         snap = plan.delta_snap
         if snap is None or snap.n_rows == 0:
             return res
-        t0 = time.perf_counter()
+        with self.tracer.span("repro.delta_fold", stage="delta_fold"):
+            return self._fold_snapshot(plan, snap, res)
+
+    def _fold_snapshot(self, plan: SearchPlan, snap,
+                       res: SearchResult) -> SearchResult:
         from repro_torch.core import delta as delta_lib
 
         q, kc = plan.q, self._n_base()
+        tr = self.tracer
 
         def skipped(count_reach=True):
             self.stats.delta_skips += 1
-            out = res
-            if count_reach:
-                dscan = delta_lib.snapshot_reach(snap, plan.geo_probes,
-                                                 plan.geo_valid, kc)
-                out = dataclasses.replace(
-                    res, n_scanned=res.n_scanned + dscan[:q])
-            self._observe_stage("delta_fold", time.perf_counter() - t0)
-            return out
+            if not count_reach:
+                return res
+            dscan = delta_lib.snapshot_reach(snap, plan.geo_probes,
+                                             plan.geo_valid, kc)
+            return dataclasses.replace(
+                res, n_scanned=res.n_scanned + dscan[:q])
 
         # per-attribute envelope pre-test: every non-void term disjoint
         # from the segment's [M] lo/hi envelope on some attribute
@@ -1281,14 +1257,18 @@ class SearchEngine:
             ahi = torch.from_numpy(snap.attr_hi).to(lo.device)
             nonvoid = (lo <= hi).all(-1)  # [Qpad, F]
             overlap = ((lo <= ahi) & (hi >= alo)).all(-1)
-            if not bool((nonvoid & overlap).any()):
+            with tr.host_read("delta.envelope"):
+                any_overlap = bool((nonvoid & overlap).any())
+            if not any_overlap:
                 self.stats.delta_interval_skips += 1
                 return skipped()
         summ = delta_lib.snapshot_summary(snap)
         if summ is None:  # no live rows: the reach is zero
             return skipped(count_reach=False)
-        if not bool(summaries_lib.can_match(summ, plan.lo_pad,
-                                            plan.hi_pad).any()):
+        with tr.host_read("delta.can_match"):
+            any_match = bool(summaries_lib.can_match(summ, plan.lo_pad,
+                                                     plan.hi_pad).any())
+        if not any_match:
             return skipped()
         dvals, dids, dscan, dpass = delta_lib.scan_snapshot(
             snap, plan.queries, plan.queries_pad, plan.lo_pad, plan.hi_pad,
@@ -1297,7 +1277,6 @@ class SearchEngine:
         vals, out_ids = topk_lib.merge_topk(
             (res.scores, res.ids), (dvals[:q], dids[:q]), self.k)
         self.stats.delta_folds += 1
-        self._observe_stage("delta_fold", time.perf_counter() - t0)
         return dataclasses.replace(
             res, scores=vals, ids=out_ids,
             n_scanned=res.n_scanned + dscan[:q],
@@ -1305,7 +1284,6 @@ class SearchEngine:
 
     def scan_merge(self, plan: SearchPlan, operands) -> SearchResult:
         """Whole-batch scan/merge over fetched operands (sync executor)."""
-        t0 = time.perf_counter()
         slot_cluster, vectors, attrs, ids, norms, scales = operands
         ids = self._mask_tombstones(plan, ids)
         self._count_scan(self._scan_key(
@@ -1318,8 +1296,7 @@ class SearchEngine:
             self._dev(plan.n_unique), plan.queries, plan.queries_pad,
             plan.lo_pad, plan.hi_pad, vectors, attrs, ids, norms, scales,
             metric=self.index.spec.metric, k=self.k, q=plan.q,
-            q_block=plan.q_block)
-        self._observe_stage("scan", time.perf_counter() - t0)
+            q_block=plan.q_block, tracer=self.tracer)
         return dataclasses.replace(res, n_pruned=plan.n_pruned)
 
     def _scan_tile(self, plan: SearchPlan, i: int, operands) -> SearchResult:
@@ -1327,7 +1304,6 @@ class SearchEngine:
         stage on one tile, with the tile's own unique count and a zero
         ``slot_tile``; per-slot arithmetic is the same, so tile results
         concatenate to the sync result."""
-        t0 = time.perf_counter()
         slot_cluster, vectors, attrs, ids, norms, scales = operands
         ids = self._mask_tombstones(plan, ids)
         qb, cap = plan.q_block, plan.u_cap
@@ -1338,7 +1314,7 @@ class SearchEngine:
         self._count_scan(self._scan_key(
             plan, q=qb, qpad=qb, s=cap, q_block=qb,
             vectors=vectors, norms=norms, scales=scales))
-        res = _scan_merge_tiled(
+        return _scan_merge_tiled(
             slot_cluster,
             torch.zeros((cap,), dtype=torch.int32, device=self.device),
             self._dev(sop), self._dev(plan.probe_ok[rows]),
@@ -1346,9 +1322,8 @@ class SearchEngine:
             plan.queries_orig_pad[rows], plan.queries_pad[rows],
             plan.lo_pad[rows], plan.hi_pad[rows],
             vectors, attrs, ids, norms, scales,
-            metric=self.index.spec.metric, k=self.k, q=qb, q_block=qb)
-        self._observe_stage("scan", time.perf_counter() - t0)
-        return res
+            metric=self.index.spec.metric, k=self.k, q=qb, q_block=qb,
+            tracer=self.tracer)
 
     def _fetch_segment(self, plan: SearchPlan, seg_sc: np.ndarray,
                        alive_seg: np.ndarray, ops: Dict[int, dict]):
@@ -1415,7 +1390,7 @@ class SearchEngine:
         lists; ``ops`` is the batch-scoped record cache, and ``n_scanned``
         counts only the rows actually fetched.
         """
-        t_start = time.perf_counter()
+        tr = self.tracer
         term = plan.term
         qb, cap, k = plan.q_block, plan.u_cap, self.k
         seg, n_seg = term.seg, term.n_seg
@@ -1436,7 +1411,8 @@ class SearchEngine:
         else:
             slot_rows, vectors, attrs, ids, norms, scales = operands
             ids = self._mask_tombstones(plan, ids)
-            sc = probes_lib._host(slot_rows).reshape(-1).astype(np.int32)
+            with tr.host_read("term.slot_rows"):
+                sc = probes_lib._host(slot_rows).reshape(-1).astype(np.int32)
         # pad to the segmented width by repeating the last slot (a pad
         # position holds no valid pair, so it is never scanned)
         if cap_pad > cap:
@@ -1467,12 +1443,12 @@ class SearchEngine:
             else:
                 scanned[si] = True
                 if segmented:
-                    t_f = time.perf_counter()
-                    blocks = blockstore_lib.wait_blocks(self._fetch_segment(
-                        plan, sc[p0:p1], alive_seg, ops))
-                    seg_rows, vectors, attrs, ids, norms, scales = (
-                        self._dev(a) for a in blocks)
-                    self._observe_stage("fetch", time.perf_counter() - t_f)
+                    with tr.span("repro.fetch", stage="fetch"):
+                        blocks = blockstore_lib.wait_blocks(
+                            self._fetch_segment(plan, sc[p0:p1], alive_seg,
+                                                ops))
+                        seg_rows, vectors, attrs, ids, norms, scales = (
+                            self._dev(a) for a in blocks)
                     ids = self._mask_tombstones(plan, ids)
                     live_per_slot[p0:p1] = (ids >= 0).sum(-1)[seg_rows.long()]
                     scan_sc = seg_rows
@@ -1486,19 +1462,21 @@ class SearchEngine:
                 # the segment's dedup pads (positions >= u) are skipped
                 n_live = torch.tensor([min(max(u - p0, 0), seg)],
                                       dtype=torch.int32, device=dev)
-                svals, sids, snpass = filtered_scan_tiled(
-                    scan_sc, zeros_tile, n_live, q_pad, lo_pad, hi_pad,
-                    vectors, attrs, ids, norms, scales, metric=metric, k=k,
-                    q_block=qb)
+                with tr.span("repro.scan", device=True, stage="scan"):
+                    svals, sids, snpass = filtered_scan_tiled(
+                        scan_sc, zeros_tile, n_live, q_pad, lo_pad, hi_pad,
+                        vectors, attrs, ids, norms, scales, metric=metric,
+                        k=k, q_block=qb)
+                    run_vals, run_ids = fold_running_topk(
+                        run_vals, run_ids, svals, sids,
+                        torch.from_numpy(alive_seg).to(dev), k=k)
                 frags.append((svals, sids, snpass))
-                run_vals, run_ids = fold_running_topk(
-                    run_vals, run_ids, svals, sids,
-                    torch.from_numpy(alive_seg).to(dev), k=k)
             if si + 1 >= n_seg:
                 break
             # boundary: the remaining pairs' bounds against the running kth
             # (one host sync per boundary)
-            kth = run_vals[:, k - 1].double().cpu().numpy()
+            with tr.host_read("term.kth"):
+                kth = run_vals[:, k - 1].double().cpu().numpy()
             kth_real = kth > topk_lib.NEG_INF / 2
             rest = np.s_[:, p1:]
             drop = (alive[rest] & kth_real[:, None]
@@ -1530,8 +1508,6 @@ class SearchEngine:
                                    device=dev),
                         torch.zeros((seg, qb), dtype=torch.int32, device=dev))
                 frags[si] = filler
-        svals_all, sids_all, snpass_all = (
-            torch.cat([f[j] for f in frags]) for j in range(3))
         # a probe's fragments enter the merge iff its segment was scanned
         # and it was not ε-dropped
         scanned_pos = np.repeat(scanned, seg)
@@ -1539,13 +1515,14 @@ class SearchEngine:
         scan_ok = pok & scanned_pos[sop]
         pair_ok = scan_ok & ~eps_dropped[qi, sop]
         term.kept[rows] = pair_ok
-        res = _merge_fragments(
-            svals_all, sids_all, snpass_all, self._dev(sop),
-            self._dev(pair_ok), self._dev(scan_ok),
-            plan.queries_orig_pad[rows], live_per_slot, metric=metric, k=k,
-            q=qb, q_block=qb)
-        self._observe_stage("scan", time.perf_counter() - t_start)
-        return res
+        with tr.span("repro.merge", device=True, stage="merge"):
+            svals_all, sids_all, snpass_all = (
+                torch.cat([f[j] for f in frags]) for j in range(3))
+            return _merge_fragments(
+                svals_all, sids_all, snpass_all, self._dev(sop),
+                self._dev(pair_ok), self._dev(scan_ok),
+                plan.queries_orig_pad[rows], live_per_slot, metric=metric,
+                k=k, q=qb, q_block=qb)
 
     def _execute_terminated_sync(self, plan: SearchPlan) -> SearchResult:
         """Sync executor with termination: one whole-batch fetch, then per
@@ -1556,8 +1533,9 @@ class SearchEngine:
                 self._store, blockstore_lib.ShardedBlockStore)):
             return self._execute_terminated_segmented(plan)
         operands = self.fetch(plan)
-        slot_rows = probes_lib._host(operands[0]).reshape(plan.n_tiles,
-                                                          plan.u_cap)
+        with self.tracer.host_read("term.slot_rows"):
+            slot_rows = probes_lib._host(operands[0]).reshape(plan.n_tiles,
+                                                              plan.u_cap)
         rows = (plan.n_tiles * plan.u_cap if self._gather_fn is not None
                 else operands[1].shape[0])
         parts: List[SearchResult] = []
@@ -1589,7 +1567,8 @@ class SearchEngine:
         an active catalog."""
         if plan.route is None:
             return
-        ns = res.n_scanned.cpu().numpy()
+        with self.tracer.host_read("result.partition_rows"):
+            ns = res.n_scanned.cpu().numpy()
         hit = plan.route >= 0
         self.stats.partition_rows_scanned += int(ns[hit].sum())
         self.stats.flat_rows_scanned += int(ns[~hit].sum())
@@ -1790,13 +1769,14 @@ class SearchEngine:
     def _wait(self, handle_rec):
         handle, t_submit, done = handle_rec
         t0 = time.monotonic()
-        if self._async_src is not None:
-            out = self._async_src.gather_wait(handle)
-        else:
-            out = handle.result()
+        with self.tracer.span("repro.fetch"):
+            if self._async_src is not None:
+                out = self._async_src.gather_wait(handle)
+            else:
+                out = handle.result()
         t1 = time.monotonic()
         self.stats.io_wait_s += t1 - t0
-        self._observe_stage("fetch", t1 - t0)
+        self.tracer.observe_stage("fetch", t1 - t0)
         # submit→completion span: a fetch that finished long before this
         # wait counts its own duration (the callback may lag result() by a
         # beat; then t1 stands in)
@@ -1858,11 +1838,10 @@ class SearchEngine:
 
     def _merge_parts(self, plan: SearchPlan,
                      parts: List[SearchResult]) -> SearchResult:
-        t0 = time.perf_counter()
-        res = SearchResult(
-            *(torch.cat([getattr(p, f) for p in parts])[: plan.q]
-              for f in ("scores", "ids", "n_scanned", "n_passed")))
-        self._observe_stage("merge", time.perf_counter() - t0)
+        with self.tracer.span("repro.merge", device=True, stage="merge"):
+            res = SearchResult(
+                *(torch.cat([getattr(p, f) for p in parts])[: plan.q]
+                  for f in ("scores", "ids", "n_scanned", "n_passed")))
         return dataclasses.replace(res, n_pruned=plan.n_pruned)
 
     def search(self, queries, fspec: FilterSpec) -> SearchResult:
@@ -1928,9 +1907,11 @@ class SearchEngine:
 
     def metrics_text(self) -> str:
         """:meth:`metrics` in Prometheus text exposition format, plus the
-        per-stage latency histograms."""
+        per-stage latency histograms, the host-read counters and the span
+        totals (:mod:`~repro_torch.core.spans`)."""
         return (render_prometheus(self.metrics())
-                + render_stage_histograms(self._stage_hist))
+                + render_stage_histograms(self.tracer.stages)
+                + self.tracer.render())
 
     def close(self):
         if self._pool is not None:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.filters import FilterSpec, match_all
+from repro_torch.core.spans import StageHistogram, render_stage_histograms
 from repro_torch.device import resolve_device
 
 
@@ -268,6 +269,8 @@ class SearchServer:
         self._worker: Optional[threading.Thread] = None
         self.stats = dict(batches=0, requests=0, degraded_batches=0,
                           total_latency_s=0.0, refreshes=0)
+        # each request's wait from its enqueue to its batch's search start
+        self.stages = {"queue_wait": StageHistogram()}
 
     # ---- client side ----
     def submit(self, query: np.ndarray, fspec_row: Optional[Tuple] = None
@@ -325,6 +328,12 @@ class SearchServer:
                 break
         return batch
 
+    def metrics_text(self) -> str:
+        """The server's stage histograms (``queue_wait``) in Prometheus text
+        exposition format, a family of their own
+        (``repro_server_stage_latency_seconds``)."""
+        return render_stage_histograms(self.stages, prefix="repro_server")
+
     def request_refresh(self):
         """Asks the serving loop to adopt a republished checkpoint.
 
@@ -366,6 +375,9 @@ class SearchServer:
         fspec = FilterSpec(lo=torch.from_numpy(lo).to(dev),
                            hi=torch.from_numpy(hi).to(dev))
         t0 = time.monotonic()
+        wait = self.stages["queue_wait"]
+        for r in batch:
+            wait.observe(t0 - r.t_enqueue)
         scores, ids = self.search_fn(torch.from_numpy(queries).to(dev),
                                      fspec, ok)
         scores = scores.cpu().numpy()

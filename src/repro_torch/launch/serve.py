@@ -321,15 +321,6 @@ def main(argv=None) -> dict:
         termination=args.termination, epsilon=args.epsilon,
         partitions=args.partitions, device=dev,
     )
-    out = {}
-    metrics_httpd = None
-    if args.metrics_port is not None:
-        metrics_httpd = _start_metrics(search_fn.metrics_text,
-                                       args.metrics_port)
-        out["metrics_url"] = (f"http://127.0.0.1:"
-                              f"{metrics_httpd.server_address[1]}/metrics")
-        print(f"metrics: {out['metrics_url']}")
-
     if search_fn.blockstore is not None and args.cache_shards > 1:
         bs = search_fn.blockstore
         print(f"sharded cluster cache: {args.cache_shards} nodes "
@@ -341,6 +332,16 @@ def main(argv=None) -> dict:
         n_attrs=serving_index.spec.n_attrs, n_terms=1, n_shards=8,
         device=dev,
     )
+    out = {}
+    metrics_httpd = None
+    if args.metrics_port is not None:
+        # the engine's text, then the server's queue wait
+        metrics_httpd = _start_metrics(
+            lambda: search_fn.metrics_text() + server.metrics_text(),
+            args.metrics_port)
+        out["metrics_url"] = (f"http://127.0.0.1:"
+                              f"{metrics_httpd.server_address[1]}/metrics")
+        print(f"metrics: {out['metrics_url']}")
     server.start()
     try:
         rng = np.random.default_rng(1)

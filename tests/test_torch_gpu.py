@@ -606,6 +606,39 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, variant):
         assert torch.equal(getattr(cr, c), getattr(gr, c).cpu()), c
 
 
+def test_engine_tracer_times_scan_and_merge_on_the_card(cuda):
+    """Off, the card's scan and merge observe nothing (a host clock would
+    time the enqueue); on, their CUDA events' time, resolved without a
+    sync of their own, and the plan's three reads are counted either way."""
+    rng = np.random.default_rng(2)
+    q = 37
+    qs = torch.from_numpy(rng.standard_normal((q, 32)).astype(np.float32))
+    fspec = tf.FilterSpec(
+        lo=torch.full((q, 1, 3), -32768, dtype=torch.int16),
+        hi=torch.full((q, 1, 3), 32767, dtype=torch.int16)).to(cuda)
+    eng = teng.SearchEngine(_index("dot-bf16", cuda), k=10, n_probes=4,
+                            q_block=16, pipeline="off")
+    tr = eng.tracer
+    eng.search(qs.to(cuda), fspec)
+    assert "scan" not in tr.stages and "merge" not in tr.stages
+    assert tr.stages["plan"].total == 1
+    n = 3
+    with eng.tracing():
+        for _ in range(n):
+            eng.search(qs.to(cuda), fspec)
+    s = tr.summary()
+    assert not tr._pending
+    for name in ("repro.scan", "repro.merge", "repro.plan.tiles"):
+        assert s["spans"][name]["count"] == n, name
+        assert s["spans"][name]["device_s"] > 0, name
+    assert s["spans"]["repro.plan"]["device_s"] is None
+    assert s["reads"] == {site: n for site in (
+        "plan.route.lo", "plan.route.hi", "plan.provision")}
+    for stage in ("scan", "merge"):
+        assert tr.stages[stage].total == n, stage
+    assert sum(tr.reads.values()) == 3 * (n + 1)
+
+
 @pytest.mark.parametrize("t", [1, 7, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("metric", ["dot", "l2"])
