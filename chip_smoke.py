@@ -2427,6 +2427,7 @@ def build_part(args, dev, launches, reset_launches):
     eng32 = SearchEngine(lidx, k=K_TOP, n_probes=N_PROBES, q_block=qb,
                          prune="auto")
     plan = eng32.plan(q, match_all(q.shape[0], M_ATTRS, device=dev))
+    eng32.provision(plan)  # the u_cap cut, before the tables are read
     ka = (plan.slot_cluster, plan.slot_tile, plan.n_unique, plan.queries_pad,
           plan.lo_pad, plan.hi_pad, lidx.vectors, lidx.attrs, lidx.ids,
           None, None)
@@ -3853,6 +3854,7 @@ def retrieval_part(dev, seed, launches):
                f"|err| {err:.3e}" if name in ("search_fused", "engine")
                else ""))
     plan = engine.plan(users, fspec)
+    engine.provision(plan)  # the u_cap cut, before the tables are read
     probe_ids, _ = search_centroids(index, users, RETRIEVAL_T)
     slot_query = torch.repeat_interleave(
         torch.arange(RECSYS_BATCH, dtype=torch.int32, device=dev),

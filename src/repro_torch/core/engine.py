@@ -11,7 +11,14 @@ The port of ``repro.core.engine``:
              smallest bucket covering the observed unique counts.  With a
              delta tier, the batch's snapshot is taken here and the planner
              sees its adjusted cluster counts.  With ``termination``, each
-             tile's slots are reordered best-bound-first.
+             tile's slots are reordered best-bound-first.  On the card the
+             plan reads nothing to the host that it does not need to
+             enqueue its own work: the filter bounds for the traffic
+             recorder and the u_cap cut's unique count are copied without a
+             wait and read where they are first needed (after the scan is
+             enqueued; before the tables are first used), so ``submit``
+             returns with the plan enqueued and batch *i+1*'s plan overlaps
+             batch *i*'s scan (:mod:`~repro_torch.core.hostcopy`).
     fetch  — RAM tier: the resident ``[K, Vpad, ...]`` arrays (a no-op).
              Disk tier: the plan's fetch list pages through a
              :mod:`~repro_torch.core.blockstore` store (a local cache, or a
@@ -64,6 +71,7 @@ from repro_torch.core import probes as probes_lib
 from repro_torch.core import summaries as summaries_lib
 from repro_torch.core import topk as topk_lib
 from repro_torch.core.filters import FilterSpec
+from repro_torch.core.hostcopy import DeferredObserver, HostCopy, host_copies
 from repro_torch.core.hybrid import ATTR_MAX, ATTR_MIN
 from repro_torch.core.ivf import round_up
 from repro_torch.core.search import SearchResult, centroid_scores
@@ -395,6 +403,12 @@ class SearchPlan:
     route: Optional[np.ndarray] = None  # [Q] int32
     # bound-driven termination state (None when the knob is off)
     term: Optional[TermState] = None
+    # the adaptive u_cap cut's [n_tiles] maximum on its way to the host,
+    # where the cut waits until the tables are first used
+    # (SearchEngine.provision); None once cut, or where the plan cut them
+    u_max: Optional[HostCopy] = None
+    # the batch's place in the engine's deferred filter-traffic queue
+    traffic_ticket: Optional[int] = None
 
     def tile_work(self) -> List[TileWork]:
         """Materializes (and caches) the per-tile work items with their
@@ -461,6 +475,10 @@ class EngineStats:
     partition_fallbacks: int = 0
     partition_rows_scanned: int = 0
     flat_rows_scanned: int = 0
+    # plans that read no device value to the host: they return as soon as
+    # their work is enqueued (sync_free_plans / batches: the share); the
+    # port's own, so metrics_text() alone exports it
+    sync_free_plans: int = 0
 
     @property
     def overlap_ratio(self) -> float:
@@ -497,8 +515,13 @@ _PROM_COUNTERS = frozenset((
     "delta_interval_skips", "adds", "tombstoned", "commits", "tile_hits",
     "tile_puts", "probes_terminated", "term_segments_skipped",
     "partition_hits", "partition_fallbacks", "partition_rows_scanned",
-    "flat_rows_scanned",
+    "flat_rows_scanned", "sync_free_plans",
 ))
+
+
+# EngineStats fields the reference does not have: left out of metrics(),
+# whose key set is the reference's, and rendered by metrics_text().
+_PORT_ONLY_STATS = ("sync_free_plans",)
 
 
 def _prom_name(key: str) -> str:
@@ -720,6 +743,13 @@ class SearchEngine:
         # (appended to metrics_text()); tracing off until enabled
         self.tracer = Tracer(self.device)
         self.stats = EngineStats()
+        # on the card a copy to the host is asynchronous: the plan starts
+        # the reads it does not need to enqueue its own work and leaves
+        # them to where their values are first needed
+        self._defer_reads = self.device.type == "cuda"
+        self._observations = DeferredObserver(
+            self._observe_traffic,
+            lambda: self.tracer.host_read("result.traffic"))
 
     def tracing(self):
         """A context with the engine's tracing on (:mod:`~repro_torch.core.
@@ -788,21 +818,31 @@ class SearchEngine:
 
     def _route_partitions(self, cat, fspec: FilterSpec):
         """Host-side narrowest-subsuming-entry routing and traffic
-        recording.  Returns ``(route, route_entry, members)``: the [Q] entry
-        per query (-1 = flat) and the plan's remap operands, None where no
-        query routes (the flat plan)."""
+        recording.  Returns ``(route, route_entry, members, ticket)``: the
+        [Q] entry per query (-1 = flat) and the plan's remap operands, None
+        where no query routes (the flat plan), and the batch's ticket in
+        the deferred traffic queue (None where it was observed here).
+
+        Without a catalog, bounds on the engine's device are copied to the
+        host without a wait, and the recorder sees them after the batch's
+        scan is enqueued (:meth:`_finish`); a catalog routes on them here."""
+        if (cat is None and self._defer_reads
+                and all(isinstance(x, torch.Tensor)
+                        and x.device.type == self.device.type
+                        for x in (fspec.lo, fspec.hi))):
+            ticket = None
+            if self.partitions != "off":
+                ticket = self._observations.put(
+                    host_copies((fspec.lo, fspec.hi)))
+            return None, None, None, ticket
         with self.tracer.host_read("plan.route.lo"):
             lo_np = probes_lib._host(fspec.lo)
         with self.tracer.host_read("plan.route.hi"):
             hi_np = probes_lib._host(fspec.hi)
         if self.partitions != "off":
-            if self._traffic is None:
-                from repro_torch.core.partitions import FilterTrafficRecorder
-
-                self._traffic = FilterTrafficRecorder(int(lo_np.shape[-1]))
-            self._traffic.observe(lo_np, hi_np)
+            self._observe_traffic(lo_np, hi_np)
         if cat is None:
-            return None, None, None
+            return None, None, None, None
         route = cat.route(lo_np, hi_np)
         hits = int(np.sum(route >= 0))
         self.stats.partition_hits += hits
@@ -814,24 +854,41 @@ class SearchEngine:
         self.stats.partition_fallbacks += int(np.sum(constrained
                                                      & (route < 0)))
         if hits == 0:
-            return route, None, None
+            return route, None, None, None
         dev = self.index.centroids.device
-        return route, torch.from_numpy(route).to(dev), self._members_device(
-            cat)
+        return (route, torch.from_numpy(route).to(dev),
+                self._members_device(cat), None)
+
+    def _observe_traffic(self, lo_np, hi_np):
+        if self._traffic is None:
+            from repro_torch.core.partitions import FilterTrafficRecorder
+
+            self._traffic = FilterTrafficRecorder(int(lo_np.shape[-1]))
+        self._traffic.observe(lo_np, hi_np)
 
     @property
     def traffic(self):
         """The engine's filter-traffic recorder (the partition builder's
-        attribute-choice input); None until a batch was planned."""
+        attribute-choice input), with every planned batch observed; None
+        until a batch was planned."""
+        self._observations.drain()
         return self._traffic
 
     # ---- plan ----
     def plan(self, queries, fspec: FilterSpec) -> SearchPlan:
         """Plans at the sound worst-case table width; with
-        ``adaptive_u_cap`` the tables are then cut to a bucket.  The tables
-        come to the host when the executor needs them per tile."""
+        ``adaptive_u_cap`` the tables are then cut to a bucket (on the card
+        where the sync executor first uses them: :meth:`provision`).  The
+        tables come to the host when the executor needs them per tile.  A
+        plan that reads nothing to the host counts in
+        ``stats.sync_free_plans``."""
+        reads = self.tracer.reads
+        n_read = sum(reads.values())
         with self.tracer.span("repro.plan", stage="plan"):
-            return self._plan(queries, fspec)
+            plan = self._plan(queries, fspec)
+        if sum(reads.values()) == n_read:
+            self.stats.sync_free_plans += 1
+        return plan
 
     def _plan(self, queries, fspec: FilterSpec) -> SearchPlan:
         tr = self.tracer
@@ -853,7 +910,8 @@ class SearchEngine:
             kc = cat_any.n_base
             centroids, counts, summ = self._base_views(cat_any, summ)
         with tr.span("repro.plan.route"):
-            route, route_entry, members = self._route_partitions(cat, fspec)
+            route, route_entry, members, ticket = self._route_partitions(
+                cat, fspec)
         # the batch's view of the delta segment; the planner sees the counts
         # a rebuild would (centroid_scores masks empty clusters by count)
         tier = self._delta_tier()
@@ -892,22 +950,33 @@ class SearchEngine:
             n_pruned=n_pruned, gens=self._plan_gens(),
             geo_probes=geo_probes if snap is not None else None,
             geo_valid=geo_valid if snap is not None else None,
-            delta_snap=snap, route=route,
+            delta_snap=snap, route=route, traffic_ticket=ticket,
         )
+        host_tables = (self.pipeline == "on" or self._gather_fn is not None
+                       or self.termination is not None)
         if self.adaptive_u_cap:
             with tr.span("repro.plan.provision"):
-                self._provision(plan)
-        if (self.pipeline == "on" or self._gather_fn is not None
-                or self.termination is not None):
+                if (self._defer_reads and not host_tables
+                        and self.t_max != "auto"):
+                    # the cut's value is read where the tables are first
+                    # used (provision): the plan does not wait for it
+                    plan.u_max = host_copies((plan.n_unique.max(),))
+                else:
+                    self._provision(plan)
+        if host_tables:
             self._host_tables(plan)
         if self.termination is not None:
             # reorders the slot tables best-bound-first before any fetch
             # list exists, so fetches follow the scan order
             self._prepare_termination(plan, summ, counts)
+        if plan.u_max is None:
+            self._note_u_cap(plan)
+        return plan
+
+    def _note_u_cap(self, plan: SearchPlan):
         self.stats.last_u_cap = plan.u_cap
         self.stats.u_cap_hist[plan.u_cap] = (
             self.stats.u_cap_hist.get(plan.u_cap, 0) + 1)
-        return plan
 
     def _plan_gens(self) -> Optional[np.ndarray]:
         """Per-cluster expected generations for this batch's fetches (None
@@ -923,13 +992,34 @@ class SearchEngine:
                 if isinstance(t, torch.Tensor):
                     setattr(plan, name, t.cpu().numpy())
 
+    def provision(self, plan: SearchPlan):
+        """Applies a plan's deferred u_cap cut: reads the unique count the
+        plan copied to the host without a wait (site ``result.provision``)
+        and cuts the tables as a plan-time cut would.  A no-op where the
+        plan cut them itself or the cut was applied; :meth:`fetch` and
+        :meth:`scan_merge` call it before they use the tables."""
+        u_max = plan.u_max
+        if u_max is None:
+            return
+        plan.u_max = None
+        with self.tracer.host_read("result.provision"):
+            max_u = int(u_max.wait()[0])
+        self._cut(plan, max_u)
+        self._note_u_cap(plan)
+
     def _provision(self, plan: SearchPlan):
-        """Adaptive u_cap: cut the slot tables to the smallest bucket
-        covering every tile's unique count (only pad slots are cut, so
-        results are unchanged).  Reads the [n_tiles] counts on the host."""
-        full = plan.u_cap
+        """Adaptive u_cap at plan time: reads the [n_tiles] counts'
+        maximum on the host, then :meth:`_cut`."""
         with self.tracer.host_read("plan.provision"):
-            max_u = max(int(plan.n_unique.max()), 1)
+            max_u = int(plan.n_unique.max())
+        self._cut(plan, max_u)
+
+    def _cut(self, plan: SearchPlan, max_u: int):
+        """Cuts the slot tables to the smallest bucket covering every
+        tile's unique count ``max_u`` (only pad slots are cut, so results
+        are unchanged)."""
+        full = plan.u_cap
+        max_u = max(max_u, 1)
         buckets = self.u_cap_bucket_set or u_cap_buckets(
             full, ladder=self.u_cap_ladder)
         bucket = next((b for b in sorted(buckets) if b >= max_u), full)
@@ -1176,6 +1266,7 @@ class SearchEngine:
     def fetch(self, plan: SearchPlan):
         """Whole-batch fetch stage (sync executor): the resident arrays on
         the RAM tier, one gather over the plan's slot list otherwise."""
+        self.provision(plan)
         index = self.index
         if self._gather_fn is None:
             return (self._dev(plan.slot_cluster), index.vectors, index.attrs,
@@ -1284,6 +1375,7 @@ class SearchEngine:
 
     def scan_merge(self, plan: SearchPlan, operands) -> SearchResult:
         """Whole-batch scan/merge over fetched operands (sync executor)."""
+        self.provision(plan)
         slot_cluster, vectors, attrs, ids, norms, scales = operands
         ids = self._mask_tombstones(plan, ids)
         self._count_scan(self._scan_key(
@@ -1585,9 +1677,17 @@ class SearchEngine:
             res = self._execute_pipelined(plan)
         else:
             res = self._sync_batch(plan)
+        return self._finish(plan, res)
+
+    def _finish(self, plan: SearchPlan, res: SearchResult) -> SearchResult:
+        """The batch's tail once its scan and merge are enqueued: the
+        partition rows, the delta fold, and the traffic recorder fed the
+        batch's filter bounds if its plan left them on their way."""
         self._note_partition_rows(plan, res)
         res = self._fold_delta(plan, res)
         self._note_degraded()
+        if plan.traffic_ticket is not None:
+            self._observations.drain(upto=plan.traffic_ticket)
         return res
 
     def _note_degraded(self):
@@ -1620,10 +1720,7 @@ class SearchEngine:
             res = self._execute_pipelined(plan)
         else:
             res = self._sync_batch(plan)
-        self._note_partition_rows(plan, res)
-        res = self._fold_delta(plan, res)
-        self._note_degraded()
-        return res
+        return self._finish(plan, res)
 
     def _tile_operands(self, plan: SearchPlan, i: int):
         """RAM-tier per-tile operands: the resident arrays and the tile's
@@ -1876,6 +1973,8 @@ class SearchEngine:
         ``partitions.subs``, ...), scalar values only."""
         out: Dict[str, Any] = {}
         eng = dataclasses.asdict(self.stats)
+        for key in _PORT_ONLY_STATS:
+            del eng[key]
         eng["overlap_ratio"] = self.stats.overlap_ratio
         eng["pipeline"] = self.pipeline
         eng["backend"] = self.backend
@@ -1901,19 +2000,24 @@ class SearchEngine:
             _flatten_metrics(out, "partitions", dict(
                 entries=cat.n_entries, subs=cat.n_subs,
                 catalog_bytes=cat.nbytes()))
-        if self._traffic is not None:
+        if self.traffic is not None:
             _flatten_metrics(out, "filter_traffic", self._traffic.stats())
         return out
 
     def metrics_text(self) -> str:
         """:meth:`metrics` in Prometheus text exposition format, plus the
-        per-stage latency histograms, the host-read counters and the span
-        totals (:mod:`~repro_torch.core.spans`)."""
+        port's own engine counters, the per-stage latency histograms, the
+        host-read counters and the span totals (:mod:`~repro_torch.core.
+        spans`)."""
+        port = {f"engine.{key}": getattr(self.stats, key)
+                for key in _PORT_ONLY_STATS}
         return (render_prometheus(self.metrics())
+                + render_prometheus(port)
                 + render_stage_histograms(self.tracer.stages)
                 + self.tracer.render())
 
     def close(self):
+        self._observations.drain()
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None

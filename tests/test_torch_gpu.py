@@ -609,7 +609,9 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, variant):
 def test_engine_tracer_times_scan_and_merge_on_the_card(cuda):
     """Off, the card's scan and merge observe nothing (a host clock would
     time the enqueue); on, their CUDA events' time, resolved without a
-    sync of their own, and the plan's three reads are counted either way."""
+    sync of their own.  The plan reads nothing to the host: the u_cap cut
+    and the traffic recorder read after it (``result.*``), counted either
+    way, and every plan counts as sync-free."""
     rng = np.random.default_rng(2)
     q = 37
     qs = torch.from_numpy(rng.standard_normal((q, 32)).astype(np.float32))
@@ -633,10 +635,63 @@ def test_engine_tracer_times_scan_and_merge_on_the_card(cuda):
         assert s["spans"][name]["device_s"] > 0, name
     assert s["spans"]["repro.plan"]["device_s"] is None
     assert s["reads"] == {site: n for site in (
-        "plan.route.lo", "plan.route.hi", "plan.provision")}
+        "result.provision", "result.traffic")}
     for stage in ("scan", "merge"):
         assert tr.stages[stage].total == n, stage
-    assert sum(tr.reads.values()) == 3 * (n + 1)
+    assert sum(tr.reads.values()) == 2 * (n + 1)
+    assert eng.stats.sync_free_plans == eng.stats.batches == n + 1
+
+
+@pytest.mark.parametrize("kind", ["none", "terms", "window"])
+def test_engine_two_in_flight_matches_one_at_a_time_on_the_card(cuda, kind):
+    """Batch i+1 planned before batch i's answers are read (its plan reads
+    nothing to the host) gives the answers, counts and u_cap cut of one
+    batch at a time with the plan's reads made in the plan; the time
+    window prunes, so there the deferred cut engages."""
+    rng = np.random.default_rng(3)
+    q, nb = 37, 4
+    index = _index("dot-bf16", cuda)
+    batches = []
+    for _ in range(nb):
+        qs = torch.from_numpy(rng.standard_normal((q, 32)).astype(np.float32))
+        lo = np.full((q, 2, 3), -32768, np.int16)
+        hi = np.full((q, 2, 3), 32767, np.int16)
+        if kind == "terms":  # two terms, nothing pruned
+            hi[:, 0, 1] = 7
+            lo[:, 1, 2] = 9
+        else:
+            lo[:, 1], hi[:, 1] = 1, 0  # a void second term
+        if kind == "window":  # topics 0-3 of 16
+            start = rng.integers(0, 300, q)
+            lo[:, 0, 0], hi[:, 0, 0] = start, start + 99
+        fspec = tf.FilterSpec(lo=torch.from_numpy(lo), hi=torch.from_numpy(hi))
+        batches.append((qs.to(cuda), fspec.to(cuda)))
+    kw = dict(k=10, n_probes=4, q_block=8, pipeline="off")
+    ref = teng.SearchEngine(index, **kw)
+    ref._defer_reads = False  # the plan-time reads, on the card
+    want = [ref.search(*b) for b in batches]
+    eng = teng.SearchEngine(index, **kw)
+    got = []
+    pend = eng.submit(*batches[0])
+    for i in range(nb):
+        res = eng.result(pend)
+        if i + 1 < nb:
+            pend = eng.submit(*batches[i + 1])
+        got.append(res)
+    for i, (w, g) in enumerate(zip(want, got)):
+        for f in ("scores", "ids", "n_scanned", "n_passed", "n_pruned"):
+            assert torch.equal(getattr(w, f), getattr(g, f)), (i, f)
+    assert dict(ref.tracer.reads) == {s: nb for s in (
+        "plan.route.lo", "plan.route.hi", "plan.provision")}
+    assert dict(eng.tracer.reads) == {s: nb for s in (
+        "result.provision", "result.traffic")}
+    assert eng.stats.sync_free_plans == nb and ref.stats.sync_free_plans == 0
+    assert eng.stats.u_cap_hist == ref.stats.u_cap_hist
+    if kind == "window":
+        assert eng.stats.last_u_cap < min(8 * 4, 16)
+    assert eng.traffic.stats() == ref.traffic.stats()
+    eng.close()
+    ref.close()
 
 
 @pytest.mark.parametrize("t", [1, 7, 32])
